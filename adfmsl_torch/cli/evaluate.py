@@ -1,0 +1,112 @@
+"""Evaluation CLI of the port: protocol -> score file -> EER / min-DCF / min t-DCF.
+
+    python -m adfmsl_torch.cli.evaluate --model_type maze5 --protocol P \
+        --data_dir D [--model_path CKPT_DIR] [--device cuda] ...
+
+Port of ``adfmsl/cli/evaluate.py``: rebuilds the architecture, loads the
+checkpoint (``model.pt`` written by ``adfmsl_torch.models.save_checkpoint``) or
+initialises randomly from ``--seed``, optionally smoke-tests a synthetic
+forward pass, streams the eval protocol, writes the score file and prints the
+metric dict. Runs on the card unless ``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+import numpy as np
+import torch
+
+
+def build_parser():
+    p = argparse.ArgumentParser("adfmsl_torch.cli.evaluate")
+    p.add_argument("--model_type", required=True, help="registry model name")
+    p.add_argument("--model_path", default=None,
+                   help="checkpoint dir holding model.pt (optional: random init)")
+    p.add_argument("--protocol", required=True)
+    p.add_argument("--data_dir", required=True)
+    p.add_argument("--output", default=None, help="score file path")
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--cut", type=int, default=None,
+                   help="override fixed clip length in samples (default 64600)")
+    p.add_argument("--no_drift", action="store_true")
+    p.add_argument("--no_fused_trunk", action="store_true",
+                   help="run the trunk unfolded instead of through the K1 kernel")
+    p.add_argument("--smoke_test", action="store_true",
+                   help="synthetic forward-pass check before evaluation")
+    p.add_argument("--asv_scores", default=None, metavar="FILE",
+                   help="organizers' ASV score file (target/nontarget/spoof "
+                        "keys): derives the ASV operating point so min_tdcf "
+                        "is the OFFICIAL computation")
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random init when no --model_path is given")
+    return p
+
+
+def smoke_test(model, cut: int) -> bool:
+    """Synthetic forward (Maze5_eval.py:269-320 analog): shapes + finiteness."""
+    dev = next(model.parameters()).device
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, cut)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        scores = model(x)["scores"].float().cpu().numpy()
+    ok = scores.shape == (2,) and bool(np.isfinite(scores).all())
+    logging.info("smoke test %s: scores %s", "OK" if ok else "FAILED", scores)
+    return ok
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.data import AsvspoofDataset, DataLoader, parse_protocol
+    from adfmsl_torch.device import resolve_device
+    from adfmsl_torch.evaluation import evaluate_to_file
+    from adfmsl_torch.models import SPECS, build_model, load_checkpoint
+
+    device = resolve_device(args.device)
+    state = None
+    if args.model_path:
+        # checkpoints carry their full config
+        exp, state = load_checkpoint(args.model_path)
+        if exp.model.name != args.model_type:
+            parser.error(f"--model_type {args.model_type} but the checkpoint "
+                         f"holds {exp.model.name}")
+        logging.info("loaded checkpoint config from %s", args.model_path)
+    else:
+        exp = make_experiment(args.model_type, drift=not args.no_drift)
+    if args.cut:
+        exp.data.cut = args.cut
+    spec = SPECS.get(args.model_type)
+    if spec is not None and spec.blocks:
+        # adfmsl/cli/evaluate.py:105-115: the folded bf16 trunk (kernel K1)
+        # unless the config promises f32 or reference-parity numerics
+        parity = (exp.model.architecture.block_semantics == "reference"
+                  or exp.model.architecture.sinc_formula == "reference"
+                  or exp.model.dtype == "float32")
+        exp.model.extra["fused_eval_trunk"] = not args.no_fused_trunk and not parity
+    model = build_model(exp.model, device=device, seed=args.seed)
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    proto = parse_protocol(args.protocol, exp.data.label_polarity)
+    ds = AsvspoofDataset(proto, args.data_dir, cut=exp.data.cut,
+                         pad_mode=exp.data.pad_mode, sample_rate=exp.data.sample_rate)
+    loader = DataLoader(ds, args.batch_size, shuffle=False, drop_last=False,
+                        prefetch=exp.data.prefetch)
+    if args.smoke_test and not smoke_test(model, exp.data.cut):
+        return 1
+    out_path = args.output or f"{args.model_type}_scores.txt"
+    res = evaluate_to_file(model, loader, out_path, labels=proto.labels or None,
+                           asv_scores=args.asv_scores)
+    if res.metrics:
+        print({k: round(v, 6) if isinstance(v, float) else v
+               for k, v in res.metrics.items()})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,35 @@
+from adfmsl_torch.config.base import (
+    ArchitectureConfig,
+    DataConfig,
+    ExperimentConfig,
+    FMSLConfig,
+    FrontendConfig,
+    LossConfig,
+    MeshConfig,
+    ModelConfig,
+    OptimizerConfig,
+    SpecAugmentConfig,
+    TrainConfig,
+    Wav2Vec2Config,
+    experiment_from_dict,
+)
+from adfmsl_torch.config.standardized import (
+    ALL_MODELS,
+    BASELINE_MODELS,
+    EXTRA_MODELS,
+    FMSL_DRIFT,
+    FMSL_MODELS,
+    FMSL_MODES,
+    OPT_DRIFT,
+    apply_overrides,
+    make_experiment,
+)
+
+__all__ = [
+    "ArchitectureConfig", "DataConfig", "ExperimentConfig", "FMSLConfig",
+    "FrontendConfig", "LossConfig", "MeshConfig", "ModelConfig", "OptimizerConfig",
+    "SpecAugmentConfig", "TrainConfig", "Wav2Vec2Config", "experiment_from_dict",
+    "ALL_MODELS", "BASELINE_MODELS", "EXTRA_MODELS", "FMSL_DRIFT", "FMSL_MODELS",
+    "FMSL_MODES", "OPT_DRIFT", "apply_overrides",
+    "make_experiment",
+]

@@ -1,0 +1,196 @@
+"""Host-side input pipeline: path resolution, decode+pad, fixed-shape batching,
+threaded prefetch (the port's copy of ``adfmsl/data/pipeline.py``, without
+the native-IO branch, adfmsl's fuzzy file discovery and its per-host
+sharding, which no path of the port uses yet).
+
+Replaces the reference's per-model torch ``Dataset``/``DataLoader`` copies
+(maze2.py:244-302 and 13 near-duplicates). Differences by design:
+- fixed static batch shapes always (XLA contract); the final eval batch is padded and
+  carries a validity mask so the 71,237-utterance protocol keeps exact count
+  (SURVEY.md section 7 risk list);
+- decode runs in a background prefetch thread so the device never waits on the
+  host;
+- missing files produce zero-filled samples with a warning, mirroring the reference's
+  failure tolerance (maze2.py:272-273).
+"""
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from adfmsl_torch.data.audio import load_audio
+from adfmsl_torch.data.pad import pad
+from adfmsl_torch.data.protocol import Protocol
+
+log = logging.getLogger(__name__)
+
+_EXTS = (".flac", ".wav")
+
+
+def resolve_audio_path(base_dir: str, utt_id: str) -> Optional[str]:
+    """Probe the directory layouts the reference supports (maze2.py:254-265:
+    <base>/LA/flac/, <base>/flac/, <base>/) for .flac or .wav."""
+    for sub in (("LA", "flac"), ("flac",), ()):
+        for ext in _EXTS:
+            p = os.path.join(base_dir, *sub, utt_id + ext)
+            if os.path.exists(p):
+                return p
+    return None
+
+
+@dataclass
+class Batch:
+    """One fixed-shape batch. ``mask`` marks real (non-padding) rows."""
+
+    audio: np.ndarray          # [B, cut] float32
+    label: np.ndarray          # [B] int32 (zeros when unlabeled)
+    mask: np.ndarray           # [B] bool
+    utt_ids: List[str]
+
+
+class AsvspoofDataset:
+    """Maps utt_ids -> (decoded, padded waveform, label)."""
+
+    def __init__(
+        self,
+        protocol: Protocol,
+        base_dir: str,
+        cut: int = 64600,
+        pad_mode: str = "tile",
+        sample_rate: int = 16000,
+    ):
+        self.protocol = protocol
+        self.base_dir = base_dir
+        self.cut = cut
+        self.pad_mode = pad_mode
+        self.sample_rate = sample_rate
+        self._labels = protocol.labels
+        self._warned = 0
+
+    def __len__(self) -> int:
+        return len(self.protocol)
+
+    def _resolve(self, utt_id: str) -> Optional[str]:
+        path = resolve_audio_path(self.base_dir, utt_id)
+        if path is None and self._warned < 20:
+            log.warning("missing audio for %s under %s; using zeros", utt_id,
+                        self.base_dir)
+            self._warned += 1
+        return path
+
+    def load(self, utt_id: str) -> Tuple[np.ndarray, int]:
+        path = self._resolve(utt_id)
+        if path is None:
+            return np.zeros(self.cut, dtype=np.float32), self._labels.get(utt_id, 0)
+        x, _ = load_audio(path, self.sample_rate)
+        return pad(x, self.cut, self.pad_mode).astype(np.float32), self._labels.get(utt_id, 0)
+
+    def load_batch(self, ids: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """Decode+pad a whole batch."""
+        labels = np.asarray([self._labels.get(u, 0) for u in ids], dtype=np.int32)
+        audio = np.stack([self.load(u)[0] for u in ids]) if ids else (
+            np.zeros((0, self.cut), dtype=np.float32))
+        return audio, labels
+
+
+def _make_batch(ds: AsvspoofDataset, ids: Sequence[str], batch_size: int) -> Batch:
+    audio = np.zeros((batch_size, ds.cut), dtype=np.float32)
+    label = np.zeros(batch_size, dtype=np.int32)
+    mask = np.zeros(batch_size, dtype=bool)
+    if ids:
+        a, y = ds.load_batch(ids)
+        audio[: len(ids)], label[: len(ids)], mask[: len(ids)] = a, y, True
+    return Batch(audio, label, mask, list(ids) + [""] * (batch_size - len(ids)))
+
+
+class DataLoader:
+    """Seeded-shuffle, fixed-shape, prefetching batch iterator."""
+
+    def __init__(
+        self,
+        dataset: AsvspoofDataset,
+        batch_size: int,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        seed: int = 1234,
+        prefetch: int = 4,
+    ):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.prefetch = prefetch
+        self.epoch = 0
+        self.ids = dataset.protocol.utt_ids
+
+    def _epoch_ids(self) -> List[str]:
+        ids = list(self.ids)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self.epoch)
+            rng.shuffle(ids)
+        return ids
+
+    def __len__(self) -> int:
+        n = len(self.ids)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[Batch]:
+        ids = self._epoch_ids()
+        self.epoch += 1
+        chunks = []
+        for i in range(0, len(ids), self.batch_size):
+            chunk = ids[i : i + self.batch_size]
+            if len(chunk) < self.batch_size and self.drop_last:
+                continue
+            chunks.append(chunk)
+        if self.prefetch <= 0:
+            for c in chunks:
+                yield _make_batch(self.ds, c, self.batch_size)
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """Bounded put that keeps checking stop — a worker blocked forever
+            in q.put() would never see an early-abandoning consumer (e.g.
+            next(iter(loader))) and leak the thread + prefetched batches."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for c in chunks:
+                    if stop.is_set():
+                        return
+                    if not put(_make_batch(self.ds, c, self.batch_size)):
+                        return
+            except Exception as e:  # surface decoder errors on the consumer side
+                put(e)
+            finally:
+                put(None)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()

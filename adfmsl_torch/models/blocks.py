@@ -1,0 +1,160 @@
+"""SE-residual trunk blocks (port of ``adfmsl/models/blocks.py``).
+
+Ported: ``SEBlock`` (:26), ``ResBlockSE`` in its 'tpu' semantics (:223-269)
+with its folded eval body (:310-350), and ``ResStack`` (:353). Public
+functions keep adfmsl's (B, T, C) channels-last layout; a (B, C, T) view
+exists only around ``conv1d`` / ``avg_pool1d`` calls.
+
+BatchNorm semantics: see ``adfmsl_torch/ops/norm.py``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from adfmsl_torch.ops.norm import batch_norm, bn_eval
+from adfmsl_torch.ops.resblock_fused import fold_block_params, resblock_eval
+
+_TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``lecun_normal``: truncated normal, variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+def init_like_flax_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Re-initialise convs and linears with adfmsl's initialisers (lecun_normal
+    kernels, zero biases) and BatchNorms with ones/zeros and fresh stats."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv1d, nn.Linear)):
+            fan_in = m.weight[0].numel()              # Cin*K or in_features
+            with torch.no_grad():
+                lecun_normal_(m.weight, fan_in, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm1d):
+            m.reset_parameters()
+
+
+def conv_nhc(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype) -> torch.Tensor:
+    """SAME conv of a (B, T, C) tensor in ``dtype`` (flax ``nn.Conv(dtype=...)``
+    casts input, kernel and bias to it)."""
+    w = conv.weight.to(dtype)
+    b = conv.bias.to(dtype) if conv.bias is not None else None
+    y = F.conv1d(x.transpose(1, 2).to(dtype), w, b, padding=conv.kernel_size[0] // 2)
+    return y.transpose(1, 2)
+
+
+def overlap_avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """AvgPool(2s-1, s, pad s-1) over time, counting pads (flax ``avg_pool``
+    divides by the full window): (B, T, C) -> (B, ceil(T/s), C)."""
+    y = F.avg_pool1d(x.transpose(1, 2), 2 * stride - 1, stride, stride - 1,
+                     count_include_pad=True)
+    return y.transpose(1, 2).contiguous()
+
+
+class SEBlock(nn.Module):
+    """Squeeze-excitation over the time axis; reduction 16, bias-free
+    (maze4.py:149-163)."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.fc1 = nn.Linear(channels, hidden, bias=False)
+        self.fc2 = nn.Linear(hidden, channels, bias=False)
+
+    def gate(self, pooled: torch.Tensor) -> torch.Tensor:
+        """(B, C) f32 time-mean -> (B, C) f32 gate."""
+        return torch.sigmoid(self.fc2(torch.relu(self.fc1(pooled))))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # mean in f32; the gate goes back to trunk width before the multiply
+        g = self.gate(x.float().mean(dim=1))
+        return x * g[:, None, :].to(x.dtype)
+
+
+class ResBlockSE(nn.Module):
+    """'tpu'-semantics pre-activation residual block: the overlap avg pool
+    downsamples the raw block input first; then BN -> ReLU -> Conv(k3) -> BN ->
+    ReLU -> Conv(k3), plus a BN-free identity skip (a 1x1 conv on a channel
+    change only), then SE. ``first`` drops the leading BN/ReLU (stack head).
+
+    With ``fused_eval`` and a bf16 trunk the body runs folded: BN stats become
+    per-channel affines (``fold_block_params``, recomputed every forward so a
+    later ``load_state_dict`` is never stale) and ``resblock_eval`` runs the
+    whole body as one kernel (K1) returning the output and its f32 channel
+    sums, which feed the SE gate."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 first: bool = False, use_se: bool = True,
+                 fused_eval: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.stride = stride
+        self.first = first
+        self.fused_eval = fused_eval
+        self.dtype = dtype
+        if not first:
+            self.bn1 = batch_norm(in_channels)
+        self.conv1 = nn.Conv1d(in_channels, out_channels, 3, padding=1)
+        self.bn2 = batch_norm(out_channels)
+        self.conv2 = nn.Conv1d(out_channels, out_channels, 3, padding=1)
+        if in_channels != out_channels:
+            self.downsample = nn.Conv1d(in_channels, out_channels, 1)
+        self.se = SEBlock(out_channels) if use_se else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stride > 1:
+            x = overlap_avg_pool(x, self.stride)
+        if self.fused_eval and self.dtype == torch.bfloat16:
+            return self._fused_eval_body(x)
+        dt = self.dtype
+        h = x
+        if not self.first:
+            h = torch.relu(bn_eval(h, self.bn1, dt))
+        h = conv_nhc(h, self.conv1, dt)
+        h = torch.relu(bn_eval(h, self.bn2, dt))
+        h = conv_nhc(h, self.conv2, dt)
+        skip = x.to(dt)
+        if self.in_channels != self.out_channels:
+            skip = conv_nhc(x, self.downsample, dt)
+        out = h + skip
+        return self.se(out) if self.se is not None else out
+
+    def _fused_eval_body(self, x: torch.Tensor) -> torch.Tensor:
+        tensors = dict(self.named_parameters())
+        tensors.update(self.named_buffers())
+        pre, w1, b1, w2, bt, skw = fold_block_params(tensors, first=self.first)
+        y, sums = resblock_eval(x.to(torch.bfloat16).contiguous(),
+                                pre, w1, b1, w2, bt, skw)
+        if self.se is not None:
+            gate = self.se.gate(sums / x.shape[1])
+            y = y * gate[:, None, :].to(y.dtype)
+        return y
+
+
+class ResStack(nn.Module):
+    """A stack of ResBlockSE with per-block (in, out, stride), named block{i}."""
+
+    def __init__(self, specs: Sequence[tuple], use_se: bool = True,
+                 fused_eval: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_blocks = len(specs)
+        for i, (cin, cout, stride) in enumerate(specs):
+            self.add_module(f"block{i}", ResBlockSE(
+                cin, cout, stride, first=(i == 0), use_se=use_se,
+                fused_eval=fused_eval, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_blocks):
+            x = getattr(self, f"block{i}")(x)
+        return x

@@ -1,0 +1,100 @@
+"""Weights across the two packages, and the port's checkpoint files.
+
+``state_dict_from_flax`` turns adfmsl's flax trees (as nested dicts of numpy
+arrays) into a state dict that the port's ``MazeModel`` accepts with
+``load_state_dict(strict=True)``. Module names follow the flax tree:
+``sinc``, ``first_bn``, ``trunk.block{i}.{bn1,conv1,bn2,conv2,downsample,se}``,
+``fc1``, ``fc2``, ``fmsl.{proj,proj_bn,prototypes,weight,temperature}``.
+
+Layouts: a flax conv kernel (K, Cin, Cout) becomes a torch weight (Cout, Cin, K);
+a Dense kernel (in, out) a Linear weight (out, in); BatchNorm scale/bias and
+batch_stats mean/var become weight/bias/running_mean/running_var, with
+num_batches_tracked 0.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from collections import OrderedDict
+from typing import Any, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from adfmsl_torch.config.base import ExperimentConfig, experiment_from_dict
+
+CHECKPOINT_FILE = "model.pt"
+
+
+def _walk(params: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
+          out: "OrderedDict[str, torch.Tensor]") -> int:
+    """Convert one level of the tree; returns the number of leaves consumed
+    (params and batch_stats together)."""
+    n = 0
+    for name, node in params.items():
+        key = f"{prefix}{name}"
+        sub_stats = stats.get(name, {}) if stats else {}
+        if not isinstance(node, Mapping):                  # a bare parameter
+            out[key] = torch.from_numpy(np.array(node, dtype=np.float32))
+            n += 1
+        elif "kernel" in node:                             # conv or Dense
+            k = np.asarray(node["kernel"], dtype=np.float32)
+            w = k.transpose(2, 1, 0) if k.ndim == 3 else k.T
+            out[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
+            n += 1
+            if "bias" in node:
+                out[f"{key}.bias"] = torch.from_numpy(
+                    np.array(node["bias"], dtype=np.float32))
+                n += 1
+        elif "scale" in node:                              # BatchNorm
+            out[f"{key}.weight"] = torch.from_numpy(np.array(node["scale"], np.float32))
+            out[f"{key}.bias"] = torch.from_numpy(np.array(node["bias"], np.float32))
+            out[f"{key}.running_mean"] = torch.from_numpy(
+                np.array(sub_stats["mean"], np.float32))
+            out[f"{key}.running_var"] = torch.from_numpy(
+                np.array(sub_stats["var"], np.float32))
+            out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+            n += 4
+        else:
+            n += _walk(node, sub_stats, f"{key}.", out)
+    return n
+
+
+def _count(tree: Mapping[str, Any]) -> int:
+    return sum(_count(v) if isinstance(v, Mapping) else 1 for v in tree.values())
+
+
+def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                         model_name: str) -> "OrderedDict[str, torch.Tensor]":
+    """adfmsl ``MazeModel`` variables of ``model_name`` -> the port's state dict.
+    Raises if the model is not ported or a leaf of either tree was not used."""
+    from adfmsl_torch.models.mazes import SPECS
+
+    if model_name not in SPECS:
+        raise KeyError(f"model {model_name!r} is not ported; ported: {sorted(SPECS)}")
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    used = _walk(params, batch_stats or {}, "", out)
+    total = _count(params) + _count(batch_stats or {})
+    if used != total:
+        raise ValueError(f"{model_name}: converted {used} of {total} flax leaves")
+    return out
+
+
+def save_checkpoint(path: str, exp: ExperimentConfig, model: torch.nn.Module) -> str:
+    """Write ``path/model.pt``: the experiment config (a plain dict) and the
+    model's state dict. Returns the file's path."""
+    os.makedirs(path, exist_ok=True)
+    f = os.path.join(path, CHECKPOINT_FILE)
+    torch.save({"config": dataclasses.asdict(exp),
+                "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
+               f)
+    return f
+
+
+def load_checkpoint(path: str, map_location: Optional[Union[str, torch.device]] = "cpu"
+                    ) -> Tuple[ExperimentConfig, "OrderedDict[str, torch.Tensor]"]:
+    """Read ``path/model.pt`` -> (experiment config, state dict). Loads with
+    ``weights_only=True``: the file holds tensors and plain containers only."""
+    obj = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=map_location,
+                     weights_only=True)
+    return experiment_from_dict(obj["config"]), obj["state_dict"]

@@ -1,0 +1,79 @@
+"""Trainable sinc band-pass filterbank (SincNet / RawNet front end), vectorized.
+
+Port of ``adfmsl/ops/sinc.py``: ``sinc_init`` (:38), ``_nsinc`` (:48),
+``sinc_filters`` (:54, both formulas) and ``sinc_conv_nhc`` (:147) as one
+``F.conv1d``. adfmsl's other executors (block-GEMM, space-to-depth, time
+segments, abs-pool3) are TPU layout choices or RawNet's, and are not ported
+here.
+
+Parity note: the reference computes ``2*f * torch.sinc(2*f*pi*n)`` where
+``torch.sinc(x) = sin(pi x)/(pi x)`` — i.e. the pi lands INSIDE the normalised sinc,
+scaling the effective cutoff by pi vs the textbook band-pass.
+``formula='textbook'`` (default) gives the standard windowed-sinc band-pass;
+``'reference'`` reproduces the reference's (nearly flat) behaviour.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from adfmsl_torch.ops.mel import hz_to_mel, mel_to_hz
+from adfmsl_torch.ops.window import hann
+
+
+def sinc_init(out_channels: int, sample_rate: int = 16000, min_low_hz: float = 50.0,
+              min_band_hz: float = 50.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Mel-spaced initial (low_hz, band_hz) params — maze4.py:68-78 semantics:
+    mel-linspace from 30 Hz to sr/2 - (min_low+min_band), low=edges[:-1], band=diff."""
+    low_hz, high_hz = 30.0, sample_rate / 2.0 - (min_low_hz + min_band_hz)
+    mel = np.linspace(hz_to_mel(low_hz), hz_to_mel(high_hz), out_channels + 1)
+    hz = mel_to_hz(mel)
+    return hz[:-1].astype(np.float32), np.diff(hz).astype(np.float32)
+
+
+def _nsinc(x: torch.Tensor) -> torch.Tensor:
+    """Normalised sinc: sin(pi x)/(pi x), 1 at 0 (guarded like adfmsl's)."""
+    px = math.pi * x
+    return torch.where(x.abs() < 1e-9, torch.ones_like(x),
+                       torch.sin(px) / torch.where(px == 0, torch.ones_like(px), px))
+
+
+def sinc_filters(low_hz: torch.Tensor, band_hz: torch.Tensor, kernel_size: int,
+                 sample_rate: int = 16000, min_low_hz: float = 50.0,
+                 min_band_hz: float = 50.0, formula: str = "textbook") -> torch.Tensor:
+    """Synthesize (out_channels, kernel_size) band-pass filters from learnable params.
+    An even ``kernel_size`` is bumped by one, as in adfmsl."""
+    if kernel_size % 2 == 0:
+        kernel_size += 1
+    half = (kernel_size - 1) / 2.0
+    dev = low_hz.device
+    n = (torch.arange(kernel_size, dtype=torch.float32, device=dev) - half) / sample_rate
+    window = torch.from_numpy(hann(kernel_size, periodic=False)).to(dev)
+
+    low = min_low_hz + low_hz.abs()                                     # (C,)
+    high = torch.clamp(low + min_band_hz + band_hz.abs(), min_low_hz, sample_rate / 2.0)
+    f_lo = (low / sample_rate)[:, None]                                  # (C,1)
+    f_hi = (high / sample_rate)[:, None]
+    if formula == "reference":
+        # maze4.py:93-95: h = 2*f_norm * torch.sinc(2*f_norm*pi*n_)
+        h_hi = 2.0 * f_hi * _nsinc(2.0 * f_hi * math.pi * n[None, :])
+        h_lo = 2.0 * f_lo * _nsinc(2.0 * f_lo * math.pi * n[None, :])
+    elif formula == "textbook":
+        # standard: h(n) = 2 f_hi sinc(2 f_hi n sr) - 2 f_lo sinc(2 f_lo n sr)
+        h_hi = 2.0 * f_hi * _nsinc(2.0 * f_hi * sample_rate * n[None, :])
+        h_lo = 2.0 * f_lo * _nsinc(2.0 * f_lo * sample_rate * n[None, :])
+    else:
+        raise ValueError(f"unknown sinc formula {formula!r}")
+    return window[None, :] * (h_hi - h_lo)
+
+
+def sinc_conv_nhc(x: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
+    """Stride-1 VALID filterbank conv: (B, T) x (C, K) -> (B, T-K+1, C),
+    channels-last like the trunk. ``F.conv1d`` is a cross-correlation, as
+    ``lax.conv`` is, so the filters are not flipped."""
+    out = F.conv1d(x[:, None, :], filters[:, None, :])        # (B, C, T')
+    return out.transpose(1, 2)

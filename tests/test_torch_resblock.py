@@ -1,0 +1,158 @@
+"""K1 (folded eval SE-ResBlock body) in the port vs adfmsl.
+
+The port's plain version (adfmsl_torch.ops.resblock_fused.resblock_eval_plain)
+is held against adfmsl's Pallas kernel in interpret mode and its f32 XLA
+reference, on test_pallas.py's cases plus a LeakyReLU / MaxPool3 one, at
+test_pallas.py's tolerance (rtol 2e-2, atol 2e-2 * max). The CUDA kernel is
+held against the plain version on the card (marker ``cuda``).
+
+JAX is imported inside the tests that compare with adfmsl, so that the card
+tests also run on a machine without JAX:
+    python -m pytest --noconftest -q tests/test_torch_resblock.py -m cuda
+"""
+import numpy as np
+import pytest
+import torch
+
+from adfmsl_torch.ops import resblock_fused as rf
+
+CASES = [  # (B, T, Cin, Cout), first, skip, act, pool
+    ((2, 100, 128, 128), True, False, "relu", 1),     # stack head, identity skip
+    ((2, 300, 128, 128), False, False, "relu", 1),    # ragged T vs the row tile
+    ((1, 77, 128, 256), False, True, "relu", 1),      # channel change -> 1x1 skip
+    ((2, 151, 128, 128), False, False, "leaky", 3),   # RawNet block, T % 3 != 0
+]
+IDS = ["head", "ragged", "skip1x1", "leaky_pool3"]
+
+
+def _rand_block(rng, cin, cout, first, skip):
+    pre = None if first else (rng.standard_normal((2, cin)).astype(np.float32) * 0.1
+                              + np.array([[1.0], [0.0]], np.float32))
+    w1 = rng.standard_normal((3, cin, cout)).astype(np.float32) * .05
+    b1 = rng.standard_normal((cout,)).astype(np.float32) * 0.1
+    w2 = rng.standard_normal((3, cout, cout)).astype(np.float32) * .05
+    bt = rng.standard_normal((cout,)).astype(np.float32) * 0.1
+    skw = rng.standard_normal((cin, cout)).astype(np.float32) * .1 if skip else None
+    return pre, w1, b1, w2, bt, skw
+
+
+def _torch(a):
+    return None if a is None else torch.from_numpy(np.asarray(a))
+
+
+def _close(got, ref, scale_from):
+    np.testing.assert_allclose(got, ref, rtol=2e-2,
+                               atol=2e-2 * float(np.abs(scale_from).max()))
+
+
+@pytest.mark.parametrize("shape,first,skip,act,pool", CASES, ids=IDS)
+def test_plain_matches_pallas_and_reference(shape, first, skip, act, pool):
+    jnp = pytest.importorskip("jax.numpy")
+    from adfmsl.ops.pallas.resblock_fused import (resblock_eval_fused,
+                                                  resblock_eval_reference)
+
+    rng = np.random.default_rng(7)
+    b, t, cin, cout = shape
+    x = rng.standard_normal((b, t, cin)).astype(np.float32)
+    args = _rand_block(rng, cin, cout, first, skip)
+    jargs = [None if a is None else jnp.asarray(a) for a in args]
+    yp, sp = resblock_eval_fused(jnp.asarray(x), *jargs, rows=48, act=act, pool=pool,
+                                 interpret=True)
+    yr, sr = resblock_eval_reference(jnp.asarray(x), *jargs, act=act, pool=pool)
+    y, s = rf.resblock_eval_plain(torch.from_numpy(x), *map(_torch, args),
+                                  act=act, pool=pool)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    assert tuple(y.shape) == (b, t // pool, cout) and tuple(s.shape) == (b, cout)
+    y, s = y.float().numpy(), s.numpy()
+    yp, sp = np.asarray(yp, np.float32), np.asarray(sp)
+    yr, sr = np.asarray(yr), np.asarray(sr)
+    _close(y, yp, yr)
+    _close(s, sp, sr)
+    _close(y, yr, yr)
+    _close(s, sr, sr)
+
+
+@pytest.mark.parametrize("first,skip", [(True, False), (False, False), (False, True)],
+                         ids=["head", "identity", "skip1x1"])
+def test_fold_block_params_matches_adfmsl(first, skip):
+    pytest.importorskip("jax")
+    from adfmsl.ops.pallas.resblock_fused import fold_block_params as jax_fold
+
+    rng = np.random.default_rng(3)
+    cin, cout = 128, 256 if skip else 128
+
+    def bn(c):
+        p = {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+             "bias": rng.standard_normal(c).astype(np.float32) * 0.1}
+        s = {"mean": rng.standard_normal(c).astype(np.float32) * 0.3,
+             "var": rng.uniform(0.1, 1.0, c).astype(np.float32)}
+        return p, s
+
+    def conv(k, ci, co):
+        return {"kernel": rng.standard_normal((k, ci, co)).astype(np.float32) * .05,
+                "bias": rng.standard_normal(co).astype(np.float32) * 0.1}
+
+    params, stats = {}, {}
+    if not first:
+        params["bn1"], stats["bn1"] = bn(cin)
+    params["conv1"] = conv(3, cin, cout)
+    params["bn2"], stats["bn2"] = bn(cout)
+    params["conv2"] = conv(3, cout, cout)
+    if skip:
+        params["downsample"] = conv(1, cin, cout)
+    ref = jax_fold(params, stats, first=first)
+
+    t = {}
+    for name, p in params.items():
+        if "kernel" in p:
+            t[f"{name}.weight"] = torch.from_numpy(p["kernel"].transpose(2, 1, 0).copy())
+            t[f"{name}.bias"] = torch.from_numpy(p["bias"])
+        else:
+            t[f"{name}.weight"] = torch.from_numpy(p["scale"])
+            t[f"{name}.bias"] = torch.from_numpy(p["bias"])
+            t[f"{name}.running_mean"] = torch.from_numpy(stats[name]["mean"])
+            t[f"{name}.running_var"] = torch.from_numpy(stats[name]["var"])
+    got = rf.fold_block_params(t, first=first)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if r is not None:
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6, atol=1e-6)
+
+
+def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((1, 40, 128)).astype(np.float32))
+    args = [_torch(a) for a in _rand_block(rng, 128, 128, False, False)]
+    before = rf.resblock_eval.launches
+    y, s = rf.resblock_eval(x.bfloat16(), *args)
+    yp, sp = rf.resblock_eval_plain(x.bfloat16(), *args)
+    assert torch.equal(y, yp) and torch.equal(s, sp)
+    assert rf.resblock_eval.launches == before          # no kernel ran
+    with pytest.raises(ValueError):
+        rf.resblock_eval(x.to("meta"), *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,first,skip,act,pool", CASES, ids=IDS)
+def test_kernel_matches_plain_on_card(shape, first, skip, act, pool, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K1 kernel has no CPU form")
+    rng = np.random.default_rng(11)
+    b, t, cin, cout = shape
+    x = torch.from_numpy(rng.standard_normal((b, t, cin)).astype(np.float32))
+    x = x.cuda().bfloat16()
+    args = [None if a is None else _torch(a).cuda()
+            for a in _rand_block(rng, cin, cout, first, skip)]
+    # the plain version in exact f32: no TF32 in cuDNN convs or cuBLAS matmuls
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    yp, sp = rf.resblock_eval_plain(x, *args, act=act, pool=pool)
+    before = rf.resblock_eval.launches
+    y, s = rf.resblock_eval(x, *args, act=act, pool=pool)
+    torch.cuda.synchronize()
+    assert rf.resblock_eval.launches == before + 1
+    yp, sp = yp.float().cpu().numpy(), sp.cpu().numpy()
+    np.testing.assert_allclose(y.float().cpu().numpy(), yp, rtol=0,
+                               atol=2e-2 * float(np.abs(yp).max()))
+    np.testing.assert_allclose(s.cpu().numpy(), sp, rtol=0,
+                               atol=1e-3 * float(np.abs(sp).max()))
