@@ -1,7 +1,7 @@
 """Evaluation CLI of the port: protocol -> score file -> EER / min-DCF / min t-DCF.
 
-    python -m adfmsl_torch.cli.evaluate --model_type maze5 --protocol P \
-        --data_dir D [--model_path CKPT_DIR] [--device cuda] ...
+    python -m adfmsl_torch.cli.evaluate --model_type maze5|main|... --protocol P \
+        --data_dir D [--model_path CKPT_DIR] [--fused_frontend] [--device cuda] ...
 
 Port of ``adfmsl/cli/evaluate.py``: rebuilds the architecture, loads the
 checkpoint (``model.pt`` written by ``adfmsl_torch.models.save_checkpoint``) or
@@ -31,6 +31,11 @@ def build_parser():
     p.add_argument("--cut", type=int, default=None,
                    help="override fixed clip length in samples (default 64600)")
     p.add_argument("--no_drift", action="store_true")
+    p.add_argument("--fused_frontend", action="store_true",
+                   help="run the RawNet front end through the K3 kernel at "
+                        "batches of at most 16 (rawnet models)")
+    p.add_argument("--no_fused_frontend", action="store_true",
+                   help="(compatibility no-op: the fused front end is opt-in)")
     p.add_argument("--no_fused_trunk", action="store_true",
                    help="run the trunk unfolded instead of through the K1 kernel")
     p.add_argument("--smoke_test", action="store_true",
@@ -55,6 +60,21 @@ def smoke_test(model, cut: int) -> bool:
     ok = scores.shape == (2,) and bool(np.isfinite(scores).all())
     logging.info("smoke test %s: scores %s", "OK" if ok else "FAILED", scores)
     return ok
+
+
+def set_fused_extras(exp, spec, fused_frontend: bool, fused_trunk: bool) -> None:
+    """adfmsl's rule (cli/evaluate.py:105-115) for the eval kernels: the K3
+    front end of a RawNet model if ``fused_frontend``, the folded K1 trunk if
+    ``fused_trunk``; neither when the config promises f32 or reference-parity
+    numerics."""
+    model = exp.model
+    parity = (model.architecture.block_semantics == "reference"
+              or model.architecture.sinc_formula == "reference"
+              or model.dtype == "float32")
+    if spec.frontend == "rawnet":
+        model.extra["fused_eval_frontend"] = fused_frontend and not parity
+    if spec.blocks or spec.frontend == "rawnet":
+        model.extra["fused_eval_trunk"] = fused_trunk and not parity
 
 
 def main(argv=None) -> int:
@@ -82,13 +102,10 @@ def main(argv=None) -> int:
     if args.cut:
         exp.data.cut = args.cut
     spec = SPECS.get(args.model_type)
-    if spec is not None and spec.blocks:
-        # adfmsl/cli/evaluate.py:105-115: the folded bf16 trunk (kernel K1)
-        # unless the config promises f32 or reference-parity numerics
-        parity = (exp.model.architecture.block_semantics == "reference"
-                  or exp.model.architecture.sinc_formula == "reference"
-                  or exp.model.dtype == "float32")
-        exp.model.extra["fused_eval_trunk"] = not args.no_fused_trunk and not parity
+    if spec is not None:
+        set_fused_extras(exp, spec,
+                         fused_frontend=args.fused_frontend and not args.no_fused_frontend,
+                         fused_trunk=not args.no_fused_trunk)
     model = build_model(exp.model, device=device, seed=args.seed)
     if state is not None:
         model.load_state_dict(state, strict=True)

@@ -4,7 +4,7 @@ Projection MLP -> L2 hypersphere normalisation, with AM-Softmax angular-margin
 logits against a normalised class-weight matrix and cosine similarities to
 learnable spoof prototypes (fmsl_advanced.py:103-359). This slice ports the
 forward; the loss branch (adfmsl heads/fmsl.py:97-113) comes with training
-(ROADMAP slice 2).
+(ROADMAP slice 3).
 """
 from __future__ import annotations
 

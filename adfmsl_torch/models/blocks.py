@@ -1,7 +1,8 @@
 """SE-residual trunk blocks (port of ``adfmsl/models/blocks.py``).
 
 Ported: ``SEBlock`` (:26), ``ResBlockSE`` in its 'tpu' semantics (:223-269)
-with its folded eval body (:310-350), and ``ResStack`` (:353). Public
+with its folded eval body (:310-350), ``ResStack`` (:353) and the single-layer
+``GRU`` (:548) that returns its last hidden state. Public
 functions keep adfmsl's (B, T, C) channels-last layout; a (B, C, T) view
 exists only around ``conv1d`` / ``avg_pool1d`` calls.
 
@@ -158,3 +159,67 @@ class ResStack(nn.Module):
         for i in range(self.n_blocks):
             x = getattr(self, f"block{i}")(x)
         return x
+
+
+class _GRUCell(nn.Module):
+    """Parameter twin of flax's ``GRUCell`` as adfmsl lays it out
+    (``_GRUCellParams`` :527, ``_GateParams`` :506): input gates ir/iz/in with
+    biases, recurrent gates hr/hz without and hn with one."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        for g in ("ir", "iz", "in"):
+            self.add_module(g, nn.Linear(in_features, hidden))
+        self.hr = nn.Linear(hidden, hidden, bias=False)
+        self.hz = nn.Linear(hidden, hidden, bias=False)
+        self.hn = nn.Linear(hidden, hidden)
+
+
+class GRU(nn.Module):
+    """One unidirectional GRU layer over (B, T, C) that returns only the last
+    hidden state (B, H), as RawNet consumes it (adfmsl ``GRU`` with
+    ``layers=1, return_sequences=False``).
+
+    The gate math is flax's ``GRUCell`` (adfmsl :591-595):
+    ``n = tanh(x_n + r * (h_n + b_hn))`` with r/z biases on the input side
+    only. ``nn.GRU`` places its biases and orders its gates otherwise
+    (``adfmsl/models/port.py:185``), so it is not used. The input projection
+    of every step runs as one product before the loop, as adfmsl hoists it
+    (:586); the recurrence is a Python loop of one (B, H) x (H, 3H) product a
+    step."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.cell = _GRUCell(in_features, hidden)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """adfmsl's initialisers: lecun_normal input kernels, orthogonal
+        recurrent kernels, zero biases."""
+        with torch.no_grad():
+            for g in ("ir", "iz", "in", "hr", "hz", "hn"):
+                lin = getattr(self.cell, g)
+                if g.startswith("h"):
+                    nn.init.orthogonal_(lin.weight, generator=generator)
+                else:
+                    lecun_normal_(lin.weight, lin.in_features, generator)
+                if lin.bias is not None:
+                    lin.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hd = self.hidden
+        gi = [getattr(self.cell, g) for g in ("ir", "iz", "in")]
+        gh = [getattr(self.cell, g) for g in ("hr", "hz", "hn")]
+        wi = torch.cat([g.weight for g in gi])                    # (3H, C)
+        bi = torch.cat([g.bias for g in gi])
+        wh = torch.cat([g.weight for g in gh]).T                  # (H, 3H)
+        bhn = self.cell.hn.bias
+        xi = x @ wi.T + bi                                        # (B, T, 3H)
+        h = xi.new_zeros((x.shape[0], hd))
+        for t in range(x.shape[1]):
+            xt, hh = xi[:, t], h @ wh
+            r = torch.sigmoid(xt[:, :hd] + hh[:, :hd])
+            z = torch.sigmoid(xt[:, hd:2 * hd] + hh[:, hd:2 * hd])
+            n = torch.tanh(xt[:, 2 * hd:] + r * (hh[:, 2 * hd:] + bhn))
+            h = (1.0 - z) * n + z * h
+        return h

@@ -1,13 +1,16 @@
-"""The maze models: port of ``adfmsl/models/mazes.py`` for the sinc family.
+"""The maze models: port of ``adfmsl/models/mazes.py`` for the sinc and RawNet
+families.
 
-This slice ports ``MazeSpec``, ``MazeModel``'s sinc front end, trunk, pooling,
-classifier and FMSL 'refine' head with the scores (adfmsl :95-273), and the
-``SPECS`` of ``maze5`` / ``maze5_fmsl``. Other registry names raise and name
-the ROADMAP slice that brings them.
+Ported: ``MazeSpec``, ``MazeModel``'s sinc front end and trunk, the RawNet
+encoder branch (adfmsl :102-115), pooling, the classifier, the FMSL head in the
+'refine', 'replace' and 'integrated' modes at eval, and both scores (adfmsl
+:95-273); the ``SPECS`` of ``main``, ``maze4``, ``maze5`` and their ``_fmsl``
+twins. Other registry names raise and name the ROADMAP slice that brings them.
 
 Output contract (as adfmsl): dict with 'logits' (B, 2), 'scores' (B,) =
-log-softmax[:, 1], 'features' (B, D) and, for FMSL models,
-'prototype_similarity'. Canonical label polarity: bonafide=1, spoof=0.
+log-softmax[:, 1] or the raw logit[:, 1] (``MazeSpec.score``), 'features'
+(B, D) and, for FMSL models, 'prototype_similarity'. Canonical label polarity:
+bonafide=1, spoof=0.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from torch import nn
 from adfmsl_torch.config.base import ModelConfig
 from adfmsl_torch.device import resolve_device
 from adfmsl_torch.heads.fmsl import FMSLHead
-from adfmsl_torch.models.blocks import ResStack, init_like_flax_
+from adfmsl_torch.models.blocks import GRU, ResStack, init_like_flax_
+from adfmsl_torch.models.rawnet import RawNetEncoder
 from adfmsl_torch.models.sincnet import SincConv
 from adfmsl_torch.ops.norm import batch_norm, bn_eval
 
@@ -29,29 +33,45 @@ from adfmsl_torch.ops.norm import batch_norm, bn_eval
 @dataclass(frozen=True)
 class MazeSpec:
     name: str
-    frontend: str                                   # 'sinc' in this slice
+    frontend: str                                   # 'sinc' | 'rawnet'
     ref: str = ""                                   # reference file reproduced
     first_bn_act: Optional[str] = None              # 'selu' after the front end
     blocks: Tuple[Tuple[int, int, int], ...] = ()   # (cin, cout, stride)
     fc1: Optional[int] = 1024
-    score: str = "log_softmax"
+    score: str = "log_softmax"                      # 'log_softmax' | 'logit'
+    fmsl_input_dim: int = 512                       # FMSL input, 'replace'/'integrated'
 
 
 _SINC_BLOCKS = ((128, 128, 1), (128, 128, 2), (128, 128, 2), (128, 128, 2),
                 (128, 256, 2))                       # maze4.py:192-210
 
+_FMSL_REF = " + fmsl_advanced.py:103-359"
+
 SPECS: Dict[str, MazeSpec] = {
+    # fc1=None: the RawNet head is fc1_gru -> fc2 with nothing in between
+    "main": MazeSpec("main", "rawnet", ref="01_Baseline_Models/main.py:182",
+                     fc1=None),
+    # 'replace': the FMSL head on fc1_gru's 1024-d output gives the logits,
+    # scored raw (adfmsl mazes.py:325, :338)
+    "main_fmsl": MazeSpec("main_fmsl", "rawnet",
+                          ref="01_Baseline_Models/main.py:182" + _FMSL_REF,
+                          fc1=None, score="logit", fmsl_input_dim=1024),
+    "maze4": MazeSpec("maze4", "sinc", ref="maze4.py:165-247",
+                      first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
+    # 'integrated' at the pooled trunk width, scored raw (adfmsl mazes.py:328).
+    # adfmsl's 'fmsl_adaptive' block variant applies only under 'reference'
+    # block semantics, which the port does not have yet.
+    "maze4_fmsl": MazeSpec("maze4_fmsl", "sinc", ref="maze4.py:165-247" + _FMSL_REF,
+                           first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024,
+                           score="logit", fmsl_input_dim=256),
     "maze5": MazeSpec("maze5", "sinc", ref="maze5.py:178-264",
                       first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
-    "maze5_fmsl": MazeSpec("maze5_fmsl", "sinc",
-                           ref="maze5.py:178-264 + fmsl_advanced.py:103-359",
+    "maze5_fmsl": MazeSpec("maze5_fmsl", "sinc", ref="maze5.py:178-264" + _FMSL_REF,
                            first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
 }
 
 # Registry names of adfmsl that later slices of the port bring (ROADMAP.md).
 LATER_SLICES = {
-    **{n: "slice 4 (RawNet main / main_fmsl, and the maze4 pair)"
-       for n in ("main", "main_fmsl", "maze4", "maze4_fmsl")},
     **{n: "slice 5 (LFCC / log-mel front ends, LCNN and ResNet)"
        for n in ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")},
     **{n: "slice 6 (the Wav2Vec2 family)"
@@ -73,33 +93,51 @@ class MazeModel(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        if spec.frontend != "sinc":
-            raise NotImplementedError(f"front end {spec.frontend!r} is not ported")
         self.spec, self.cfg = spec, cfg
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         a = cfg.architecture
-        self.sinc = SincConv(a.filts[0], a.first_conv, a.sample_rate,
-                             formula=a.sinc_formula,
-                             exact_fp32=cfg.dtype == "float32")
-        if spec.first_bn_act:
-            self.first_bn = batch_norm(a.filts[0])
-        if a.block_semantics != "tpu":
-            raise NotImplementedError(
-                f"block_semantics {a.block_semantics!r}: the port has 'tpu' only "
-                "(reference semantics come with ROADMAP slice 9)")
-        self.trunk = ResStack(spec.blocks,
-                              fused_eval=bool(cfg.extra.get("fused_eval_trunk", False)),
-                              dtype=self.dtype)
-        pooled_dim = spec.blocks[-1][1]
+        if spec.frontend == "rawnet":
+            self.encoder = RawNetEncoder(
+                sinc_channels=a.filts[0], sinc_kernel=a.first_conv,
+                feature_dim=a.nb_fc_node, gru_layers=a.nb_gru_layer,
+                sinc_formula=a.sinc_formula,
+                fused_eval_frontend=bool(cfg.extra.get("fused_eval_frontend", False)),
+                fused_eval_trunk=bool(cfg.extra.get("fused_eval_trunk", False)),
+                dtype=self.dtype)
+            pooled_dim = a.nb_fc_node
+        elif spec.frontend == "sinc":
+            self.sinc = SincConv(a.filts[0], a.first_conv, a.sample_rate,
+                                 formula=a.sinc_formula,
+                                 exact_fp32=cfg.dtype == "float32")
+            if spec.first_bn_act:
+                self.first_bn = batch_norm(a.filts[0])
+            if a.block_semantics != "tpu":
+                raise NotImplementedError(
+                    f"block_semantics {a.block_semantics!r}: the port has 'tpu' only "
+                    "(reference semantics come with ROADMAP slice 9)")
+            self.trunk = ResStack(spec.blocks,
+                                  fused_eval=bool(cfg.extra.get("fused_eval_trunk", False)),
+                                  dtype=self.dtype)
+            pooled_dim = spec.blocks[-1][1]
+        else:
+            raise NotImplementedError(f"front end {spec.frontend!r} is not ported")
         fmsl = cfg.fmsl
         if fmsl is None:
-            self.fc1 = nn.Linear(pooled_dim, spec.fc1)
-            self.fc2 = nn.Linear(spec.fc1, a.nb_classes)
+            if spec.fc1:
+                self.fc1 = nn.Linear(pooled_dim, spec.fc1)
+            self.fc2 = nn.Linear(spec.fc1 or pooled_dim, a.nb_classes)
         elif fmsl.mode == "refine":
             fdim = spec.fc1 or a.nb_fc_node
             self.fc1 = nn.Linear(pooled_dim, fdim)
             self.fmsl = FMSLHead(fmsl, input_dim=fdim)
             self.fc2 = nn.Linear(fdim, a.nb_classes)
+        elif fmsl.mode in ("replace", "integrated"):
+            # the pooled features go straight into the FMSL head, whose logits
+            # are the model's (adfmsl :254-267); the modes differ in training
+            if pooled_dim != spec.fmsl_input_dim:
+                raise ValueError(f"{spec.name}: pooled dim {pooled_dim} != FMSL "
+                                 f"input dim {spec.fmsl_input_dim}")
+            self.fmsl = FMSLHead(fmsl, input_dim=pooled_dim)
         else:
             raise NotImplementedError(
                 f"FMSL mode {fmsl.mode!r} comes with a later slice (ROADMAP.md)")
@@ -109,34 +147,43 @@ class MazeModel(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         init_like_flax_(self, generator)
-        self.sinc.reset_parameters()
-        if hasattr(self, "fmsl"):
-            self.fmsl.reset_parameters(generator)
+        for m in self.modules():
+            if isinstance(m, SincConv):
+                m.reset_parameters()
+            elif isinstance(m, (GRU, FMSLHead)):
+                m.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, T) f32 waveform -> the output dict. Eval only in this slice."""
         if self.training:
-            raise NotImplementedError("training comes with ROADMAP slice 2; "
+            raise NotImplementedError("training comes with ROADMAP slice 3; "
                                       "call .eval()")
-        h = self.sinc(x)                                     # (B, T', C) f32
-        if self.spec.first_bn_act:
-            # front-end glue at trunk width: bf16 in, BN in f32, bf16 out
-            h = F.selu(bn_eval(h.to(self.dtype), self.first_bn, self.dtype))
-        h = self.trunk(h)
-        # mean over time with f32 accumulation, rounded to the trunk dtype
-        pooled = h.float().mean(dim=1).to(h.dtype).float()
+        if self.spec.frontend == "rawnet":
+            pooled = self.encoder(x)                         # (B, D) f32
+        else:
+            h = self.sinc(x)                                 # (B, T', C) f32
+            if self.spec.first_bn_act:
+                # front-end glue at trunk width: bf16 in, BN in f32, bf16 out
+                h = F.selu(bn_eval(h.to(self.dtype), self.first_bn, self.dtype))
+            h = self.trunk(h)
+            # mean over time with f32 accumulation, rounded to the trunk dtype
+            pooled = h.float().mean(dim=1).to(h.dtype).float()
         out = {}
         if hasattr(self, "fmsl"):
-            fout = self.fmsl(self.fc1(pooled))
+            refine = hasattr(self, "fc1")
+            fout = self.fmsl(self.fc1(pooled) if refine else pooled)
             out["features"] = fout["embeddings"]
             out["prototype_similarity"] = fout["prototype_similarity"]
-            logits = self.fc2(fout["embeddings"])
+            logits = self.fc2(fout["embeddings"]) if refine else fout["logits"]
         else:
-            feats = self.fc1(pooled)
+            feats = self.fc1(pooled) if hasattr(self, "fc1") else pooled
             out["features"] = feats
             logits = self.fc2(feats)
         out["logits"] = logits
-        out["scores"] = torch.log_softmax(logits, dim=-1)[:, 1]
+        if self.spec.score == "log_softmax":
+            out["scores"] = torch.log_softmax(logits, dim=-1)[:, 1]
+        else:
+            out["scores"] = logits[:, 1]
         return out
 
 

@@ -4,10 +4,14 @@
 arrays) into a state dict that the port's ``MazeModel`` accepts with
 ``load_state_dict(strict=True)``. Module names follow the flax tree:
 ``sinc``, ``first_bn``, ``trunk.block{i}.{bn1,conv1,bn2,conv2,downsample,se}``,
-``fc1``, ``fc2``, ``fmsl.{proj,proj_bn,prototypes,weight,temperature}``.
+``fc1``, ``fc2``, ``fmsl.{proj,proj_bn,prototypes,weight,temperature}``, and
+for RawNet ``encoder.{sinc,first_bn,block{i},fc_attention{i},bn_before_gru,
+fc1_gru}`` with the GRU's gates ``encoder.gru.cell.{ir,iz,in,hr,hz,hn}``.
 
 Layouts: a flax conv kernel (K, Cin, Cout) becomes a torch weight (Cout, Cin, K);
-a Dense kernel (in, out) a Linear weight (out, in); BatchNorm scale/bias and
+a Dense kernel (in, out), a GRU gate's included, a Linear weight (out, in)
+(adfmsl's GRU keeps flax ``GRUCell``'s gates, so nothing is regrouped as for
+``nn.GRU``); BatchNorm scale/bias and
 batch_stats mean/var become weight/bias/running_mean/running_var, with
 num_batches_tracked 0.
 """

@@ -1,29 +1,45 @@
-"""Trainable SincConv front end (port of ``adfmsl/models/sincnet.py:SincConv``
-with ``post='none'``, stride 1). Output layout (B, T', C)."""
+"""Trainable SincConv front end (port of ``adfmsl/models/sincnet.py:SincConv``,
+stride 1). Output layout (B, T', C).
+
+``post='none'`` is the plain filterbank conv (maze4 / maze5). ``post='abs_pool3'``
+is the RawNet front end, VALID MaxPool3 of ``|conv|`` -> (B, T3, C), with
+adfmsl's dispatch (:82-107): at eval with ``fused_eval`` and a batch of at most
+``fused_max_batch`` rows it runs kernel K3 (``ops/sinc_fused.py``), otherwise
+the f32 composition (``ops/sinc.py:sinc_abs_pool3_nhc``).
+"""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from adfmsl_torch.ops.sinc import sinc_conv_nhc, sinc_filters, sinc_init
+from adfmsl_torch.ops.sinc import (sinc_abs_pool3_nhc, sinc_conv_nhc, sinc_filters,
+                                   sinc_init)
+from adfmsl_torch.ops.sinc_fused import sinc_abs_pool_fused
 
 
 class SincConv(nn.Module):
     def __init__(self, out_channels: int = 128, kernel_size: int = 251,
                  sample_rate: int = 16000, min_low_hz: float = 50.0,
                  min_band_hz: float = 50.0, formula: str = "textbook",
-                 exact_fp32: bool = False):
+                 exact_fp32: bool = False, post: str = "none",
+                 fused_eval: bool = False, fused_max_batch: int = 16):
         super().__init__()
+        if post not in ("none", "abs_pool3"):
+            raise ValueError(f"unknown SincConv post {post!r}")
         self.out_channels = out_channels
         self.kernel_size = kernel_size
         self.sample_rate = sample_rate
         self.min_low_hz = min_low_hz
         self.min_band_hz = min_band_hz
         self.formula = formula
-        # adfmsl pins precision='highest' for float32 models
-        # (models/mazes.py:123-124); the card's counterpart is a cuDNN conv
-        # without TF32, which cuDNN otherwise uses for float32 by default
+        # adfmsl pins precision='highest' for float32 maze models
+        # (models/mazes.py:123-124), and its RawNet conv is exact f32 on the
+        # CPU; the card's counterpart is a cuDNN conv without TF32, which
+        # cuDNN otherwise uses for float32 by default
         self.exact_fp32 = exact_fp32
+        self.post = post
+        self.fused_eval = fused_eval
+        self.fused_max_batch = fused_max_batch
         low, band = sinc_init(out_channels, sample_rate, min_low_hz, min_band_hz)
         self.low_hz = nn.Parameter(torch.from_numpy(low))
         self.band_hz = nn.Parameter(torch.from_numpy(band))
@@ -41,11 +57,19 @@ class SincConv(nn.Module):
                             self.formula)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T) f32 waveform -> (B, T-K+1, C) f32."""
+        """(B, T) f32 waveform -> (B, T-K+1, C) f32, or (B, (T-K+1)//3, C)
+        with ``post='abs_pool3'``."""
         filt = self.filters()
+        if self.post == "abs_pool3":
+            if (self.fused_eval and not self.training
+                    and x.shape[0] <= self.fused_max_batch):
+                return sinc_abs_pool_fused(x.contiguous(), filt)
+            composition = sinc_abs_pool3_nhc
+        else:
+            composition = sinc_conv_nhc
         if self.exact_fp32:
             cudnn = torch.backends.cudnn
             with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
                              deterministic=cudnn.deterministic, allow_tf32=False):
-                return sinc_conv_nhc(x, filt)
-        return sinc_conv_nhc(x, filt)
+                return composition(x, filt)
+        return composition(x, filt)

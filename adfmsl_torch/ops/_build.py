@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Every kernel library of the port: name -> its sources under csrc/.
-LIBRARIES = {"resblock_eval": ("resblock_eval.cu",)}
+LIBRARIES = {"resblock_eval": ("resblock_eval.cu",),
+             "sinc_abs_pool": ("sinc_abs_pool.cu",)}
 
 
 def _nvcc() -> str:

@@ -1,7 +1,7 @@
 """Eval-mode BatchNorm with flax's numerics.
 
 This slice only evaluates, so every BN reads its running stats as they are.
-Training (ROADMAP slice 2) has to reproduce flax's update rule: flax momentum
+Training (ROADMAP slice 3) has to reproduce flax's update rule: flax momentum
 0.9 is torch momentum 0.1 (set below), and flax updates the running variance
 with the *biased* batch variance where torch's ``BatchNorm1d`` uses the
 unbiased one.

@@ -29,6 +29,8 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from adfmsl_torch.ops.sinc import max_pool3_nhc
+
 _ACTS = {"relu": 0, "leaky": 1}
 
 
@@ -92,8 +94,7 @@ def resblock_eval_plain(x, pre, w1, b1, w2, bt, skw, act: str = "relu",
         out = out + (x32 @ skw.to(bf).float()).transpose(1, 2)
     out = out.transpose(1, 2)                                     # (B, T, Cout)
     if pool == 3:
-        b, t, c = out.shape
-        out = out[:, : t // 3 * 3].reshape(b, t // 3, 3, c).amax(dim=2)
+        out = max_pool3_nhc(out)
     elif pool != 1:
         raise ValueError(f"pool must be 1 or 3, got {pool}")
     return out.to(bf), out.sum(dim=1)

@@ -1,10 +1,10 @@
 """Trainable sinc band-pass filterbank (SincNet / RawNet front end), vectorized.
 
 Port of ``adfmsl/ops/sinc.py``: ``sinc_init`` (:38), ``_nsinc`` (:48),
-``sinc_filters`` (:54, both formulas) and ``sinc_conv_nhc`` (:147) as one
-``F.conv1d``. adfmsl's other executors (block-GEMM, space-to-depth, time
-segments, abs-pool3) are TPU layout choices or RawNet's, and are not ported
-here.
+``sinc_filters`` (:54, both formulas), ``sinc_conv_nhc`` (:147) as one
+``F.conv1d`` and the RawNet front end ``sinc_abs_pool3_nhc`` (:293). adfmsl's
+other executors (block-GEMM, space-to-depth, time segments) are TPU layout
+choices with exact parity, and are not ported.
 
 Parity note: the reference computes ``2*f * torch.sinc(2*f*pi*n)`` where
 ``torch.sinc(x) = sin(pi x)/(pi x)`` — i.e. the pi lands INSIDE the normalised sinc,
@@ -77,3 +77,16 @@ def sinc_conv_nhc(x: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
     ``lax.conv`` is, so the filters are not flipped."""
     out = F.conv1d(x[:, None, :], filters[:, None, :])        # (B, C, T')
     return out.transpose(1, 2)
+
+
+def max_pool3_nhc(x: torch.Tensor) -> torch.Tensor:
+    """VALID MaxPool3 over time: (B, T, C) -> (B, T//3, C), the ``T % 3`` tail
+    dropped (flax ``max_pool(x, (3,), strides=(3,))``)."""
+    b, t, c = x.shape
+    return x[:, : t // 3 * 3].reshape(b, t // 3, 3, c).amax(dim=2)
+
+
+def sinc_abs_pool3_nhc(x: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
+    """The RawNet front end as a composition: VALID MaxPool3 of
+    ``|sinc_conv_nhc(x, filters)|`` -> (B, (T-K+1)//3, C)."""
+    return max_pool3_nhc(sinc_conv_nhc(x, filters).abs())

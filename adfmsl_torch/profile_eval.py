@@ -1,13 +1,16 @@
 """Where the time of one eval forward goes, on the card.
 
-    python -m adfmsl_torch.profile_eval [--model maze5] [--batch 128] [--cut 64600]
+    python -m adfmsl_torch.profile_eval [--model maze5|main|...] [--batch 128]
+        [--cut 64600] [--fused_frontend] [--no_fused_trunk]
 
 Builds the model as the evaluate CLI does (random weights from ``--seed``, the
-folded K1 trunk unless ``--no_fused_trunk``), runs a few warm forwards on
-random audio, then prints one JSON line per section:
+folded K1 trunk unless ``--no_fused_trunk``, the K3 front end of a RawNet model
+with ``--fused_frontend`` at batches of at most 16), runs a few warm forwards
+on random audio, then prints one JSON line per section:
 
-- ``stages``: CUDA-event time of each top-level stage of one forward (sinc,
-  each trunk block, head), and the rest (front-end BN/SELU, pooling) as glue;
+- ``stages``: CUDA-event time of each top-level stage of one forward (the sinc
+  front end, each trunk block, for RawNet models the GRU and fc1_gru, the
+  head), and the rest (front-end BN/SELU, gates, pooling) as glue;
 - ``kernels``: the device time by kernel name over ``--reps`` forwards from
   ``torch.profiler`` (top 12), with the device busy share of the window.
 """
@@ -20,19 +23,31 @@ import time
 import torch
 
 
-def build(model_name: str, fused: bool, seed: int, device: torch.device):
+def build(model_name: str, args, device: torch.device):
+    from adfmsl_torch.cli.evaluate import set_fused_extras
     from adfmsl_torch.config import make_experiment
-    from adfmsl_torch.models import build_model
+    from adfmsl_torch.models import SPECS, build_model
 
     exp = make_experiment(model_name)
-    exp.model.extra["fused_eval_trunk"] = fused
-    return build_model(exp.model, device=device, seed=seed)
+    set_fused_extras(exp, SPECS[model_name], fused_frontend=args.fused_frontend,
+                     fused_trunk=not args.no_fused_trunk)
+    return build_model(exp.model, device=device, seed=args.seed)
+
+
+def stage_names(model) -> list:
+    """The top-level stages of a forward, by module name."""
+    if hasattr(model, "encoder"):                            # RawNet
+        enc = model.encoder
+        names = (["encoder.sinc"] + [f"encoder.block{i}" for i in range(enc.n_blocks)]
+                 + ["encoder.gru", "encoder.fc1_gru"])
+    else:
+        names = ["sinc"] + [f"trunk.block{i}" for i in range(model.trunk.n_blocks)]
+    return names + [n for n in ("fc1", "fmsl", "fc2") if hasattr(model, n)]
 
 
 def stage_times(model, x) -> dict:
     """CUDA-event time (ms) of each top-level module call in one forward."""
-    names = ["sinc"] + [f"trunk.block{i}" for i in range(model.trunk.n_blocks)]
-    names += [n for n in ("fc1", "fmsl", "fc2") if hasattr(model, n)]
+    names = stage_names(model)
     mods = dict(model.named_modules())
     events, handles = {}, []
     for n in names:
@@ -89,17 +104,19 @@ def main(argv=None) -> int:
     p.add_argument("--cut", type=int, default=64600)
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fused_frontend", action="store_true")
     p.add_argument("--no_fused_trunk", action="store_true")
     args = p.parse_args(argv)
 
     from adfmsl_torch.device import resolve_device
 
     dev = resolve_device("cuda")
-    model = build(args.model, not args.no_fused_trunk, args.seed, dev)
+    model = build(args.model, args, dev)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     x = 0.1 * torch.randn((args.batch, args.cut), generator=g, device=dev)
     head = {"model": args.model, "batch": args.batch, "cut": args.cut,
             "fused_trunk": not args.no_fused_trunk,
+            "fused_frontend": args.fused_frontend,
             "device": torch.cuda.get_device_name(0)}
     with torch.inference_mode():
         for _ in range(2):

@@ -1,8 +1,9 @@
-"""maze5 / maze5_fmsl end to end: the port's MazeModel vs adfmsl's on the same
-weights and inputs, at full width (128 sinc filters, K=251, blocks
-128->...->256, fc1 1024, FMSL refine head at 1024 with 3 prototypes) and cut
-6000, batch 2. Weights go adfmsl init -> numpy -> state_dict_from_flax ->
-load_state_dict(strict=True).
+"""maze5 / maze5_fmsl and maze4 / maze4_fmsl end to end: the port's MazeModel
+vs adfmsl's on the same weights and inputs, at full width (128 sinc filters,
+K=251, blocks 128->...->256, fc1 1024; FMSL refine head at 1024 for
+maze5_fmsl, the 'integrated' head at the pooled 256 for maze4_fmsl, 3
+prototypes) and cut 6000, batch 2. Weights go adfmsl init -> numpy ->
+state_dict_from_flax -> load_state_dict(strict=True).
 
 Tolerances: f32 logits within 1e-4 * max(1, |logits|) of adfmsl's plain path;
 bf16 logits through the folded trunk (K1's plain version on the CPU) within
@@ -22,7 +23,7 @@ from adfmsl_torch.config import make_experiment
 from adfmsl_torch.models import MazeModel, SPECS, build_model, state_dict_from_flax
 
 CUT = 6000
-NAMES = ["maze5", "maze5_fmsl"]
+NAMES = ["maze5", "maze5_fmsl", "maze4", "maze4_fmsl"]
 
 
 def _numpy_tree(tree):
@@ -35,7 +36,9 @@ def variables():
     test_pallas.py:120-129), the input batch, and adfmsl's f32 and bf16-fused
     logits. The FMSL head's proj_bn mean is zero-centred so its ReLU passes
     about half the units (a positive mean there zeroes every embedding), and
-    fc2 is scaled so the logits are O(1) and the tolerances bite."""
+    fc2 is scaled so the logits are O(1) and the tolerances bite; maze4_fmsl
+    has no fc2, its logits are s*cos with s=2 (its FMSL drift), and its class
+    weights are set so that |cos| is near 1."""
     rng = np.random.default_rng(2024)
     out = {}
     for name in NAMES:
@@ -50,9 +53,19 @@ def variables():
             lambda a: np.abs(rng.standard_normal(a.shape).astype(np.float32) * 0.3)
             + 0.1, _numpy_tree(v["batch_stats"]))
         if "fmsl" in stats:
+            mean = stats["fmsl"]["proj_bn"]["mean"]
             stats["fmsl"]["proj_bn"]["mean"] = (
-                rng.standard_normal(1024).astype(np.float32) * 0.01)
-        params["fc2"]["kernel"] = params["fc2"]["kernel"] * 30.0
+                rng.standard_normal(mean.shape).astype(np.float32) * 0.01)
+        if "fc2" in params:
+            params["fc2"]["kernel"] = params["fc2"]["kernel"] * 30.0
+        else:
+            # logits are s*cos: aim the class weights at the batch's mean
+            # embedding (+/-), so |cos| is near 1
+            emb = model.apply({"params": params, "batch_stats": stats},
+                              jnp.asarray(x), train=False)["features"]
+            w = np.asarray(emb, np.float32).mean(axis=0)
+            params["fmsl"]["weight"] = np.stack([-w, w]) + (
+                rng.standard_normal((2, w.size)).astype(np.float32) * 0.01)
         logits = {}
         for dtype, fused in (("float32", False), ("bfloat16", True)):
             e = jax_experiment(name)
@@ -77,7 +90,8 @@ def _port_logits(name, v, dtype, fused):
                           strict=True)
     with torch.inference_mode():
         out = model(torch.from_numpy(v["x"]))
-    assert out["scores"].shape == (2,) and out["features"].shape == (2, 1024)
+    feat_dim = 256 if name == "maze4_fmsl" else 1024
+    assert out["scores"].shape == (2,) and out["features"].shape == (2, feat_dim)
     return out["logits"].float().numpy()
 
 
@@ -99,7 +113,9 @@ def test_bf16_folded_trunk_logits_match_adfmsl(variables, name):
 
 
 @pytest.mark.parametrize("name,n_params,n_stats", [("maze5", 58, 20),
-                                                   ("maze5_fmsl", 65, 22)])
+                                                   ("maze5_fmsl", 65, 22),
+                                                   ("maze4", 58, 20),
+                                                   ("maze4_fmsl", 61, 22)])
 def test_state_dict_covers_every_flax_leaf(variables, name, n_params, n_stats):
     v = variables[name]
     assert len(jax.tree.leaves(v["params"])) == n_params
@@ -117,6 +133,9 @@ def test_state_dict_covers_every_flax_leaf(variables, name, n_params, n_stats):
     if name == "maze5_fmsl":
         assert tuple(sd["fmsl.prototypes"].shape) == (3, 1024)
         assert tuple(sd["fmsl.temperature"].shape) == ()
+    if name == "maze4_fmsl":
+        assert tuple(sd["fmsl.prototypes"].shape) == (3, 256)
+        assert not any(k.startswith(("fc1.", "fc2.")) for k in sd)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -131,7 +150,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_models_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        build_model(make_experiment("main").model, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        build_model(make_experiment("lcnn_lfcc").model, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 6"):
         build_model(make_experiment("maze6_fmsl").model, device="cpu")

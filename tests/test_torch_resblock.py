@@ -2,8 +2,9 @@
 
 The port's plain version (adfmsl_torch.ops.resblock_fused.resblock_eval_plain)
 is held against adfmsl's Pallas kernel in interpret mode and its f32 XLA
-reference, on test_pallas.py's cases plus a LeakyReLU / MaxPool3 one, at
-test_pallas.py's tolerance (rtol 2e-2, atol 2e-2 * max). The CUDA kernel is
+reference, on test_pallas.py's cases plus RawNet's LeakyReLU / MaxPool3 shapes
+(128->128, 128->256 with the 1x1 skip, 256->256), at test_pallas.py's
+tolerance (rtol 2e-2, atol 2e-2 * max). The CUDA kernel is
 held against the plain version on the card (marker ``cuda``).
 
 JAX is imported inside the tests that compare with adfmsl, so that the card
@@ -21,8 +22,11 @@ CASES = [  # (B, T, Cin, Cout), first, skip, act, pool
     ((2, 300, 128, 128), False, False, "relu", 1),    # ragged T vs the row tile
     ((1, 77, 128, 256), False, True, "relu", 1),      # channel change -> 1x1 skip
     ((2, 151, 128, 128), False, False, "leaky", 3),   # RawNet block, T % 3 != 0
+    ((2, 130, 128, 256), False, True, "leaky", 3),    # RawNet block2: 1x1 skip
+    ((2, 151, 256, 256), False, False, "leaky", 3),   # RawNet blocks 3-5, ragged T
 ]
-IDS = ["head", "ragged", "skip1x1", "leaky_pool3"]
+IDS = ["head", "ragged", "skip1x1", "leaky_pool3", "rawnet_skip1x1_pool3",
+       "rawnet_256_pool3"]
 
 
 def _rand_block(rng, cin, cout, first, skip):
