@@ -1,0 +1,139 @@
+"""Training CLI of the port (port of ``adfmsl/cli/train.py``, :13-190).
+
+    python -m adfmsl_torch.cli.train --model maze5 --train_protocol P \\
+        --train_dir D [--dev_protocol P2 --dev_dir D2] --batch_size 12 \\
+        --num_epochs N --checkpoint_dir C [--restore] [--device cuda|cpu]
+
+Trains a sinc model (maze4, maze5 and their ``_fmsl`` twins) from its
+standardized configuration, one checkpoint per epoch under ``C`` (best-k
+retention); ``--restore`` continues from the latest one.
+``python -m adfmsl_torch.cli.evaluate --model_path C`` scores with the latest
+epoch. ``--eval`` writes a score file for ``--eval_protocol`` instead of
+training. Runs on the card unless ``--device cpu`` is given. The flags of
+features that later slices bring raise and name the slice.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+# flag -> the ROADMAP slice that brings it
+LATER_FLAGS = {"config": "slice 9 (config/yaml_io.py)",
+               "profile_dir": "slice 9 (utils/profiling)",
+               "log_dir": "slice 9 (utils/MetricsLogger)",
+               "data_parallel": "slice 8 (multi-device)",
+               "train_pack": "slice 9 (data/pack.py)",
+               "dev_pack": "slice 9 (data/pack.py)",
+               "eval_pack": "slice 9 (data/pack.py)"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("adfmsl_torch.cli.train")
+    p.add_argument("--model", default="maze5", help="registry model name")
+    p.add_argument("--config", default=None, help="YAML ExperimentConfig path")
+    p.add_argument("--database_path", default=None)
+    p.add_argument("--protocols_path", default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--num_epochs", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--track", default="LA", choices=["LA", "PA", "DF"])
+    p.add_argument("--eval", action="store_true", help="produce score file and exit")
+    p.add_argument("--eval_output", default="scores.txt")
+    p.add_argument("--eval_protocol", default=None)
+    p.add_argument("--eval_dir", default=None)
+    p.add_argument("--train_protocol", default=None)
+    p.add_argument("--train_dir", default=None)
+    p.add_argument("--dev_protocol", default=None)
+    p.add_argument("--dev_dir", default=None)
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--restore", action="store_true",
+                   help="resume from the latest checkpoint in --checkpoint_dir")
+    p.add_argument("--no_drift", action="store_true",
+                   help="use canonical FMSL params instead of reference drift")
+    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--log_dir", default=None)
+    p.add_argument("--data_parallel", type=int, default=0)
+    p.add_argument("--train_pack", default=None)
+    p.add_argument("--dev_pack", default=None)
+    p.add_argument("--eval_pack", default=None)
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    return p
+
+
+def _default_paths(exp, split: str, tag: str):
+    track = exp.data.track
+    proto = os.path.join(exp.data.protocols_path, f"ASVspoof2019.{track}.cm.{split}.{tag}.txt")
+    audio = os.path.join(exp.data.database_path, f"ASVspoof2019_{track}_{split}")
+    return proto, audio
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for flag, slice_ in LATER_FLAGS.items():
+        v = getattr(args, flag)
+        if v and not (flag == "data_parallel" and v <= 1):
+            raise NotImplementedError(f"--{flag} comes with ROADMAP {slice_}")
+
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.data import parse_protocol
+    from adfmsl_torch.evaluation import evaluate_to_file
+    from adfmsl_torch.train import Trainer, make_dataset_and_loader
+
+    exp = make_experiment(args.model, drift=not args.no_drift)
+    for flag, obj, field in [("batch_size", exp.train, "batch_size"),
+                             ("lr", exp.train.optimizer, "lr"),
+                             ("num_epochs", exp.train, "num_epochs"),
+                             ("seed", exp.train, "seed")]:
+        v = getattr(args, flag)
+        if v is not None:
+            setattr(obj, field, v)
+    exp.data.database_path = args.database_path or exp.data.database_path or "data/"
+    exp.data.protocols_path = args.protocols_path or exp.data.protocols_path or "protocols/"
+    exp.data.track = args.track
+
+    train_proto_path = args.train_protocol or _default_paths(exp, "train", "trn")[0]
+    train_dir = args.train_dir or _default_paths(exp, "train", "trn")[1]
+    dev_proto_path = args.dev_protocol or _default_paths(exp, "dev", "trl")[0]
+    dev_dir = args.dev_dir or _default_paths(exp, "dev", "trl")[1]
+
+    train_proto = parse_protocol(train_proto_path, exp.data.label_polarity)
+    train_loader = make_dataset_and_loader(exp, train_proto, train_dir, shuffle=True)
+    dev_loader = None
+    if os.path.exists(dev_proto_path):
+        dev_proto = parse_protocol(dev_proto_path, exp.data.label_polarity)
+        dev_loader = make_dataset_and_loader(exp, dev_proto, dev_dir, shuffle=False,
+                                             batch_size=exp.train.eval_batch_size,
+                                             drop_last=False)
+
+    trainer = Trainer(exp, train_loader, dev_loader, checkpoint_dir=args.checkpoint_dir,
+                      device=args.device)
+    if args.restore and args.checkpoint_dir:
+        epoch = trainer.restore()
+        logging.info("restored checkpoint epoch %d", epoch)
+
+    if args.eval:
+        eval_proto_path = args.eval_protocol or _default_paths(exp, "eval", "trl")[0]
+        eval_dir = args.eval_dir or _default_paths(exp, "eval", "trl")[1]
+        eval_proto = parse_protocol(eval_proto_path, exp.data.label_polarity)
+        loader = make_dataset_and_loader(exp, eval_proto, eval_dir, shuffle=False,
+                                         batch_size=exp.train.eval_batch_size,
+                                         drop_last=False)
+        trainer.state.model.eval()
+        res = evaluate_to_file(trainer.state.model, loader, args.eval_output,
+                               labels=eval_proto.labels or None)
+        if res.metrics:
+            print({k: round(v, 6) if isinstance(v, float) else v
+                   for k, v in res.metrics.items()})
+        return 0
+
+    trainer.fit()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,21 +2,25 @@
 
 Projection MLP -> L2 hypersphere normalisation, with AM-Softmax angular-margin
 logits against a normalised class-weight matrix and cosine similarities to
-learnable spoof prototypes (fmsl_advanced.py:103-359). This slice ports the
-forward; the loss branch (adfmsl heads/fmsl.py:97-113) comes with training
-(ROADMAP slice 3).
+learnable spoof prototypes (fmsl_advanced.py:103-359). In train mode
+(adfmsl heads/fmsl.py:65-114): ``proj_bn`` normalises over the B rows with the
+batch statistics, then projection dropout, latent-space augmentation noise
+when ``enable_lsa``, and the angular margin on the target class. With labels
+the head also returns ``ce_loss``, ``proto_loss`` and ``loss``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from adfmsl_torch.config.base import FMSLConfig
-from adfmsl_torch.ops.norm import batch_norm, bn_eval
+from adfmsl_torch.heads.losses import cross_entropy, masked_mean
+from adfmsl_torch.ops.dropout import dropout
+from adfmsl_torch.ops.norm import batch_norm, bn_forward
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -35,14 +39,14 @@ def am_softmax_logits(embeddings: torch.Tensor, weight: torch.Tensor, s: float,
         # floor keeps sqrt' finite at |cos|=1
         sine = torch.sqrt(torch.clamp(1.0 - cosine ** 2, min=1e-8, max=1.0))
         phi = cosine * math.cos(m) - sine * math.sin(m)
-        one_hot = F.one_hot(labels, cosine.shape[-1]).to(cosine.dtype)
+        one_hot = F.one_hot(labels.long(), cosine.shape[-1]).to(cosine.dtype)
         cosine = one_hot * phi + (1.0 - one_hot) * cosine
     return s * cosine
 
 
 class FMSLHead(nn.Module):
     """(B, D) features -> dict. Parameters mirror fmsl_advanced.py:103-150:
-    projection Linear(D,D)+BN+ReLU(+Dropout at train), Xavier prototypes (P, D)
+    projection Linear(D,D)+BN+ReLU+Dropout, Xavier prototypes (P, D)
     and class weights (C, D), learnable scalar temperature."""
 
     def __init__(self, cfg: FMSLConfig, input_dim: int, n_classes: int = 2):
@@ -63,11 +67,35 @@ class FMSLHead(nn.Module):
             nn.init.xavier_uniform_(self.weight, generator=generator)
             self.temperature.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        h = torch.relu(bn_eval(self.proj(x), self.proj_bn, torch.float32))
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                rngs: Optional[Mapping[str, torch.Generator]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """``rngs`` holds the 'dropout' and 'lsa' generators that train mode
+        draws from (when their rates are non-zero)."""
+        rngs = rngs or {}
+        train = self.training
+        h = torch.relu(bn_forward(self.proj(x), self.proj_bn, torch.float32, train))
+        h = dropout(h, self.cfg.proj_dropout, rngs.get("dropout"), train)
+        if self.cfg.enable_lsa and train:
+            noise = torch.randn(h.shape, generator=rngs["lsa"], device=h.device,
+                                dtype=h.dtype)
+            h = h + self.cfg.lsa_strength * noise
         emb = l2_normalize(h)
         proto_sim = emb @ l2_normalize(self.prototypes, dim=-1).T
         proto_sim = proto_sim / torch.clamp(self.temperature, min=0.01)
-        logits = am_softmax_logits(emb, self.weight, self.cfg.s, self.cfg.m)
-        return {"logits": logits, "embeddings": emb,
-                "prototype_similarity": proto_sim}
+        logits = am_softmax_logits(emb, self.weight, self.cfg.s, self.cfg.m, labels, train)
+        out = {"logits": logits, "embeddings": emb, "prototype_similarity": proto_sim}
+        if labels is not None:
+            ce = cross_entropy(logits, labels)
+            # pull each spoof sample (label 0) toward its best prototype
+            # (fmsl_advanced.py:320-359), 0 when the batch has no spoof
+            best = proto_sim.max(dim=-1).values
+            spoof = (labels == 0).to(logits.dtype)
+            if mask is not None:
+                spoof = spoof * mask.to(logits.dtype)
+            proto_loss = -(best * spoof).sum() / (spoof.sum() + 1e-8)
+            out["ce_loss"] = masked_mean(ce, mask)
+            out["proto_loss"] = proto_loss
+            out["loss"] = out["ce_loss"] + self.cfg.prototype_loss_weight * proto_loss
+        return out

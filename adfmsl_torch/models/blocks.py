@@ -1,7 +1,8 @@
 """SE-residual trunk blocks (port of ``adfmsl/models/blocks.py``).
 
-Ported: ``SEBlock`` (:26), ``ResBlockSE`` in its 'tpu' semantics (:223-269)
-with its folded eval body (:310-350), ``ResStack`` (:353) and the single-layer
+Ported: ``SEBlock`` (:26), ``ResBlockSE`` in its 'tpu' semantics (:223-269),
+in train and eval mode, with its folded eval body (:310-350), ``ResStack``
+(:353) and the single-layer
 ``GRU`` (:548) that returns its last hidden state. Public
 functions keep adfmsl's (B, T, C) channels-last layout; a (B, C, T) view
 exists only around ``conv1d`` / ``avg_pool1d`` calls.
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adfmsl_torch.ops.norm import batch_norm, bn_eval
+from adfmsl_torch.ops.dropout import dropout
+from adfmsl_torch.ops.norm import batch_norm, bn_forward
 from adfmsl_torch.ops.resblock_fused import fold_block_params, resblock_eval
 
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
@@ -85,22 +87,25 @@ class SEBlock(nn.Module):
 class ResBlockSE(nn.Module):
     """'tpu'-semantics pre-activation residual block: the overlap avg pool
     downsamples the raw block input first; then BN -> ReLU -> Conv(k3) -> BN ->
-    ReLU -> Conv(k3), plus a BN-free identity skip (a 1x1 conv on a channel
-    change only), then SE. ``first`` drops the leading BN/ReLU (stack head).
+    ReLU -> dropout -> Conv(k3), plus a BN-free identity skip (a 1x1 conv on a
+    channel change only), then SE. ``first`` drops the leading BN/ReLU (stack
+    head). In train mode the BNs use the batch statistics (``bn_train``) and
+    the dropout draws from the generator passed to ``forward``.
 
-    With ``fused_eval`` and a bf16 trunk the body runs folded: BN stats become
+    With ``fused_eval`` and a bf16 trunk, at eval, the body runs folded: BN stats become
     per-channel affines (``fold_block_params``, recomputed every forward so a
     later ``load_state_dict`` is never stale) and ``resblock_eval`` runs the
     whole body as one kernel (K1) returning the output and its f32 channel
     sums, which feed the SE gate."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
-                 first: bool = False, use_se: bool = True,
+                 dropout_rate: float = 0.3, first: bool = False, use_se: bool = True,
                  fused_eval: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.stride = stride
+        self.dropout_rate = dropout_rate
         self.first = first
         self.fused_eval = fused_eval
         self.dtype = dtype
@@ -113,17 +118,21 @@ class ResBlockSE(nn.Module):
             self.downsample = nn.Conv1d(in_channels, out_channels, 1)
         self.se = SEBlock(out_channels) if use_se else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the 'dropout' stream, needed in train mode."""
         if self.stride > 1:
             x = overlap_avg_pool(x, self.stride)
-        if self.fused_eval and self.dtype == torch.bfloat16:
+        train = self.training
+        if self.fused_eval and self.dtype == torch.bfloat16 and not train:
             return self._fused_eval_body(x)
         dt = self.dtype
         h = x
         if not self.first:
-            h = torch.relu(bn_eval(h, self.bn1, dt))
+            h = torch.relu(bn_forward(h, self.bn1, dt, train))
         h = conv_nhc(h, self.conv1, dt)
-        h = torch.relu(bn_eval(h, self.bn2, dt))
+        h = torch.relu(bn_forward(h, self.bn2, dt, train))
+        h = dropout(h, self.dropout_rate, generator, train)
         h = conv_nhc(h, self.conv2, dt)
         skip = x.to(dt)
         if self.in_channels != self.out_channels:
@@ -146,18 +155,20 @@ class ResBlockSE(nn.Module):
 class ResStack(nn.Module):
     """A stack of ResBlockSE with per-block (in, out, stride), named block{i}."""
 
-    def __init__(self, specs: Sequence[tuple], use_se: bool = True,
-                 fused_eval: bool = False, dtype: torch.dtype = torch.float32):
+    def __init__(self, specs: Sequence[tuple], dropout_rate: float = 0.3,
+                 use_se: bool = True, fused_eval: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_blocks = len(specs)
         for i, (cin, cout, stride) in enumerate(specs):
             self.add_module(f"block{i}", ResBlockSE(
-                cin, cout, stride, first=(i == 0), use_se=use_se,
+                cin, cout, stride, dropout_rate, first=(i == 0), use_se=use_se,
                 fused_eval=fused_eval, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_blocks):
-            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"block{i}")(x, generator)
         return x
 
 

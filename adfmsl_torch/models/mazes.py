@@ -2,20 +2,24 @@
 families.
 
 Ported: ``MazeSpec``, ``MazeModel``'s sinc front end and trunk, the RawNet
-encoder branch (adfmsl :102-115), pooling, the classifier, the FMSL head in the
-'refine', 'replace' and 'integrated' modes at eval, and both scores (adfmsl
-:95-273); the ``SPECS`` of ``main``, ``maze4``, ``maze5`` and their ``_fmsl``
-twins. Other registry names raise and name the ROADMAP slice that brings them.
+encoder branch (adfmsl :102-115), SpecAugment (:155-163), pooling, the
+classifier with its fc dropout, the FMSL head in the 'refine', 'replace' and
+'integrated' modes, and both scores (adfmsl :95-273); the ``SPECS`` of
+``main``, ``maze4``, ``maze5`` and their ``_fmsl`` twins. The sinc models run
+in train and eval mode; RawNet models evaluate only (their training comes with
+ROADMAP slice 4). Other registry names raise and name the ROADMAP slice that
+brings them.
 
 Output contract (as adfmsl): dict with 'logits' (B, 2), 'scores' (B,) =
 log-softmax[:, 1] or the raw logit[:, 1] (``MazeSpec.score``), 'features'
-(B, D) and, for FMSL models, 'prototype_similarity'. Canonical label polarity:
+(B, D), for FMSL models 'prototype_similarity', and 'loss' when an FMSL model
+in mode 'replace' or 'integrated' is given labels. Canonical label polarity:
 bonafide=1, spoof=0.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +31,9 @@ from adfmsl_torch.heads.fmsl import FMSLHead
 from adfmsl_torch.models.blocks import GRU, ResStack, init_like_flax_
 from adfmsl_torch.models.rawnet import RawNetEncoder
 from adfmsl_torch.models.sincnet import SincConv
-from adfmsl_torch.ops.norm import batch_norm, bn_eval
+from adfmsl_torch.ops.dropout import dropout
+from adfmsl_torch.ops.norm import batch_norm, bn_forward
+from adfmsl_torch.ops.specaugment import spec_augment
 
 
 @dataclass(frozen=True)
@@ -81,8 +87,9 @@ LATER_SLICES = {
 
 
 class MazeModel(nn.Module):
-    """Eval-mode maze model on ``device`` (``None`` means ``cuda``; a missing
-    card raises). Weights are initialised like adfmsl's (lecun_normal kernels,
+    """Maze model on ``device`` (``None`` means ``cuda``; a missing card
+    raises), built in eval mode; ``.train()`` switches the sinc models to
+    training. Weights are initialised like adfmsl's (lecun_normal kernels,
     zero biases, xavier_uniform FMSL prototypes/weights, unit BN and
     temperature) from ``generator``; load trained or ported weights with
     ``load_state_dict``. Module names follow adfmsl's flax tree
@@ -115,7 +122,7 @@ class MazeModel(nn.Module):
                 raise NotImplementedError(
                     f"block_semantics {a.block_semantics!r}: the port has 'tpu' only "
                     "(reference semantics come with ROADMAP slice 9)")
-            self.trunk = ResStack(spec.blocks,
+            self.trunk = ResStack(spec.blocks, a.dropout_rate,
                                   fused_eval=bool(cfg.extra.get("fused_eval_trunk", False)),
                                   dtype=self.dtype)
             pooled_dim = spec.blocks[-1][1]
@@ -153,30 +160,55 @@ class MazeModel(nn.Module):
             elif isinstance(m, (GRU, FMSLHead)):
                 m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(B, T) f32 waveform -> the output dict. Eval only in this slice."""
-        if self.training:
-            raise NotImplementedError("training comes with ROADMAP slice 3; "
-                                      "call .eval()")
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                rngs: Optional[Mapping[str, torch.Generator]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """(B, T) f32 waveform -> the output dict. ``labels`` (B,) and ``mask``
+        (B,) feed the FMSL head's losses. In train mode ``rngs`` holds the
+        generators of the 'dropout', 'specaugment' and 'lsa' streams that the
+        configuration draws from (adfmsl's rng collections)."""
+        train = self.training
+        rngs = rngs or {}
         if self.spec.frontend == "rawnet":
+            if train:
+                raise NotImplementedError("training RawNet models comes with ROADMAP "
+                                          "slice 4; call .eval()")
             pooled = self.encoder(x)                         # (B, D) f32
         else:
             h = self.sinc(x)                                 # (B, T', C) f32
             if self.spec.first_bn_act:
                 # front-end glue at trunk width: bf16 in, BN in f32, bf16 out
-                h = F.selu(bn_eval(h.to(self.dtype), self.first_bn, self.dtype))
-            h = self.trunk(h)
+                h = F.selu(bn_forward(h.to(self.dtype), self.first_bn, self.dtype, train))
+            sa = self.cfg.spec_augment
+            if sa.enabled and train:
+                # (B, T, C): C is the frequency / channel axis
+                h = spec_augment(h, rngs["specaugment"], sa.freq_mask_param,
+                                 sa.time_mask_param, sa.n_freq_masks, sa.n_time_masks,
+                                 sa.semantics, channels_last=True)
+            h = self.trunk(h, rngs.get("dropout"))
             # mean over time with f32 accumulation, rounded to the trunk dtype
             pooled = h.float().mean(dim=1).to(h.dtype).float()
+        fc_drop = self.cfg.architecture.fc_dropout
         out = {}
         if hasattr(self, "fmsl"):
             refine = hasattr(self, "fc1")
-            fout = self.fmsl(self.fc1(pooled) if refine else pooled)
+            if refine:
+                h2 = dropout(self.fc1(pooled), fc_drop, rngs.get("dropout"), train)
+                fout = self.fmsl(h2, labels=labels, mask=mask, rngs=rngs)
+                logits = self.fc2(fout["embeddings"])
+            else:
+                fout = self.fmsl(pooled, labels=labels, mask=mask, rngs=rngs)
+                logits = fout["logits"]
+                if labels is not None:
+                    out["loss"] = (fout["loss"] if self.cfg.fmsl.mode == "integrated"
+                                   else fout["ce_loss"])
             out["features"] = fout["embeddings"]
             out["prototype_similarity"] = fout["prototype_similarity"]
-            logits = self.fc2(fout["embeddings"]) if refine else fout["logits"]
         else:
-            feats = self.fc1(pooled) if hasattr(self, "fc1") else pooled
+            feats = pooled
+            if hasattr(self, "fc1"):
+                feats = dropout(self.fc1(pooled), fc_drop, rngs.get("dropout"), train)
             out["features"] = feats
             logits = self.fc2(feats)
         out["logits"] = logits

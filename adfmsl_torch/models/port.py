@@ -1,4 +1,5 @@
-"""Weights across the two packages, and the port's checkpoint files.
+"""Weights across the two packages, and the port's checkpoint files
+(``model.pt``, also one per epoch in a training checkpoint directory).
 
 ``state_dict_from_flax`` turns adfmsl's flax trees (as nested dicts of numpy
 arrays) into a state dict that the port's ``MazeModel`` accepts with
@@ -20,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from collections import OrderedDict
-from typing import Any, Mapping, Optional, Tuple, Union
+from typing import Any, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -95,10 +96,29 @@ def save_checkpoint(path: str, exp: ExperimentConfig, model: torch.nn.Module) ->
     return f
 
 
+def epoch_dir(path: str, epoch: int) -> str:
+    """Where a training checkpoint directory keeps epoch ``epoch``."""
+    return os.path.join(path, f"epoch_{epoch}")
+
+
+def epoch_dirs(path: str) -> List[Tuple[int, str]]:
+    """The ``epoch_<e>`` directories of a training checkpoint directory
+    (``train/checkpoint.py``), as (epoch, path) in epoch order."""
+    out = []
+    for name in os.listdir(path) if os.path.isdir(path) else ():
+        head, _, tail = name.partition("_")
+        if head == "epoch" and tail.isdigit():
+            out.append((int(tail), os.path.join(path, name)))
+    return sorted(out)
+
+
 def load_checkpoint(path: str, map_location: Optional[Union[str, torch.device]] = "cpu"
                     ) -> Tuple[ExperimentConfig, "OrderedDict[str, torch.Tensor]"]:
-    """Read ``path/model.pt`` -> (experiment config, state dict). Loads with
+    """Read ``path/model.pt`` -> (experiment config, state dict); for a
+    training checkpoint directory, the latest epoch's ``model.pt``. Loads with
     ``weights_only=True``: the file holds tensors and plain containers only."""
-    obj = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=map_location,
-                     weights_only=True)
+    f = os.path.join(path, CHECKPOINT_FILE)
+    if not os.path.exists(f) and epoch_dirs(path):
+        f = os.path.join(epoch_dirs(path)[-1][1], CHECKPOINT_FILE)
+    obj = torch.load(f, map_location=map_location, weights_only=True)
     return experiment_from_dict(obj["config"]), obj["state_dict"]

@@ -25,6 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Every kernel library of the port: name -> its sources under csrc/.
 LIBRARIES = {"resblock_eval": ("resblock_eval.cu",),
+             "bn_relu_bwd": ("bn_relu_bwd.cu",),
              "sinc_abs_pool": ("sinc_abs_pool.cu",)}
 
 

@@ -1,25 +1,61 @@
-"""Eval-mode BatchNorm with flax's numerics.
+"""BatchNorm with flax's numerics, in eval and in train mode.
 
-This slice only evaluates, so every BN reads its running stats as they are.
-Training (ROADMAP slice 3) has to reproduce flax's update rule: flax momentum
-0.9 is torch momentum 0.1 (set below), and flax updates the running variance
-with the *biased* batch variance where torch's ``BatchNorm1d`` uses the
-unbiased one.
+The port keeps ``nn.BatchNorm1d`` only as the holder of the parameters and
+buffers (weight, bias, running_mean, running_var); it never calls its
+forward. flax ``nn.BatchNorm(momentum=0.9)`` differs from torch's in train
+mode in two ways that matter:
+
+- the batch variance is ``max(0, E[x^2] - E[x]^2)`` (flax's
+  ``use_fast_variance``), computed in f32 even for bf16 inputs;
+- the running variance is updated with that *biased* batch variance,
+  ``ra = 0.9 * ra + 0.1 * batch``, where torch's ``F.batch_norm`` would use
+  the unbiased one (a factor N/(N-1): 3/4 over the four rows of a batch-4
+  ``proj_bn``).
+
+So ``bn_train`` computes the statistics itself and updates the buffers
+under ``no_grad``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+MOMENTUM = 0.9          # flax's; torch's momentum is 1 - MOMENTUM
+
 
 def batch_norm(c: int) -> nn.BatchNorm1d:
     """flax ``nn.BatchNorm(momentum=0.9)``'s counterpart (eps 1e-5)."""
-    return nn.BatchNorm1d(c, eps=1e-5, momentum=0.1)
+    return nn.BatchNorm1d(c, eps=1e-5, momentum=1.0 - MOMENTUM)
+
+
+def _normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+               bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``_normalize``: (x - mean) * (rsqrt(var+eps) * scale) + bias in
+    f32, cast to ``dtype``."""
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((x.float() - mean) * mul + bn.bias).to(dtype)
 
 
 def bn_eval(x: torch.Tensor, bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Tensor:
-    """Eval BatchNorm over the last axis, computed in f32 and cast to ``dtype``
-    in the order flax's ``_normalize`` uses: (x - mean) * (rsqrt(var+eps) *
-    scale) + bias."""
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    return ((x.float() - bn.running_mean) * mul + bn.bias).to(dtype)
+    """Eval BatchNorm over the last axis from the running statistics."""
+    return _normalize(x, bn.running_mean, bn.running_var, bn, dtype)
+
+
+def bn_train(x: torch.Tensor, bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Tensor:
+    """Train BatchNorm over the last axis: normalise with the batch statistics
+    (over every other axis, in f32; gradients flow through them) and move the
+    running statistics towards them as flax does."""
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    mean = xf.mean(axes)
+    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1.0 - MOMENTUM) * mean)
+        bn.running_var.copy_(MOMENTUM * bn.running_var + (1.0 - MOMENTUM) * var)
+    return _normalize(xf, mean, var, bn, dtype)
+
+
+def bn_forward(x: torch.Tensor, bn: nn.BatchNorm1d, dtype: torch.dtype,
+               train: bool) -> torch.Tensor:
+    """``bn_train`` in train mode, ``bn_eval`` otherwise."""
+    return bn_train(x, bn, dtype) if train else bn_eval(x, bn, dtype)

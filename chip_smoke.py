@@ -34,9 +34,40 @@ Phases, each printing its own lines:
    (logits held against each other on 4 clips first); main at batch 16 with
    the K3 front end and with the composition (logits held against each other
    first), and at batch 128 (composition front end, K1 trunk);
-6. a ``kernels`` line: every ported kernel with its launches on the main
-   paths, its max error, its time at the main path's shapes beside its plain
-   version's time, its bound and the library call's time (none exists).
+6. kernel K2 (the BN + ReLU train backward, two passes) against its plain
+   version: the CPU tests' (2, 700, 128) f32 and (3, 1000, 128) bf16 cases,
+   maze5's block0 at batch 16 and 128 and block4's bn2 at batch 12, bf16.
+   Errors beside their tolerances (dx per element: one bf16 ulp of |dx| +
+   1e-3 * max|dx|, or 1e-5 * (|dx| + max|dx|) in f32; dgamma / dbeta: 1e-4 *
+   max, 1e-5 in f32), the kernel's and the plain version's times, the time
+   of autograd's backward
+   through ``F.batch_norm(training=True)`` + ``relu`` (information only) and
+   both bounds (6 bytes an element: x and dz read, dx written; 10 bytes: the
+   two passes). Then K2's entry point, ``adfmsl_torch.measure_bn_relu_bwd``,
+   runs in-process, its launch count checked;
+7. training, for maze5 and maze5_fmsl at full width: a synthetic fixture of
+   48 train and 24 dev utterances goes through ``adfmsl_torch.cli.train`` at
+   cut 64600 and batch 12 for one epoch without a dev set, then with
+   ``--restore`` and the dev set for a second. What the CLI wrote is read
+   back and checked: epoch_0 after the first run, then epoch_1 alone (best-1
+   retention drops epoch 0, whose missing dev metric ranks worst); finite
+   losses, no skipped step, 4 and then 8 steps and updates, every parameter
+   and BN running statistic moved; then ``cli.evaluate --model_path`` on it,
+   with K1 launched 5 times a batch;
+8. one f32 train step of maze5 at batch 2, cut 16000, randomness off, on the
+   card and on the CPU from the same weights (TF32 off): loss within 1e-4
+   relative, gradients as in tests/test_torch_train_step.py (cosine >= 0.999,
+   norm within 1 % for leaves of 1 % of the global norm or more);
+9. train throughput of maze5 and maze5_fmsl (bf16, dropout and SpecAugment
+   on) at batch 12 and 32: utt/s over 5 timed steps after 2 warm ones,
+   ending in a synchronize, with the peak memory; then ``torch.profiler``
+   over 3 more steps: the device's busy share, the step's device time split
+   by its forward / backward / update labels (``train/steps.py``), and, at
+   batch 32, the operators and kernels with the most device time;
+10. a ``kernels`` line: every ported kernel with its launches on the main
+   paths (K2's on its entry point), its max error, its time at the main
+   path's shapes beside its plain version's time, its bound and the library
+   call's time (none exists).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 before it. Without a card, or without the repo beside this script, the run
@@ -92,6 +123,17 @@ K3_CASES = [  # name, B, T
     ("jax_case", 2, 8000), ("ragged", 3, 8001),
     (f"b{EVAL_BATCH}_cut{CUT}", EVAL_BATCH, CUT),
     (f"b{BENCH_BATCH}_cut{CUT}", BENCH_BATCH, CUT)]
+K2_CASES = [  # name, B, T, C, dtype
+    ("jax_case_f32", 2, 700, 128, torch.float32),
+    ("two_tiles_bf16", 3, 1000, 128, torch.bfloat16),
+    ("maze5_block0_b16", 16, 64350, 128, torch.bfloat16),
+    ("maze5_block0_b128", 128, 21450, 128, torch.bfloat16),
+    ("maze5_block4_bn2_b12", 12, 4022, 256, torch.bfloat16)]
+PEAK_F32_FLOPS = 67e12            # H100 SXM data sheet, f32 outside the tensor cores
+K2_OPS_PER_ELEMENT = 20           # f32 operations of both passes, per element
+K2_MEASURE_ITERS = 10
+TRAIN_UTTS, DEV_UTTS, TRAIN_BATCH = 48, 24, 12
+THROUGHPUT_BATCHES, WARM_STEPS, TIMED_STEPS = (12, 32), 2, 5
 # (model, extra CLI flags, K1 launches per batch, K3 launches per batch)
 MAIN_PATHS = [("maze5", [], 5, 0), ("maze5_fmsl", [], 5, 0),
               ("main", ["--fused_frontend"], 6, 1),
@@ -391,6 +433,319 @@ def phase_throughput(name, dev, card):
     torch.cuda.empty_cache()
 
 
+def k2_bound(b, t, c, elem):
+    """(ops_ms, bytes_ms, two_pass_ms): K2's f32 elementwise work at the f32
+    peak; x and dz read once and dx written once at the HBM rate (the bound);
+    and the two-pass design's traffic (x and dz read twice)."""
+    n = b * t * c
+    return (K2_OPS_PER_ELEMENT * n / PEAK_F32_FLOPS * 1e3,
+            3 * elem * n / PEAK_BYTES * 1e3, 5 * elem * n / PEAK_BYTES * 1e3)
+
+
+def k2_case(k2, name, b, t, c, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, t, c), generator=g, device=dev).to(dtype)
+    gamma = torch.empty(c, device=dev).uniform_(0.5, 1.5, generator=g)
+    beta = torch.empty(c, device=dev).uniform_(-0.3, 0.3, generator=g)
+    dz = torch.randn((b, t, c), generator=g, device=dev).to(dtype)
+    _, mu, rstd = k2.bn_relu_forward(x, gamma, beta)
+    got = k2.bn_relu_bwd(x, dz, gamma, beta, mu, rstd)
+    torch.cuda.synchronize()
+    want = k2.bn_relu_bwd_plain(x, dz, gamma, beta, mu, rstd)
+    gx, wx = got[0].float(), want[0].float()
+    scale = wx.abs().max().item()
+    if dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(wx.abs().clamp_min(1e-30))) - 7)
+        bound, tol_dx, rel = ulp + 1e-3 * scale, 1e-3 * scale, 1e-4
+    else:
+        bound, tol_dx, rel = 1e-5 * wx.abs() + 1e-5 * scale, 1e-5 * scale, 1e-5
+    diff = (gx - wx).abs()
+    err_dx, excess = diff.max().item(), (diff - bound).max().item()
+    over_bound = (diff / bound).max().item()
+    err_dg, err_db = ((a - w).abs().max().item() for a, w in zip(got[1:], want[1:]))
+    tol_dg, tol_db = (rel * w.abs().max().item() for w in want[1:])
+    del got, want, gx, wx, diff, bound
+    ms = cuda_ms(lambda: k2.bn_relu_bwd(x, dz, gamma, beta, mu, rstd))
+    plain_ms = cuda_ms(lambda: k2.bn_relu_bwd_plain(x, dz, gamma, beta, mu, rstd))
+    leaves = [x.clone().requires_grad_(True), gamma.clone().requires_grad_(True),
+              beta.clone().requires_grad_(True)]
+    y = torch.relu(F.batch_norm(leaves[0].transpose(1, 2), None, None, leaves[1],
+                                leaves[2], training=True, eps=1e-5))
+    dzt = dz.transpose(1, 2)
+    composition_ms = cuda_ms(lambda: torch.autograd.grad(y, leaves, dzt, retain_graph=True))
+    del y, leaves
+    ops_ms, bytes_ms, two_pass_ms = k2_bound(b, t, c, x.element_size())
+    rec = {"case": name, "B": b, "T": t, "C": c, "dtype": str(dtype).split(".")[-1],
+           "max_abs_err_dx": err_dx, "tol_dx": tol_dx, "dx_excess_over_bound": excess,
+           "dx_max_err_over_bound": over_bound,
+           "max_abs_err_dgamma": err_dg, "tol_dgamma": tol_dg,
+           "max_abs_err_dbeta": err_db, "tol_dbeta": tol_db,
+           "kernel_ms": ms, "plain_ms": plain_ms, "autograd_bn_relu_bwd_ms": composition_ms,
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "two_pass_bytes_ms": two_pass_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print("K2 " + json.dumps(rec), flush=True)
+    check(math.isfinite(excess) and excess <= 0, f"K2 {name}: dx beyond its bound by {excess}")
+    check(math.isfinite(err_dg) and err_dg <= tol_dg, f"K2 {name}: dgamma {err_dg} > {tol_dg}")
+    check(math.isfinite(err_db) and err_db <= tol_db, f"K2 {name}: dbeta {err_db} > {tol_db}")
+    del x, dz
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_k2(k2, dev):
+    """K2 against its plain version (TF32 plays no part: no products), then
+    its entry point, the measurement module, with the launches counted."""
+    from adfmsl_torch import measure_bn_relu_bwd as mb
+
+    recs = [k2_case(k2, *c, seed=i, dev=dev) for i, c in enumerate(K2_CASES)]
+    k2.bn_relu_bwd.launches = 0
+    t0 = time.perf_counter()
+    res = mb.run("both", iters=K2_MEASURE_ITERS)
+    torch.cuda.synchronize()
+    launches = k2.bn_relu_bwd.launches
+    # two shapes x two kernel programs x (2 warm + timed) backwards x 2 launches
+    expected = len(mb.SHAPES) * 2 * (2 + K2_MEASURE_ITERS) * 2
+    entry = {"entry_point": "python -m adfmsl_torch.measure_bn_relu_bwd both",
+             "iters": K2_MEASURE_ITERS, "launches": launches, "expected": expected,
+             "wall_s": time.perf_counter() - t0, "ms": res}
+    print("k2_entry " + json.dumps(entry), flush=True)
+    check(launches == expected, f"K2 launched {launches} times at its entry point, "
+                                f"expected {expected}")
+    return recs, entry
+
+
+def phase_train(name, rf, k2, fixture, tmp, dev):
+    """cli.train for one epoch, then --restore for a second, each checked
+    through the files it wrote; then cli.evaluate --model_path on the
+    checkpoint; returns the run's record."""
+    from adfmsl_torch.cli import evaluate
+    from adfmsl_torch.cli import train as cli_train
+    from adfmsl_torch.models import build_model, load_checkpoint
+    from adfmsl_torch.train import CheckpointManager
+    from adfmsl_torch.train.checkpoint import TRAIN_STATE_FILE
+
+    ck = os.path.join(tmp, f"{name}_ck")
+    mgr = CheckpointManager(ck)
+    tr, dv = fixture["train"], fixture["dev"]
+    argv = ["--model", name, "--train_protocol", tr["protocol"], "--train_dir",
+            tr["audio_dir"], "--batch_size", str(TRAIN_BATCH), "--checkpoint_dir", ck,
+            "--device", dev.type]
+    dev_argv = ["--dev_protocol", dv["protocol"], "--dev_dir", dv["audio_dir"]]
+    steps_per_epoch = TRAIN_UTTS // TRAIN_BATCH
+    rf.resblock_eval.launches = 0
+    k2.bn_relu_bwd.launches = 0
+    t0 = time.perf_counter()
+    hist, models = [], {}
+    # the first epoch has no dev set (the default dev protocol is looked up in
+    # a directory that does not exist), so its NaN dev metric ranks below the
+    # second's and best-1 retention must keep epoch 1 alone
+    no_dev = ["--protocols_path", os.path.join(tmp, f"{name}_no_protocols")]
+    for epoch, extra in ((0, ["--num_epochs", "1"] + no_dev),
+                         (1, ["--num_epochs", "2", "--restore"] + dev_argv)):
+        rc = cli_train.main(argv + extra)
+        torch.cuda.synchronize()
+        check(rc == 0, f"{name}: cli.train {extra} exited {rc}")
+        epochs = mgr.all_epochs()
+        check(epochs == [epoch], f"{name}: retained epochs {epochs} after epoch {epoch}")
+        met = mgr.metrics(epoch)
+        hist.append({"epoch": epoch, **met})
+        check(math.isfinite(met["train_loss"]) and met["skipped"] == 0
+              and math.isfinite(met["dev_acc"]) == (epoch == 1),
+              f"{name}: epoch {epoch} metrics {met}")
+        path = os.path.join(ck, f"epoch_{epoch}")
+        ts = torch.load(os.path.join(path, TRAIN_STATE_FILE), map_location="cpu",
+                        weights_only=True)
+        n = steps_per_epoch * (epoch + 1)
+        check(ts["step"] == n and ts["optimizer"]["count"] == n,
+              f"{name}: {ts['step']} steps, {ts['optimizer']['count']} updates after "
+              f"epoch {epoch}, expected {n}")
+        exp, models[epoch] = load_checkpoint(path, map_location="cpu")
+    wall_s = time.perf_counter() - t0
+    k1_train, k2_train = rf.resblock_eval.launches, k2.bn_relu_bwd.launches
+    init = build_model(exp.model, device="cpu", seed=exp.train.seed).state_dict()
+    for a, b, what in ((init, models[0], "epoch 0"), (models[0], models[1], "epoch 1")):
+        still = [k for k, v in b.items() if not k.endswith("num_batches_tracked")
+                 and torch.equal(v, a[k])]
+        check(not still, f"{name}: unmoved by {what}: {still}")
+
+    ev = fixture["eval"]
+    out = os.path.join(tmp, f"{name}_trained_scores.txt")
+    rf.resblock_eval.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = evaluate.main(["--model_type", name, "--model_path", ck, "--protocol",
+                            ev["protocol"], "--data_dir", ev["audio_dir"], "--output", out,
+                            "--batch_size", str(EVAL_BATCH), "--device", dev.type])
+    torch.cuda.synchronize()
+    k1_eval = rf.resblock_eval.launches
+    check(rc == 0, f"{name}: evaluate of the checkpoint exited {rc}")
+    with open(out) as fh:
+        lines = [ln.split() for ln in fh.read().splitlines()]
+    check([ln[0] for ln in lines] == ev["utt_ids"]
+          and bool(np.isfinite([float(ln[1]) for ln in lines]).all()),
+          f"{name}: score file of the trained model")
+    n_batches = -(-EVAL_UTTS // EVAL_BATCH)
+    check(k1_eval == 5 * n_batches, f"{name}: K1 launched {k1_eval} times evaluating "
+                                    f"the checkpoint, expected {5 * n_batches}")
+    rec = {"model": name, "cut": CUT, "batch": TRAIN_BATCH, "train_utts": TRAIN_UTTS,
+           "dev_utts": DEV_UTTS, "epochs": hist, "steps": 2 * steps_per_epoch,
+           "retained_epochs": mgr.all_epochs(), "k1_launches_training": k1_train,
+           "k2_launches_training": k2_train, "k1_launches_evaluate": k1_eval,
+           "wall_s": wall_s}
+    print("train " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _grads(state, metrics):
+    clip, norm = state.optimizer.clip, float(metrics["grad_norm"])
+    factor = clip / norm if clip and norm >= clip else 1.0
+    return {n: p.grad.detach().float().cpu().numpy().ravel() / factor
+            for n, p in state.model.named_parameters()}
+
+
+def phase_train_card_vs_cpu(dev):
+    """One f32 step of maze5 on the card and on the CPU from the same init."""
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.models import build_model
+    from adfmsl_torch.train import Optimizer, TrainState, make_train_step
+
+    exp = make_experiment("maze5")
+    exp.data.cut, exp.model.dtype = 16000, "float32"
+    exp.model.architecture.dropout_rate = exp.model.architecture.fc_dropout = 0.0
+    exp.model.spec_augment.enabled = False
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((0.1 * rng.standard_normal((2, 16000))).astype(np.float32))
+    y, m = torch.tensor([0, 1]), torch.ones(2, dtype=torch.bool)
+    loss, grads = {}, {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        old = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for d in ("cpu", dev):
+                model = build_model(exp.model, device=d, seed=0)
+                st = TrainState(model, Optimizer(exp.train.optimizer, model.parameters(),
+                                                 10, 5), seed=0)
+                met = make_train_step(exp)(st, x.to(d), y.to(d), m.to(d))
+                loss[str(d)], grads[str(d)] = float(met["loss"]), _grads(st, met)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old
+    cpu, card = grads["cpu"], grads[str(dev)]
+    gnorm = math.sqrt(sum(float(v @ v) for v in cpu.values()))
+    worst_cos, worst_ratio, checked = 1.0, 0.0, 0
+    for k, r in cpu.items():
+        a = card[k]
+        na, nb = float(np.linalg.norm(a)), float(np.linalg.norm(r))
+        if na < 3e-5 * gnorm and nb < 3e-5 * gnorm:
+            continue
+        cos = float(a @ r) / (na * nb)
+        check(cos >= (0.999 if a.size >= 512 else 0.99), f"card vs CPU: {k} cosine {cos}")
+        ratio_tol = 0.01 if nb >= 0.01 * gnorm else 0.05
+        check(abs(na / nb - 1) <= ratio_tol, f"card vs CPU: {k} norm ratio {na / nb}")
+        worst_cos, worst_ratio = min(worst_cos, cos), max(worst_ratio, abs(na / nb - 1))
+        checked += 1
+    rel = abs(loss[str(dev)] - loss["cpu"]) / abs(loss["cpu"])
+    rec = {"model": "maze5", "dtype": "float32", "batch": 2, "cut": 16000,
+           "loss_card": loss[str(dev)], "loss_cpu": loss["cpu"], "loss_rel_err": rel,
+           "leaves_checked": checked, "worst_grad_cosine": worst_cos,
+           "worst_norm_ratio_dev": worst_ratio}
+    print("train_card_vs_cpu " + json.dumps(rec), flush=True)
+    check(rel <= 1e-4 and checked >= 20, f"card vs CPU: loss {rel}, {checked} leaves")
+    return rec
+
+
+def profile_steps(step, st, batch_args, first, steps=3, tops=False):
+    """``torch.profiler`` over ``steps`` train steps: the device's busy share
+    of the wall time, the step's device time split by its labels
+    (``STEP_LABELS``) and, with ``tops``, the operators and kernels with the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adfmsl_torch.train.steps import STEP_LABELS
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(st, *batch_args, st.generators(0, first + i))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def device_us(e, total=False):
+        if total:
+            return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    def top(events, n):
+        return [{"name": e.key[:120], "ms_per_step": device_us(e) / 1e3 / steps,
+                 "calls_per_step": e.count / steps}
+                for e in sorted(events, key=device_us, reverse=True)[:n]]
+    events = prof.key_averages()
+    on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
+    on_host = [e for e in events if not str(e.device_type).endswith("CUDA")]
+    # a host-side label carries the device time of the kernels launched inside
+    # its range on the calling thread
+    labels = {e.key: device_us(e, total=True) / 1e3 / steps for e in on_host
+              if e.key in STEP_LABELS}
+    # device events are the kernels and copies (the labels' device-side spans
+    # are left out); host events (aten ops) carry the device time of the
+    # kernels they launched, counted a second time
+    kernels = [e for e in on_device if device_us(e) > 0 and e.key not in STEP_LABELS]
+    ops = [e for e in on_host if device_us(e) > 0 and e.key not in STEP_LABELS]
+    device_ms = sum(device_us(e) for e in kernels) / 1e3 / steps
+    fwd, bwd, upd = (labels.get(k, 0.0) for k in STEP_LABELS)
+    rec = {"profiled_steps": steps, "wall_ms_per_step": wall_ms,
+           "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / wall_ms if device_ms else None,
+           # autograd runs the backward's kernels on its own device thread,
+           # outside the backward label's range: the backward is the rest
+           "forward_ms": fwd, "update_ms": upd, "backward_ms": device_ms - fwd - upd,
+           "backward_label_ms": bwd}
+    check(fwd > 0 and upd > 0 and rec["backward_ms"] > 0,
+          f"train step split: {rec}")
+    if tops:
+        rec.update(top_ops=top(ops, 15), top_kernels=top(kernels, 10))
+    return rec
+
+
+def phase_train_throughput(name, dev, card):
+    """Train utt/s of the real step, then a profile of it (``profile_steps``)."""
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.models import build_model
+    from adfmsl_torch.train import Optimizer, TrainState, make_train_step
+
+    rec = {"model": name, "card": card, "cut": CUT, "dtype": "bfloat16"}
+    for batch in THROUGHPUT_BATCHES:
+        exp = make_experiment(name)
+        model = build_model(exp.model, device=dev, seed=0)
+        st = TrainState(model, Optimizer(exp.train.optimizer, model.parameters(), 100, 5),
+                        seed=0)
+        step = make_train_step(exp)
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = 0.1 * torch.randn((batch, CUT), generator=g, device=dev)
+        y = (torch.arange(batch, device=dev) % 2).long()
+        m = torch.ones(batch, dtype=torch.bool, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(WARM_STEPS):
+            step(st, x, y, m, st.generators(0, i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TIMED_STEPS):
+            met = step(st, x, y, m, st.generators(0, WARM_STEPS + i))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(math.isfinite(float(met["loss"])) and float(met["skipped"]) == 0,
+              f"{name}: train step at batch {batch}")
+        rec[f"b{batch}"] = {"utt_per_s": batch * TIMED_STEPS / secs,
+                            "step_ms": secs / TIMED_STEPS * 1e3,
+                            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                            **profile_steps(step, st, (x, y, m), WARM_STEPS + TIMED_STEPS,
+                                            tops=batch == THROUGHPUT_BATCHES[-1])}
+        del model, st, x
+        torch.cuda.empty_cache()
+    print("train_throughput " + json.dumps(rec), flush=True)
+    return rec
+
+
 def _summed(recs):
     """Kernel, plain and bound times summed over ``recs`` (one forward's calls)."""
     ops_ms = sum(r["ops_ms"] for r in recs)
@@ -401,20 +756,32 @@ def _summed(recs):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def kernels_line(k1, k3, main_path):
-    """The ``kernels`` record. K1: main-path launches and errors over all
-    cases; times and bound summed over the five maze5 blocks, i.e. per maze5
-    forward at batch 128 (the six RawNet blocks beside them). K3: its times at
-    batch 16, the largest batch its dispatch gives it on the main path (batch
-    128 beside them)."""
+def kernels_line(k1, k2, k2_entry, k3, main_path, train):
+    """The ``kernels`` record. K1: main-path launches (the evaluate paths and
+    the evaluation of each trained checkpoint) and errors over all cases;
+    times and bound summed over the five maze5 blocks, i.e. per maze5 forward
+    at batch 128 (the six RawNet blocks beside them). K2: launches at its entry
+    point (no model path reaches it, as in adfmsl), errors over all cases,
+    times at maze5's block0 at batch 16 (batch 128 beside them). K3: its times
+    at batch 16, the largest batch its dispatch gives it on the main path
+    (batch 128 beside them)."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
     k3_big = next(r for r in k3 if r["B"] == BENCH_BATCH)
+    k2_main = next(r for r in k2 if r["case"] == "maze5_block0_b16")
+    k2_big = next(r for r in k2 if r["case"] == "maze5_block0_b128")
+
+    def k2_times(r):
+        return {"ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "two_pass_bound_ms": r["two_pass_bytes_ms"],
+                "composition_ms": r["autograd_bn_relu_bwd_ms"]}
+    k1_train = {f"{r['model']} trained checkpoint": r["k1_launches_evaluate"] for r in train}
     return {"kernels": [{
         "id": "K1", "name": "resblock_eval", "route": "cuda",
         "source": "adfmsl_torch/csrc/resblock_eval.cu",
         "replaces": "adfmsl/ops/pallas/resblock_fused.py:141",
-        "launches": sum(r["k1_launches"] for r in main_path),
-        "launches_by_path": {r["model"]: r["k1_launches"] for r in main_path},
+        "launches": sum(r["k1_launches"] for r in main_path) + sum(k1_train.values()),
+        "launches_by_path": {**{r["model"]: r["k1_launches"] for r in main_path},
+                             **k1_train},
         "max_abs_err": max(r["max_abs_err_y"] for r in k1),
         "max_err_over_tol": max(max(r["max_abs_err_y"] / r["tol_y"],
                                     r["max_abs_err_sums"] / r["tol_sums"]) for r in k1),
@@ -423,6 +790,25 @@ def kernels_line(k1, k3, main_path):
         "library_note": "no single PyTorch call computes the folded block",
         "shapes": f"the five maze5 trunk blocks at batch {BENCH_BATCH}, cut {CUT}",
         "main_blocks": _summed([r for r in k1 if r["case"].startswith("main_block")]),
+    }, {
+        "id": "K2", "name": "bn_relu_bwd", "route": "cuda",
+        "source": "adfmsl_torch/csrc/bn_relu_bwd.cu",
+        "replaces": "adfmsl/ops/pallas/bn_relu_bwd.py:100",
+        "launches": k2_entry["launches"],
+        "launches_by_path": {"measure_bn_relu_bwd": k2_entry["launches"],
+                             **{f"{r['model']} training": r["k2_launches_training"]
+                                for r in train}},
+        "max_abs_err": max(r["max_abs_err_dx"] for r in k2),
+        "max_err_over_tol": max(max(r["dx_max_err_over_bound"],
+                                    r["max_abs_err_dgamma"] / r["tol_dgamma"],
+                                    r["max_abs_err_dbeta"] / r["tol_dbeta"]) for r in k2),
+        **k2_times(k2_main),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes relu(BN_train(x))'s backward; "
+                        "autograd through F.batch_norm + relu is in composition_ms, "
+                        "for information",
+        "shapes": "maze5 block0 at batch 16, (16, 64350, 128) bf16",
+        "b128": k2_times(k2_big),
     }, {
         "id": "K3", "name": "sinc_abs_pool_fused", "route": "cuda",
         "source": "adfmsl_torch/csrc/sinc_abs_pool.cu",
@@ -453,6 +839,7 @@ def main() -> int:
           f"adfmsl_torch imported from {adfmsl_torch.__file__}, not beside this script")
     from adfmsl_torch.data import SyntheticSpec, generate_fixture
     from adfmsl_torch.ops import _build
+    from adfmsl_torch.ops import bn_relu_bwd as k2
     from adfmsl_torch.ops import resblock_fused as rf
     from adfmsl_torch.ops import sinc_fused as sf
 
@@ -470,16 +857,21 @@ def main() -> int:
     print("device " + json.dumps(device), flush=True)
 
     k1, k3 = phase_kernels(rf, sf, dev)
+    k2_recs, k2_entry = phase_k2(k2, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        fixture = generate_fixture(tmp, SyntheticSpec(n_train=0, n_dev=0,
+        fixture = generate_fixture(tmp, SyntheticSpec(n_train=TRAIN_UTTS, n_dev=DEV_UTTS,
                                                       n_eval=EVAL_UTTS))
         main_path = [phase_main_path(*p, rf, sf, fixture, tmp) for p in MAIN_PATHS]
+        train = [phase_train(n, rf, k2, fixture, tmp, dev) for n in ("maze5", "maze5_fmsl")]
+    phase_train_card_vs_cpu(dev)
+    for n in ("maze5", "maze5_fmsl"):
+        phase_train_throughput(n, dev, smi)
     for n in ("maze5", "maze5_fmsl"):
         phase_throughput(n, dev, smi)
     phase_throughput_main(dev, smi)
 
     print(smi, flush=True)
-    print(json.dumps(kernels_line(k1, k3, main_path)), flush=True)
+    print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, main_path, train)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
