@@ -12,7 +12,7 @@ BatchNorm semantics: see ``adfmsl_torch/ops/norm.py``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +37,8 @@ def init_like_flax_(module: nn.Module, generator: Optional[torch.Generator]) -> 
     """Re-initialise convs and linears with adfmsl's initialisers (lecun_normal
     kernels, zero biases) and BatchNorms with ones/zeros and fresh stats."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Linear)):
-            fan_in = m.weight[0].numel()              # Cin*K or in_features
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()              # Cin*K(*K) or in_features
             with torch.no_grad():
                 lecun_normal_(m.weight, fan_in, generator)
                 if m.bias is not None:
@@ -54,6 +54,39 @@ def conv_nhc(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype) -> torch.Tens
     b = conv.bias.to(dtype) if conv.bias is not None else None
     y = F.conv1d(x.transpose(1, 2).to(dtype), w, b, padding=conv.kernel_size[0] // 2)
     return y.transpose(1, 2)
+
+
+def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """flax / XLA 'SAME' padding (lo, hi) of one axis: ceil(size/stride) outputs,
+    the total split with the odd sample on the high side (asymmetric at
+    stride 2 on even sizes, where torch's ``padding=`` would be symmetric)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
+                stride: int = 1) -> torch.Tensor:
+    """SAME conv of a (B, H, W, C) tensor in ``dtype`` (flax ``nn.Conv``), as a
+    channels-last view of an NCHW conv."""
+    kh, kw = conv.kernel_size
+    (ht, hb), (wl, wr) = same_pads(x.shape[1], kh, stride), same_pads(x.shape[2], kw, stride)
+    h = x.permute(0, 3, 1, 2).to(dtype)
+    pad = (ht, wl)
+    if (ht, wl) != (hb, wr):
+        h, pad = F.pad(h, (wl, wr, ht, hb)), 0
+    b = conv.bias.to(dtype) if conv.bias is not None else None
+    return F.conv2d(h, conv.weight.to(dtype), b, stride=stride, padding=pad).permute(0, 2, 3, 1)
+
+
+def max_pool2d_nhwc(x: torch.Tensor, k: int, stride: int, same: bool = False) -> torch.Tensor:
+    """flax ``nn.max_pool`` of a (B, H, W, C) tensor: VALID, or SAME with -inf
+    padding."""
+    h = x.permute(0, 3, 1, 2)
+    if same:
+        (ht, hb), (wl, wr) = same_pads(x.shape[1], k, stride), same_pads(x.shape[2], k, stride)
+        h = F.pad(h, (wl, wr, ht, hb), value=float("-inf"))
+    return F.max_pool2d(h, k, stride).permute(0, 2, 3, 1)
 
 
 def overlap_avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:

@@ -7,8 +7,9 @@ classifier with its fc dropout, the FMSL head in the 'refine', 'replace' and
 'integrated' modes, and both scores (adfmsl :95-273); the ``SPECS`` of
 ``main``, ``maze4``, ``maze5`` and their ``_fmsl`` twins. The sinc models run
 in train and eval mode; RawNet models evaluate only (their training comes with
-ROADMAP slice 4). Other registry names raise and name the ROADMAP slice that
-brings them.
+ROADMAP slice 4). ``build_model`` also builds adfmsl's extra families
+(``EXTRAS``: ``models/lcnn.py``, ``models/resnet.py``, eval only). Other
+registry names raise and name the ROADMAP slice that brings them.
 
 Output contract (as adfmsl): dict with 'logits' (B, 2), 'scores' (B,) =
 log-softmax[:, 1] or the raw logit[:, 1] (``MazeSpec.score``), 'features'
@@ -29,7 +30,9 @@ from adfmsl_torch.config.base import ModelConfig
 from adfmsl_torch.device import resolve_device
 from adfmsl_torch.heads.fmsl import FMSLHead
 from adfmsl_torch.models.blocks import GRU, ResStack, init_like_flax_
+from adfmsl_torch.models.lcnn import LCNN, LCNN1D
 from adfmsl_torch.models.rawnet import RawNetEncoder
+from adfmsl_torch.models.resnet import ResNet18
 from adfmsl_torch.models.sincnet import SincConv
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
@@ -76,14 +79,14 @@ SPECS: Dict[str, MazeSpec] = {
                            first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
 }
 
+# adfmsl's extra model families (config/standardized.py:EXTRA_MODELS), each
+# its own module: the LFCC / log-mel models.
+EXTRAS = {"lcnn_lfcc": LCNN, "lcnn1d_lfcc": LCNN1D, "resnet18_logmel": ResNet18}
+
 # Registry names of adfmsl that later slices of the port bring (ROADMAP.md).
-LATER_SLICES = {
-    **{n: "slice 5 (LFCC / log-mel front ends, LCNN and ResNet)"
-       for n in ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")},
-    **{n: "slice 6 (the Wav2Vec2 family)"
-       for b in ("maze2", "maze3", "maze6", "maze7", "maze8")
-       for n in (b, f"{b}_fmsl")},
-}
+LATER_SLICES = {n: "slice 6 (the Wav2Vec2 family)"
+                for b in ("maze2", "maze3", "maze6", "maze7", "maze8")
+                for n in (b, f"{b}_fmsl")}
 
 
 class MazeModel(nn.Module):
@@ -220,14 +223,18 @@ class MazeModel(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device: Optional[Union[str, torch.device]] = None,
-                seed: Optional[int] = 0) -> MazeModel:
+                seed: Optional[int] = 0) -> nn.Module:
     """Build a ported registry model on ``device`` (``None`` means ``cuda``),
-    randomly initialised from ``seed``."""
+    randomly initialised from ``seed``: a ``MazeModel`` for the ``SPECS``
+    names, the model's own class for the ``EXTRAS``."""
+    gen = torch.Generator().manual_seed(seed) if seed is not None else None
+    if cfg.name in EXTRAS:
+        return EXTRAS[cfg.name](cfg, device=device, generator=gen)
     if cfg.name not in SPECS:
         later = LATER_SLICES.get(cfg.name)
         if later:
             raise NotImplementedError(f"model {cfg.name!r} is not ported yet: "
                                       f"it comes with ROADMAP {later}")
-        raise KeyError(f"unknown model {cfg.name!r}; ported: {sorted(SPECS)}")
-    gen = torch.Generator().manual_seed(seed) if seed is not None else None
+        raise KeyError(f"unknown model {cfg.name!r}; ported: "
+                       f"{sorted([*SPECS, *EXTRAS])}")
     return MazeModel(SPECS[cfg.name], cfg, device=device, generator=gen)

@@ -9,7 +9,13 @@ arrays) into a state dict that the port's ``MazeModel`` accepts with
 for RawNet ``encoder.{sinc,first_bn,block{i},fc_attention{i},bn_before_gru,
 fc1_gru}`` with the GRU's gates ``encoder.gru.cell.{ir,iz,in,hr,hz,hn}``.
 
-Layouts: a flax conv kernel (K, Cin, Cout) becomes a torch weight (Cout, Cin, K);
+The LFCC / log-mel models (``models/lcnn.py``, ``models/resnet.py``) keep
+their flax names too (``conv1``, ``nin1``, ``bn1``, ..., ``b1_conv``, ``b1_bn``,
+..., ``stem``, ``stem_bn``, ``layer{i}_{j}.{conv1,bn1,conv2,bn2,proj,proj_bn}``,
+``fc1``, ``fc2``, ``fc``).
+
+Layouts: a flax conv kernel (K, Cin, Cout) becomes a torch weight (Cout, Cin, K),
+a 2-D one (kh, kw, Cin, Cout) a weight (Cout, Cin, kh, kw);
 a Dense kernel (in, out), a GRU gate's included, a Linear weight (out, in)
 (adfmsl's GRU keeps flax ``GRUCell``'s gates, so nothing is regrouped as for
 ``nn.GRU``); BatchNorm scale/bias and
@@ -44,7 +50,8 @@ def _walk(params: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
             n += 1
         elif "kernel" in node:                             # conv or Dense
             k = np.asarray(node["kernel"], dtype=np.float32)
-            w = k.transpose(2, 1, 0) if k.ndim == 3 else k.T
+            # (..., Cin, Cout) -> (Cout, Cin, ...): the spatial axes keep their order
+            w = k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
             out[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
             n += 1
             if "bias" in node:
@@ -73,10 +80,11 @@ def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
                          model_name: str) -> "OrderedDict[str, torch.Tensor]":
     """adfmsl ``MazeModel`` variables of ``model_name`` -> the port's state dict.
     Raises if the model is not ported or a leaf of either tree was not used."""
-    from adfmsl_torch.models.mazes import SPECS
+    from adfmsl_torch.models.mazes import EXTRAS, SPECS
 
-    if model_name not in SPECS:
-        raise KeyError(f"model {model_name!r} is not ported; ported: {sorted(SPECS)}")
+    if model_name not in SPECS and model_name not in EXTRAS:
+        raise KeyError(f"model {model_name!r} is not ported; ported: "
+                       f"{sorted([*SPECS, *EXTRAS])}")
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     used = _walk(params, batch_stats or {}, "", out)
     total = _count(params) + _count(batch_stats or {})

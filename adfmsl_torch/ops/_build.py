@@ -26,7 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Every kernel library of the port: name -> its sources under csrc/.
 LIBRARIES = {"resblock_eval": ("resblock_eval.cu",),
              "bn_relu_bwd": ("bn_relu_bwd.cu",),
-             "sinc_abs_pool": ("sinc_abs_pool.cu",)}
+             "sinc_abs_pool": ("sinc_abs_pool.cu",),
+             "lfcc_fused": ("lfcc_fused.cu",)}
 
 
 def _nvcc() -> str:

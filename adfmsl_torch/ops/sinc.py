@@ -30,8 +30,9 @@ def sinc_init(out_channels: int, sample_rate: int = 16000, min_low_hz: float = 5
     """Mel-spaced initial (low_hz, band_hz) params — maze4.py:68-78 semantics:
     mel-linspace from 30 Hz to sr/2 - (min_low+min_band), low=edges[:-1], band=diff."""
     low_hz, high_hz = 30.0, sample_rate / 2.0 - (min_low_hz + min_band_hz)
-    mel = np.linspace(hz_to_mel(low_hz), hz_to_mel(high_hz), out_channels + 1)
-    hz = mel_to_hz(mel)
+    mel = np.linspace(hz_to_mel(low_hz, htk=True), hz_to_mel(high_hz, htk=True),
+                      out_channels + 1)
+    hz = mel_to_hz(mel, htk=True)
     return hz[:-1].astype(np.float32), np.diff(hz).astype(np.float32)
 
 

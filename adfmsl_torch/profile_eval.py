@@ -1,7 +1,7 @@
 """Where the time of one eval forward goes, on the card.
 
-    python -m adfmsl_torch.profile_eval [--model maze5|main|...] [--batch 128]
-        [--cut 64600] [--fused_frontend] [--no_fused_trunk]
+    python -m adfmsl_torch.profile_eval [--model maze5|main|lcnn1d_lfcc|...]
+        [--batch 128] [--cut 64600] [--fused_frontend] [--no_fused_trunk]
 
 Builds the model as the evaluate CLI does (random weights from ``--seed``, the
 folded K1 trunk unless ``--no_fused_trunk``, the K3 front end of a RawNet model
@@ -10,7 +10,10 @@ on random audio, then prints one JSON line per section:
 
 - ``stages``: CUDA-event time of each top-level stage of one forward (the sinc
   front end, each trunk block, for RawNet models the GRU and fc1_gru, the
-  head), and the rest (front-end BN/SELU, gates, pooling) as glue;
+  head), and the rest (front-end BN/SELU, gates, pooling) as glue; for the
+  LFCC / log-mel models (``lcnn_lfcc``, ``lcnn1d_lfcc``, ``resnet18_logmel``)
+  the front end (DSP and CMVN), the trunk (to the pooled features) and the
+  head;
 - ``kernels``: the device time by kernel name over ``--reps`` forwards from
   ``torch.profiler`` (top 12), with the device busy share of the window.
 """
@@ -29,8 +32,9 @@ def build(model_name: str, args, device: torch.device):
     from adfmsl_torch.models import SPECS, build_model
 
     exp = make_experiment(model_name)
-    set_fused_extras(exp, SPECS[model_name], fused_frontend=args.fused_frontend,
-                     fused_trunk=not args.no_fused_trunk)
+    if model_name in SPECS:
+        set_fused_extras(exp, SPECS[model_name], fused_frontend=args.fused_frontend,
+                         fused_trunk=not args.no_fused_trunk)
     return build_model(exp.model, device=device, seed=args.seed)
 
 
@@ -45,8 +49,26 @@ def stage_names(model) -> list:
     return names + [n for n in ("fc1", "fmsl", "fc2") if hasattr(model, n)]
 
 
+def spectral_stage_times(model, x) -> dict:
+    """CUDA-event time (ms) of the front end, trunk and head of one forward of
+    an LFCC / log-mel model (``models/lcnn.py:SpectralModel``)."""
+    stages = (("frontend", model.features), ("trunk", model.trunk), ("head", model.head))
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+    h = x
+    events[0].record()
+    for (_, fn), ev in zip(stages, events[1:]):
+        h = fn(h)
+        ev.record()
+    torch.cuda.synchronize()
+    out = {n: events[i].elapsed_time(events[i + 1]) for i, (n, _) in enumerate(stages)}
+    out["forward"] = events[0].elapsed_time(events[-1])
+    return out
+
+
 def stage_times(model, x) -> dict:
     """CUDA-event time (ms) of each top-level module call in one forward."""
+    if hasattr(model, "classify"):
+        return spectral_stage_times(model, x)
     names = stage_names(model)
     mods = dict(model.named_modules())
     events, handles = {}, []

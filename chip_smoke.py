@@ -20,20 +20,38 @@ Phases, each printing its own lines:
    its plain version: the CPU tests' (2, 8000) and ragged cases, and batch 16
    and 128 at cut 64600, C 128, K 251. Error against 1e-3 * max|plain|; the
    kernel's, the plain version's and a bf16 cuDNN composition's times (conv1d
-   -> abs -> max_pool1d, information only) beside the bound. Phases 2 and 3
-   run with TF32 off in cuDNN and cuBLAS, so the plain versions are exact f32;
-4. the main path, for maze5, maze5_fmsl, main and main_fmsl: a synthetic
+   -> abs -> max_pool1d, information only) beside the bound;
+3b. kernel K4 (the fused LFCC front end) against its plain version: the CPU
+   tests' (2, 16000) and (1, 64600) (404 frames) at the 'high', 'default' and
+   'highest' tiers, then batch 128 and 384 at cut 64600, 'high'. Error against
+   1e-4 * max|plain| (and their ratio); the kernel's, the plain version's and
+   a ``torch.stft`` (cuFFT) composition's times (information only) beside the
+   bound, the largest of the tensor-core, f32 and bytes times (the filterbank
+   counted by its nonzero weights). Phases 2 to 3b run with TF32 off in cuDNN and cuBLAS, so the plain
+   versions are exact f32;
+4. the main path, for maze5, maze5_fmsl, main, main_fmsl, lcnn_lfcc,
+   lcnn1d_lfcc and resnet18_logmel: a synthetic
    ASVspoof fixture with 40 eval utterances goes through
    ``adfmsl_torch.cli.evaluate`` at full width, cut 64600 and batch 16 (a
    ragged last batch; RawNet with ``--fused_frontend``); the score file must
    hold one finite score per protocol utterance in protocol order, the EER
    must be printed, and the kernels must have launched as the path says: K1
-   5 times per batch for maze5 and 6 for RawNet, K3 once per RawNet batch.
-   Every count is set to 0 just before a path and read just after it;
+   5 times per batch for maze5 and 6 for RawNet, K3 once per RawNet batch,
+   none of them for the LFCC / log-mel models, and K4 on no evaluate path
+   (the models' front end is the composition, as in adfmsl). Every count is
+   set to 0 just before a path and read just after it;
+4b. K4 as lcnn1d_lfcc's front end at batch 128, cut 64600: ``model.classify``
+   of the kernel's LFCC against ``model(x)``, within 3e-2 * max(1, |logits|),
+   with exactly one K4 launch (the count set to 0 just before); then both
+   front ends' times and both forwards' utt/s: the median and spread of six
+   windows of about 3 s each, taken in turns;
 5. throughput: maze5 and maze5_fmsl folded vs unfolded trunk at batch 128
    (logits held against each other on 4 clips first); main at batch 16 with
    the K3 front end and with the composition (logits held against each other
-   first), and at batch 128 (composition front end, K1 trunk);
+   first), and at batch 128 (composition front end, K1 trunk); lcnn1d_lfcc at
+   batch 128 and 384, lcnn_lfcc and resnet18_logmel at 128 (the median and
+   spread of five windows of about 3 s each), each with the front end / trunk
+   / head split of a forward (``profile_eval``, the median of 5);
 6. kernel K2 (the BN + ReLU train backward, two passes) against its plain
    version: the CPU tests' (2, 700, 128) f32 and (3, 1000, 128) bf16 cases,
    maze5's block0 at batch 16 and 128 and block4's bn2 at batch 12, bf16.
@@ -65,11 +83,12 @@ Phases, each printing its own lines:
    by its forward / backward / update labels (``train/steps.py``), and, at
    batch 32, the operators and kernels with the most device time;
 10. a ``kernels`` line: every ported kernel with its launches on the main
-   paths (K2's on its entry point), its max error, its time at the main
-   path's shapes beside its plain version's time, its bound and the library
-   call's time (none exists).
+   paths (K2's on its entry point, K4's as lcnn1d_lfcc's front end), its max
+   error, its time at the main path's shapes beside its plain version's time,
+   its bound and the library call's time (none exists).
 
-The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
+Each phase prints its seconds, and a ``phase_seconds`` line the total. The
+last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 before it. Without a card, or without the repo beside this script, the run
 exits non-zero and prints no result.
 """
@@ -134,10 +153,29 @@ K2_OPS_PER_ELEMENT = 20           # f32 operations of both passes, per element
 K2_MEASURE_ITERS = 10
 TRAIN_UTTS, DEV_UTTS, TRAIN_BATCH = 48, 24, 12
 THROUGHPUT_BATCHES, WARM_STEPS, TIMED_STEPS = (12, 32), 2, 5
-# (model, extra CLI flags, K1 launches per batch, K3 launches per batch)
-MAIN_PATHS = [("maze5", [], 5, 0), ("maze5_fmsl", [], 5, 0),
-              ("main", ["--fused_frontend"], 6, 1),
-              ("main_fmsl", ["--fused_frontend"], 6, 1)]
+# (model, extra CLI flags, K1, K3 and K4 launches per batch); the LFCC / log-mel
+# models' front end is the composition (ops/lfcc.py), as in adfmsl
+MAIN_PATHS = [("maze5", [], 5, 0, 0), ("maze5_fmsl", [], 5, 0, 0),
+              ("main", ["--fused_frontend"], 6, 1, 0),
+              ("main_fmsl", ["--fused_frontend"], 6, 1, 0),
+              ("lcnn_lfcc", [], 0, 0, 0), ("lcnn1d_lfcc", [], 0, 0, 0),
+              ("resnet18_logmel", [], 0, 0, 0)]
+# K4 (fused LFCC) at the model's front-end widths (FrontendConfig's defaults)
+SR, N_FFT, HOP, WIN, N_FILTER, N_LFCC = 16000, 512, 160, 400, 70, 60
+N_BINS = N_FFT // 2 + 1
+K4_CASES = [(f"{name}_{p}", b, t, p)       # name, B, T, precision tier
+            for name, b, t in (("jax_case", 2, 16000), ("ragged_404_frames", 1, CUT))
+            for p in ("high", "default", "highest")
+            ] + [(f"b{b}_cut{CUT}_high", b, CUT, "high") for b in (BENCH_BATCH, 384)]
+K4_TC_PASSES = {"high": 3, "default": 1, "highest": 0}    # bf16 DFT passes per tier
+# eval throughput of the LFCC / log-mel models: (model, batches)
+SPECTRAL_THROUGHPUT = [("lcnn1d_lfcc", (BENCH_BATCH, 384)), ("lcnn_lfcc", (BENCH_BATCH,)),
+                       ("resnet18_logmel", (BENCH_BATCH,))]
+# their forwards take a few ms and the shared host's launches set much of the
+# pace, which drifts between and within runs: their utt/s is the median of
+# several windows of a few seconds each, reported with its spread
+SPECTRAL_WINDOW_S, SPECTRAL_WINDOWS = 3.0, 5
+K4_FRONTEND_TURNS = ("composition", "k4", "k4", "composition") * 3
 
 
 def check(ok: bool, msg: str) -> None:
@@ -286,6 +324,75 @@ def k3_case(sf, filters, name, b, t, seed, dev):
     return rec
 
 
+def k4_bound(b, t, precision, fb_nonzeros):
+    """(tensor_ms, f32_ms, bytes_ms): the DFT's bf16 passes at the tier on the
+    tensor cores; the f32 work on the CUDA cores (the power, the filterbank's
+    ``fb_nonzeros`` weights, the dense DCT, and at 'highest' the DFT itself);
+    x, the DFT matrix at the tier's width, the filterbank and the DCT read once
+    and the output written once at the HBM rate. The two pipes run at the same
+    time, so the bound is the largest of the three, not a sum."""
+    frames = b * (1 + t // HOP)
+    dft = 2.0 * frames * WIN * 2 * N_BINS
+    f32_ops = frames * (3.0 * N_BINS + 2.0 * fb_nonzeros + 2.0 * N_FILTER * N_LFCC)
+    if precision == "highest":
+        f32_ops += dft
+    tensor_ms = K4_TC_PASSES[precision] * dft / PEAK_BF16_FLOPS * 1e3
+    w_bytes = WIN * 2 * N_BINS * {"high": 4, "default": 2, "highest": 4}[precision]
+    nbytes = 4 * b * t + w_bytes + 4 * N_BINS * N_FILTER + 4 * N_FILTER * N_LFCC \
+        + 4 * frames * N_LFCC
+    return tensor_ms, f32_ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def stft_composition(dev):
+    """LFCC as ``torch.stft`` (cuFFT) -> power -> filterbank -> log -> DCT:
+    timed beside K4 for information only; the port never calls it."""
+    from adfmsl_torch.ops.lfcc import dct_matrix
+    from adfmsl_torch.ops.mel import linear_filterbank
+    from adfmsl_torch.ops.window import hann
+
+    window = torch.from_numpy(hann(WIN)).to(dev)
+    fb = torch.from_numpy(linear_filterbank(SR, N_FFT, N_FILTER)).to(dev)
+    dct = torch.from_numpy(dct_matrix(N_FILTER, N_LFCC)).to(dev)
+
+    def run(x):
+        spec = torch.stft(x, N_FFT, HOP, WIN, window=window, center=True,
+                          pad_mode="reflect", return_complex=True)
+        power = spec.abs().square().transpose(1, 2)
+        return torch.log(torch.clamp(power @ fb, min=1e-6)) @ dct
+    return run
+
+
+def k4_case(lf, comp, fb_nonzeros, name, b, t, precision, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, t), generator=g, device=dev)
+    out = lf.lfcc_fused(x, precision=precision)
+    torch.cuda.synchronize()
+    want = lf.lfcc_fused_plain(x, precision=precision)
+    check(tuple(out.shape) == tuple(want.shape) == (b, 1 + t // HOP, N_LFCC),
+          f"K4 {name}: shape {tuple(out.shape)}")
+    err = (out - want).abs().max().item()
+    tol = 1e-4 * want.abs().max().item()
+    comp_err = (comp(x) - want).abs().max().item()
+    del out, want
+    plain_ms = cuda_ms(lambda: lf.lfcc_fused_plain(x, precision=precision))
+    ms = cuda_ms(lambda: lf.lfcc_fused(x, precision=precision))
+    composition_ms = cuda_ms(lambda: comp(x))
+    tensor_ms, f32_ms, bytes_ms = k4_bound(b, t, precision, fb_nonzeros)
+    ops_ms = max(tensor_ms, f32_ms)
+    rec = {"case": name, "B": b, "T": t, "precision": precision, "frames": 1 + t // HOP,
+           "max_abs_err": err, "tol": tol, "err_over_tol": err / tol,
+           "kernel_ms": ms, "plain_ms": plain_ms, "stft_composition_ms": composition_ms,
+           "stft_composition_max_abs_diff": comp_err,
+           "tensor_ms": tensor_ms, "f32_ms": f32_ms, "filterbank_nonzeros": fb_nonzeros,
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print("K4 " + json.dumps(rec), flush=True)
+    check(math.isfinite(err) and err <= tol, f"K4 {name}: error {err} > {tol}")
+    del x
+    torch.cuda.empty_cache()
+    return rec
+
+
 def sinc_filters_at_init(dev):
     """The (C, K) filters of a freshly initialised RawNet front end."""
     from adfmsl_torch.ops.sinc import sinc_filters, sinc_init
@@ -294,8 +401,12 @@ def sinc_filters_at_init(dev):
     return sinc_filters(torch.from_numpy(low), torch.from_numpy(band), SINC_K).to(dev)
 
 
-def phase_kernels(rf, sf, dev):
-    """K1 and K3 against their plain versions, TF32 off so those are f32."""
+def phase_kernels(rf, sf, lf, dev):
+    """K1, K3 and K4 against their plain versions, TF32 off so those are f32
+    (K4's plain version rounds its operands to bf16 itself at 'high' and
+    'default', where TF32 products are exact)."""
+    from adfmsl_torch.ops.mel import linear_filterbank
+
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         old = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -304,12 +415,17 @@ def phase_kernels(rf, sf, dev):
             filters = sinc_filters_at_init(dev)
             k3 = [k3_case(sf, filters, *c, seed=i, dev=dev)
                   for i, c in enumerate(K3_CASES)]
-            return k1, k3
+            comp = stft_composition(dev)
+            fb_nonzeros = int(np.count_nonzero(linear_filterbank(SR, N_FFT, N_FILTER)))
+            k4 = [k4_case(lf, comp, fb_nonzeros, *c, seed=i, dev=dev)
+                  for i, c in enumerate(K4_CASES)]
+            return k1, k3, k4
         finally:
             torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def phase_main_path(name, flags, k1_per_batch, k3_per_batch, rf, sf, fixture, tmp):
+def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, rf, sf, lf,
+                    fixture, tmp):
     """Drive the evaluate CLI on the card; returns the run's record."""
     from adfmsl_torch.cli import evaluate
 
@@ -322,6 +438,7 @@ def phase_main_path(name, flags, k1_per_batch, k3_per_batch, rf, sf, fixture, tm
     buf = io.StringIO()
     rf.resblock_eval.launches = 0
     sf.sinc_abs_pool_fused.launches = 0
+    lf.lfcc_fused.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = evaluate.main(argv)
@@ -329,6 +446,7 @@ def phase_main_path(name, flags, k1_per_batch, k3_per_batch, rf, sf, fixture, tm
     wall_s = time.perf_counter() - t0
     k1_launches = rf.resblock_eval.launches
     k3_launches = sf.sinc_abs_pool_fused.launches
+    k4_launches = lf.lfcc_fused.launches
     text = buf.getvalue()
     check(rc == 0, f"{name}: evaluate exited {rc}")
     metrics = [ast.literal_eval(ln) for ln in text.splitlines() if ln.startswith("{")]
@@ -344,9 +462,12 @@ def phase_main_path(name, flags, k1_per_batch, k3_per_batch, rf, sf, fixture, tm
           f"{name}: K1 launched {k1_launches} times, expected {k1_per_batch * n_batches}")
     check(k3_launches == k3_per_batch * n_batches,
           f"{name}: K3 launched {k3_launches} times, expected {k3_per_batch * n_batches}")
+    check(k4_launches == k4_per_batch * n_batches,
+          f"{name}: K4 launched {k4_launches} times, expected {k4_per_batch * n_batches}")
     rec = {"model": name, "flags": flags, "utterances": len(ids), "batch": EVAL_BATCH,
            "batches": n_batches, "k1_launches": k1_launches,
-           "k3_launches": k3_launches, "eer": metrics[-1]["eer"], "wall_s": wall_s}
+           "k3_launches": k3_launches, "k4_launches": k4_launches,
+           "eer": metrics[-1]["eer"], "wall_s": wall_s}
     print("main_path " + json.dumps(rec), flush=True)
     return rec
 
@@ -365,6 +486,20 @@ def forward_rate(model, x, reps: int = 5) -> tuple:
     secs = time.perf_counter() - t0
     check(bool(torch.isfinite(out["scores"]).all()), "non-finite scores")
     return x.shape[0] * reps / secs, secs / reps * 1e3
+
+
+def windowed_rates(fns, x, order):
+    """utt/s of each forward in ``fns`` (key -> callable) over windows of about
+    ``SPECTRAL_WINDOW_S`` seconds, sized from 5 forwards each, taken in
+    ``order`` (a sequence of keys) so that a drift of the shared host's speed
+    hits each alike. Returns {key: {median, min, max, windows, reps}}."""
+    reps = {k: max(5, math.ceil(SPECTRAL_WINDOW_S * 1e3 / forward_rate(fn, x)[1]))
+            for k, fn in fns.items()}
+    rates = {k: [] for k in fns}
+    for k in order:
+        rates[k].append(forward_rate(fns[k], x, reps[k])[0])
+    return {k: {"median": float(np.median(r)), "min": min(r), "max": max(r),
+                "windows": r, "reps": reps[k]} for k, r in rates.items()}
 
 
 def phase_throughput_main(dev, card):
@@ -431,6 +566,92 @@ def phase_throughput(name, dev, card):
     print("throughput " + json.dumps(rec), flush=True)
     del models, x
     torch.cuda.empty_cache()
+
+
+def phase_k4_frontend(lf, dev, card):
+    """K4 as lcnn1d_lfcc's front end at batch 128: ``model.classify`` of the
+    kernel's LFCC against ``model(x)`` (the composition front end), K4
+    launched exactly once for the batch; then both front ends' times and
+    both forwards' utt/s over windows taken in turns (``K4_FRONTEND_TURNS``)."""
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.models import build_model
+    from adfmsl_torch.ops.cmvn import cmvn
+
+    exp = make_experiment("lcnn1d_lfcc")
+    fe = exp.model.frontend
+    model = build_model(exp.model, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = 0.1 * torch.randn((BENCH_BATCH, CUT), generator=g, device=dev)
+
+    def k4_features(x):
+        feats = lf.lfcc_fused(x, exp.model.architecture.sample_rate, fe.n_fft,
+                              fe.hop_length, fe.win_length, fe.n_filter, fe.n_lfcc,
+                              fe.log_eps, precision=fe.dsp_precision)
+        return cmvn(feats) if fe.cmvn else feats
+
+    def k4_forward(x):
+        return model.classify(k4_features(x))
+
+    with torch.inference_mode():
+        lf.lfcc_fused.launches = 0
+        lk = k4_forward(x)["logits"].float()
+        torch.cuda.synchronize()
+        launches = lf.lfcc_fused.launches
+        lc = model(x)["logits"].float()
+        feat_err = (k4_features(x) - model.features(x)).abs().max().item()
+        feat_tol = 1e-4 * model.features(x).abs().max().item()
+    err = (lk - lc).abs().max().item()
+    tol = 3e-2 * max(1.0, lc.abs().max().item())
+    rec = {"model": "lcnn1d_lfcc", "card": card, "batch": BENCH_BATCH, "cut": CUT,
+           "precision": fe.dsp_precision, "k4_launches": launches,
+           "features_max_abs_err": feat_err, "features_tol": feat_tol,
+           "logits_k4_vs_composition_max_abs_err": err, "tol": tol}
+    check(launches == 1, f"lcnn1d_lfcc: K4 launched {launches} times for one batch")
+    check(math.isfinite(feat_err) and feat_err <= feat_tol,
+          f"lcnn1d_lfcc: K4 features differ from the composition's by {feat_err}")
+    check(math.isfinite(err) and err <= tol,
+          f"lcnn1d_lfcc: K4-front-end logits differ by {err} > {tol}")
+    with torch.inference_mode():
+        rec["frontend_ms_k4"] = cuda_ms(lambda: k4_features(x))
+        rec["frontend_ms_composition"] = cuda_ms(lambda: model.features(x))
+    runs = windowed_rates({"composition": model, "k4": k4_forward}, x, K4_FRONTEND_TURNS)
+    for key, r in runs.items():
+        rec[f"utt_per_s_{key}"] = r
+    rec["k4_over_composition_medians"] = runs["k4"]["median"] / runs["composition"]["median"]
+    print("k4_frontend " + json.dumps(rec), flush=True)
+    del model, x
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_throughput_spectral(dev, card):
+    """Eval utt/s of the LFCC / log-mel models on random audio, with the front
+    end / trunk / head split of a forward (``profile_eval.stage_times``, the
+    median of 5)."""
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.models import build_model
+    from adfmsl_torch.profile_eval import stage_times
+
+    recs = []
+    for name, batches in SPECTRAL_THROUGHPUT:
+        model = build_model(make_experiment(name).model, device=dev, seed=0)
+        rec = {"model": name, "card": card, "cut": CUT}
+        for b in batches:
+            g = torch.Generator(device=dev).manual_seed(5)
+            x = 0.1 * torch.randn((b, CUT), generator=g, device=dev)
+            rates = windowed_rates({name: model}, x, (name,) * SPECTRAL_WINDOWS)[name]
+            with torch.inference_mode():
+                splits = [stage_times(model, x) for _ in range(5)]
+            st = {k: float(np.median([sp[k] for sp in splits])) for k in splits[0]}
+            rec[f"b{b}"] = {"utt_per_s": rates["median"], "utt_per_s_windows": rates,
+                            "forward_ms": b / rates["median"] * 1e3, "stages_ms": st,
+                            "frontend_share": st["frontend"] / st["forward"]}
+            del x
+        print("throughput " + json.dumps(rec), flush=True)
+        recs.append(rec)
+        del model
+        torch.cuda.empty_cache()
+    return recs
 
 
 def k2_bound(b, t, c, elem):
@@ -756,7 +977,7 @@ def _summed(recs):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def kernels_line(k1, k2, k2_entry, k3, main_path, train):
+def kernels_line(k1, k2, k2_entry, k3, k4, k4_front, main_path, train):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -764,8 +985,12 @@ def kernels_line(k1, k2, k2_entry, k3, main_path, train):
     point (no model path reaches it, as in adfmsl), errors over all cases,
     times at maze5's block0 at batch 16 (batch 128 beside them). K3: its times
     at batch 16, the largest batch its dispatch gives it on the main path
-    (batch 128 beside them)."""
+    (batch 128 beside them). K4: launches on its path as lcnn1d_lfcc's front end
+    (the evaluate paths launch it no time, as adfmsl's ``lfcc`` never calls
+    it), times at batch 128, cut 64600, 'high' (batch 384 beside them)."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
+    k4_main = next(r for r in k4 if r["B"] == BENCH_BATCH)
+    k4_big = next(r for r in k4 if r["B"] == 384)
     k3_big = next(r for r in k3 if r["B"] == BENCH_BATCH)
     k2_main = next(r for r in k2 if r["case"] == "maze5_block0_b16")
     k2_big = next(r for r in k2 if r["case"] == "maze5_block0_b128")
@@ -825,6 +1050,23 @@ def kernels_line(k1, k2, k2_entry, k3, main_path, train):
         "shapes": f"batch {EVAL_BATCH}, cut {CUT}, C {SINC_C}, K {SINC_K}",
         f"b{BENCH_BATCH}": {**_summed([k3_big]),
                             "composition_ms": k3_big["cudnn_bf16_composition_ms"]},
+    }, {
+        "id": "K4", "name": "lfcc_fused", "route": "cuda",
+        "source": "adfmsl_torch/csrc/lfcc_fused.cu",
+        "replaces": "adfmsl/ops/pallas/lfcc_fused.py:94",
+        "launches": k4_front["k4_launches"],
+        "launches_by_path": {"lcnn1d_lfcc with K4 as its front end": k4_front["k4_launches"],
+                             **{r["model"]: r["k4_launches"] for r in main_path}},
+        "max_abs_err": max(r["max_abs_err"] for r in k4),
+        "max_err_over_tol": max(r["err_over_tol"] for r in k4),
+        **_summed([k4_main]),
+        "bound_terms_ms": {k: k4_main[k] for k in ("tensor_ms", "f32_ms", "bytes_ms")},
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes LFCC; the torch.stft (cuFFT) "
+                        "composition is in composition_ms, for information",
+        "composition_ms": k4_main["stft_composition_ms"],
+        "shapes": f"batch {BENCH_BATCH}, cut {CUT}, 'high', 404 frames x {N_LFCC}",
+        "b384": {**_summed([k4_big]), "composition_ms": k4_big["stft_composition_ms"]},
     }]}
 
 
@@ -840,6 +1082,7 @@ def main() -> int:
     from adfmsl_torch.data import SyntheticSpec, generate_fixture
     from adfmsl_torch.ops import _build
     from adfmsl_torch.ops import bn_relu_bwd as k2
+    from adfmsl_torch.ops import lfcc_fused as lf
     from adfmsl_torch.ops import resblock_fused as rf
     from adfmsl_torch.ops import sinc_fused as sf
 
@@ -848,30 +1091,46 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    build_s = time.perf_counter() - t0
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return res
+
+    libs = phase("build", _build.build_all)
     device = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda,
-              "build_s": build_s, "libraries": sorted(libs)}
+              "build_s": phase_s["build"], "libraries": sorted(libs)}
     print("device " + json.dumps(device), flush=True)
 
-    k1, k3 = phase_kernels(rf, sf, dev)
-    k2_recs, k2_entry = phase_k2(k2, dev)
+    k1, k3, k4 = phase("kernels", phase_kernels, rf, sf, lf, dev)
+    k2_recs, k2_entry = phase("k2", phase_k2, k2, dev)
     with tempfile.TemporaryDirectory() as tmp:
         fixture = generate_fixture(tmp, SyntheticSpec(n_train=TRAIN_UTTS, n_dev=DEV_UTTS,
                                                       n_eval=EVAL_UTTS))
-        main_path = [phase_main_path(*p, rf, sf, fixture, tmp) for p in MAIN_PATHS]
-        train = [phase_train(n, rf, k2, fixture, tmp, dev) for n in ("maze5", "maze5_fmsl")]
-    phase_train_card_vs_cpu(dev)
-    for n in ("maze5", "maze5_fmsl"):
-        phase_train_throughput(n, dev, smi)
-    for n in ("maze5", "maze5_fmsl"):
-        phase_throughput(n, dev, smi)
-    phase_throughput_main(dev, smi)
+        main_path = phase("main_path", lambda: [
+            phase_main_path(*p, rf, sf, lf, fixture, tmp) for p in MAIN_PATHS])
+        train = phase("train", lambda: [phase_train(n, rf, k2, fixture, tmp, dev)
+                                        for n in ("maze5", "maze5_fmsl")])
+    k4_front = phase("k4_frontend", phase_k4_frontend, lf, dev, smi)
+    phase("train_card_vs_cpu", phase_train_card_vs_cpu, dev)
+    phase("train_throughput", lambda: [phase_train_throughput(n, dev, smi)
+                                       for n in ("maze5", "maze5_fmsl")])
+    phase("throughput", lambda: [phase_throughput(n, dev, smi)
+                                 for n in ("maze5", "maze5_fmsl")])
+    phase("throughput_main", phase_throughput_main, dev, smi)
+    phase("throughput_spectral", phase_throughput_spectral, dev, smi)
 
+    print("phase_seconds " + json.dumps({**phase_s,
+                                         "total": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
-    print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, main_path, train)), flush=True)
+    print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k4, k4_front, main_path,
+                                  train)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
