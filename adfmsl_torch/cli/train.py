@@ -4,9 +4,13 @@
         --train_dir D [--dev_protocol P2 --dev_dir D2] --batch_size 12 \\
         --num_epochs N --checkpoint_dir C [--restore] [--device cuda|cpu]
 
-Trains a sinc model (maze4, maze5 and their ``_fmsl`` twins) from its
-standardized configuration, one checkpoint per epoch under ``C`` (best-k
-retention); ``--restore`` continues from the latest one.
+Trains a ported model (maze4, maze5, RawNet ``main`` and their ``_fmsl``
+twins; lcnn_lfcc, lcnn1d_lfcc, resnet18_logmel) from its standardized
+configuration, one checkpoint per epoch under ``C`` (best-k
+retention); ``--restore`` continues from the latest one. As adfmsl's CLI, it
+has no flag for RawNet's fused training front end (kernel K3 in the train
+forward): a caller sets ``exp.model.extra["fused_train_frontend"]`` and builds
+the ``Trainer`` itself.
 ``python -m adfmsl_torch.cli.evaluate --model_path C`` scores with the latest
 epoch. ``--eval`` writes a score file for ``--eval_protocol`` instead of
 training. Runs on the card unless ``--device cpu`` is given. The flags of

@@ -2,7 +2,7 @@
 
 The port's copy of ``adfmsl/data/audio.py`` without the native C++ decoder: WAV
 decodes in numpy, and FLAC raises until the decoder's ctypes binding lands
-(ROADMAP slice 4), exactly as adfmsl behaves without its compiled library.
+(ROADMAP slice 9), exactly as adfmsl behaves without its compiled library.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 
 Ported: ``SEBlock`` (:26), ``ResBlockSE`` in its 'tpu' semantics (:223-269),
 in train and eval mode, with its folded eval body (:310-350), ``ResStack``
-(:353) and the single-layer
-``GRU`` (:548) that returns its last hidden state. Public
+(:353) and the (optionally stacked) ``GRU`` (:548) that returns its last
+hidden state. Public
 functions keep adfmsl's (B, T, C) channels-last layout; a (B, C, T) view
 exists only around ``conv1d`` / ``avg_pool1d`` calls.
 
@@ -220,50 +220,72 @@ class _GRUCell(nn.Module):
 
 
 class GRU(nn.Module):
-    """One unidirectional GRU layer over (B, T, C) that returns only the last
-    hidden state (B, H), as RawNet consumes it (adfmsl ``GRU`` with
-    ``layers=1, return_sequences=False``).
+    """A unidirectional GRU of ``layers`` stacked layers over (B, T, C) that
+    returns only the last layer's last hidden state (B, H), as RawNet
+    consumes it (adfmsl ``GRU`` with ``return_sequences=False``); every layer
+    but the last hands its whole sequence to the next. The layers' gates are
+    ``cell``, ``cell1``, ``cell2``, ..., as adfmsl's tree names them.
 
     The gate math is flax's ``GRUCell`` (adfmsl :591-595):
     ``n = tanh(x_n + r * (h_n + b_hn))`` with r/z biases on the input side
     only. ``nn.GRU`` places its biases and orders its gates otherwise
-    (``adfmsl/models/port.py:185``), so it is not used. The input projection
-    of every step runs as one product before the loop, as adfmsl hoists it
-    (:586); the recurrence is a Python loop of one (B, H) x (H, 3H) product a
-    step."""
+    (``adfmsl/models/port.py:185``), so it is not used. A layer's input
+    projection of every step runs as one product before its loop, as adfmsl
+    hoists it (:586); the recurrence is a Python loop of one (B, H) x (H, 3H)
+    product a step."""
 
-    def __init__(self, in_features: int, hidden: int):
+    def __init__(self, in_features: int, hidden: int, layers: int = 1):
         super().__init__()
+        if layers < 1:
+            raise ValueError(f"a GRU needs at least one layer, got {layers}")
         self.hidden = hidden
-        self.cell = _GRUCell(in_features, hidden)
+        self.layers = layers
+        for k in range(layers):
+            self.add_module(self._cell_name(k),
+                            _GRUCell(in_features if k == 0 else hidden, hidden))
+
+    @staticmethod
+    def _cell_name(k: int) -> str:
+        return "cell" if k == 0 else f"cell{k}"
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         """adfmsl's initialisers: lecun_normal input kernels, orthogonal
         recurrent kernels, zero biases."""
         with torch.no_grad():
-            for g in ("ir", "iz", "in", "hr", "hz", "hn"):
-                lin = getattr(self.cell, g)
-                if g.startswith("h"):
-                    nn.init.orthogonal_(lin.weight, generator=generator)
-                else:
-                    lecun_normal_(lin.weight, lin.in_features, generator)
-                if lin.bias is not None:
-                    lin.bias.zero_()
+            for k in range(self.layers):
+                cell = getattr(self, self._cell_name(k))
+                for g in ("ir", "iz", "in", "hr", "hz", "hn"):
+                    lin = getattr(cell, g)
+                    if g.startswith("h"):
+                        nn.init.orthogonal_(lin.weight, generator=generator)
+                    else:
+                        lecun_normal_(lin.weight, lin.in_features, generator)
+                    if lin.bias is not None:
+                        lin.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         hd = self.hidden
-        gi = [getattr(self.cell, g) for g in ("ir", "iz", "in")]
-        gh = [getattr(self.cell, g) for g in ("hr", "hz", "hn")]
-        wi = torch.cat([g.weight for g in gi])                    # (3H, C)
-        bi = torch.cat([g.bias for g in gi])
-        wh = torch.cat([g.weight for g in gh]).T                  # (H, 3H)
-        bhn = self.cell.hn.bias
-        xi = x @ wi.T + bi                                        # (B, T, 3H)
-        h = xi.new_zeros((x.shape[0], hd))
-        for t in range(x.shape[1]):
-            xt, hh = xi[:, t], h @ wh
-            r = torch.sigmoid(xt[:, :hd] + hh[:, :hd])
-            z = torch.sigmoid(xt[:, hd:2 * hd] + hh[:, hd:2 * hd])
-            n = torch.tanh(xt[:, 2 * hd:] + r * (hh[:, 2 * hd:] + bhn))
-            h = (1.0 - z) * n + z * h
+        seq = x
+        for k in range(self.layers):
+            cell = getattr(self, self._cell_name(k))
+            last = k == self.layers - 1
+            gi = [getattr(cell, g) for g in ("ir", "iz", "in")]
+            gh = [getattr(cell, g) for g in ("hr", "hz", "hn")]
+            wi = torch.cat([g.weight for g in gi])                # (3H, C)
+            bi = torch.cat([g.bias for g in gi])
+            wh = torch.cat([g.weight for g in gh]).T              # (H, 3H)
+            bhn = cell.hn.bias
+            xi = seq @ wi.T + bi                                  # (B, T, 3H)
+            h = xi.new_zeros((x.shape[0], hd))
+            states = []
+            for t in range(xi.shape[1]):
+                xt, hh = xi[:, t], h @ wh
+                r = torch.sigmoid(xt[:, :hd] + hh[:, :hd])
+                z = torch.sigmoid(xt[:, hd:2 * hd] + hh[:, hd:2 * hd])
+                n = torch.tanh(xt[:, 2 * hd:] + r * (hh[:, 2 * hd:] + bhn))
+                h = (1.0 - z) * n + z * h
+                if not last:
+                    states.append(h)
+            if not last:
+                seq = torch.stack(states, dim=1)                  # (B, T, H)
         return h

@@ -3,13 +3,14 @@
 three spectral models share (LCNN, LCNN1D, ``models/resnet.py:ResNet18``).
 
 Each model splits into ``features(x)`` (the parameterless DSP front end and
-CMVN, detached: adfmsl's ``stop_gradient``) and ``classify(feats)`` (trunk,
+CMVN, outside autograd: adfmsl's ``stop_gradient``) and ``classify(feats)`` (trunk,
 then head), with ``forward(x) = classify(features(x))``; a caller may feed
 ``classify`` features it made another way (the fused LFCC kernel K4). Layouts
 follow flax's: features (B, frames, coeffs); the 2-D trunk (B, H, W, C), the
-1-D trunk (B, T, C). Convolutions run in the trunk dtype; eval BatchNorm goes
-through ``ops/norm.py:bn_eval``. Eval only: training these models comes with
-a later slice (ROADMAP.md).
+1-D trunk (B, T, C). Convolutions run in the trunk dtype; BatchNorm goes
+through ``ops/norm.py:bn_forward`` (the batch statistics in train mode). In
+train mode the LCNN heads drop out half of the MFM output (adfmsl's fixed
+``nn.Dropout(0.5)``, :71, :126), drawn from the 'dropout' generator.
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ from adfmsl_torch.device import resolve_device
 from adfmsl_torch.models.blocks import (conv2d_nhwc, conv_nhc, init_like_flax_,
                                         max_pool2d_nhwc)
 from adfmsl_torch.ops.cmvn import cmvn
+from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.lfcc import lfcc, logmel
-from adfmsl_torch.ops.norm import batch_norm, bn_eval
+from adfmsl_torch.ops.norm import batch_norm, bn_forward
 
 def mfm(x: torch.Tensor) -> torch.Tensor:
     """Max-Feature-Map: split the last (channel) axis in halves, take the max."""
@@ -43,7 +45,8 @@ class SpectralModel(nn.Module):
     """Base of the LFCC / log-mel models: the front end from ``cfg.frontend``,
     the output contract (adfmsl's: 'logits' (B, 2), 'scores' log-softmax[:, 1],
     'features'), flax-like init from ``generator``, placement on ``device``
-    (``None`` means ``cuda``; a missing card raises) in eval mode."""
+    (``None`` means ``cuda``; a missing card raises) in eval mode; ``.train()``
+    switches it to training."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -58,8 +61,11 @@ class SpectralModel(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         init_like_flax_(self, generator)
 
+    @torch.no_grad()
     def features(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T) f32 waveform -> (B, frames, coeffs) f32 features."""
+        """(B, T) f32 waveform -> (B, frames, coeffs) f32 features, outside
+        autograd (adfmsl's ``stop_gradient``: nothing is recorded for a
+        backward that could only reach the audio)."""
         fe, sr = self.cfg.frontend, self.cfg.architecture.sample_rate
         if fe.name == "lfcc":
             feats = lfcc(x, sr, fe.n_fft, fe.hop_length, fe.win_length, fe.n_filter,
@@ -69,31 +75,31 @@ class SpectralModel(nn.Module):
             feats = logmel(x, sr, fe.n_fft, fe.hop_length, fe.win_length, fe.n_mels,
                            fe.fmin, fe.fmax, fe.log_eps, precision=fe.dsp_precision,
                            fused_power=fe.fused_power)
-        if fe.cmvn:
-            feats = cmvn(feats)
-        return feats.detach()
+        return cmvn(feats) if fe.cmvn else feats
 
     def trunk(self, feats: torch.Tensor) -> torch.Tensor:
         """(B, frames, coeffs) -> (B, D) f32 pooled features."""
         raise NotImplementedError
 
-    def head(self, pooled: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def head(self, pooled: torch.Tensor, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
-    def classify(self, feats: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Features -> the output dict."""
-        return self.head(self.trunk(feats))
+    def classify(self, feats: torch.Tensor,
+                 rngs: Optional[Mapping[str, torch.Generator]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """Features -> the output dict; in train mode ``rngs['dropout']``
+        feeds the head's dropout."""
+        return self.head(self.trunk(feats), (rngs or {}).get("dropout"))
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
                 rngs: Optional[Mapping[str, torch.Generator]] = None
                 ) -> Dict[str, torch.Tensor]:
-        """(B, T) f32 waveform -> the output dict (eval mode only)."""
-        if self.training:
-            raise NotImplementedError(f"training {self.cfg.name} comes with ROADMAP "
-                                      "slice 5b (LCNN / LCNN1D / ResNet18 training); "
-                                      "call .eval()")
-        return self.classify(self.features(x))
+        """(B, T) f32 waveform -> the output dict. ``labels`` and ``mask`` are
+        taken as ``MazeModel.forward`` takes them, and unused: the loss is the
+        configuration's (adfmsl's models ignore them too)."""
+        return self.classify(self.features(x), rngs)
 
     @staticmethod
     def outputs(logits: torch.Tensor, feats: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -102,16 +108,19 @@ class SpectralModel(nn.Module):
 
 
 class _LCNNHead(SpectralModel):
-    """The LCNN head: fc1 -> MFM -> (dropout, the identity at eval) -> fc2."""
+    """The LCNN head: fc1 -> MFM -> dropout (the identity at eval) -> fc2."""
 
-    def head(self, pooled: torch.Tensor) -> Dict[str, torch.Tensor]:
-        h = mfm(self.fc1(pooled))
+    head_dropout = 0.5             # adfmsl's fixed rate (lcnn.py:71, :126)
+
+    def head(self, pooled: torch.Tensor, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        h = dropout(mfm(self.fc1(pooled)), self.head_dropout, generator, self.training)
         return self.outputs(self.fc2(h), h)
 
 
 class LCNN(_LCNNHead):
     """2-D LCNN: the features as a (frames x coeffs x 1) image; MFM conv stacks
-    with 1x1 NIN layers, 2x2 VALID max pools and eval BatchNorms."""
+    with 1x1 NIN layers, 2x2 VALID max pools and BatchNorms."""
 
     def __init__(self, cfg: ModelConfig, device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
@@ -140,7 +149,7 @@ class LCNN(_LCNNHead):
             return mfm(conv2d_nhwc(h, getattr(self, name), dt))
 
         def bn(h, name):
-            return bn_eval(h, getattr(self, name), dt)
+            return bn_forward(h, getattr(self, name), dt, self.training)
 
         h = feats[..., None]                                       # (B, F, C, 1)
         h = max_pool2d_nhwc(conv(h, "conv1"), 2, 2)
@@ -178,7 +187,7 @@ class LCNN1D(_LCNNHead):
         h = feats                                                  # (B, T, n_lfcc)
         for name, *_ in self.BLOCKS:
             h = mfm(conv_nhc(h, getattr(self, f"{name}_conv"), self.dtype))
-            h = bn_eval(h, getattr(self, f"{name}_bn"), self.dtype)
+            h = bn_forward(h, getattr(self, f"{name}_bn"), self.dtype, self.training)
             if name in self.POOL_AFTER:
                 h = F.max_pool1d(h.transpose(1, 2), 2, 2).transpose(1, 2)
         return mean_pooled(h, 1)

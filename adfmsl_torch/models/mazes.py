@@ -5,11 +5,10 @@ Ported: ``MazeSpec``, ``MazeModel``'s sinc front end and trunk, the RawNet
 encoder branch (adfmsl :102-115), SpecAugment (:155-163), pooling, the
 classifier with its fc dropout, the FMSL head in the 'refine', 'replace' and
 'integrated' modes, and both scores (adfmsl :95-273); the ``SPECS`` of
-``main``, ``maze4``, ``maze5`` and their ``_fmsl`` twins. The sinc models run
-in train and eval mode; RawNet models evaluate only (their training comes with
-ROADMAP slice 4). ``build_model`` also builds adfmsl's extra families
-(``EXTRAS``: ``models/lcnn.py``, ``models/resnet.py``, eval only). Other
-registry names raise and name the ROADMAP slice that brings them.
+``main``, ``maze4``, ``maze5`` and their ``_fmsl`` twins, all in train and
+eval mode. ``build_model`` also builds adfmsl's extra families (``EXTRAS``:
+``models/lcnn.py``, ``models/resnet.py``). Other registry names raise and
+name the ROADMAP slice that brings them.
 
 Output contract (as adfmsl): dict with 'logits' (B, 2), 'scores' (B,) =
 log-softmax[:, 1] or the raw logit[:, 1] (``MazeSpec.score``), 'features'
@@ -91,10 +90,10 @@ LATER_SLICES = {n: "slice 6 (the Wav2Vec2 family)"
 
 class MazeModel(nn.Module):
     """Maze model on ``device`` (``None`` means ``cuda``; a missing card
-    raises), built in eval mode; ``.train()`` switches the sinc models to
-    training. Weights are initialised like adfmsl's (lecun_normal kernels,
-    zero biases, xavier_uniform FMSL prototypes/weights, unit BN and
-    temperature) from ``generator``; load trained or ported weights with
+    raises), built in eval mode; ``.train()`` switches it to training.
+    Weights are initialised like adfmsl's (lecun_normal kernels, zero biases,
+    xavier_uniform FMSL prototypes/weights, unit BN and temperature) from
+    ``generator``; load trained or ported weights with
     ``load_state_dict``. Module names follow adfmsl's flax tree
     (models/port.py)."""
 
@@ -112,6 +111,7 @@ class MazeModel(nn.Module):
                 feature_dim=a.nb_fc_node, gru_layers=a.nb_gru_layer,
                 sinc_formula=a.sinc_formula,
                 fused_eval_frontend=bool(cfg.extra.get("fused_eval_frontend", False)),
+                fused_train_frontend=bool(cfg.extra.get("fused_train_frontend", False)),
                 fused_eval_trunk=bool(cfg.extra.get("fused_eval_trunk", False)),
                 dtype=self.dtype)
             pooled_dim = a.nb_fc_node
@@ -174,9 +174,6 @@ class MazeModel(nn.Module):
         train = self.training
         rngs = rngs or {}
         if self.spec.frontend == "rawnet":
-            if train:
-                raise NotImplementedError("training RawNet models comes with ROADMAP "
-                                          "slice 4; call .eval()")
             pooled = self.encoder(x)                         # (B, D) f32
         else:
             h = self.sinc(x)                                 # (B, T', C) f32

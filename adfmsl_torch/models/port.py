@@ -7,7 +7,8 @@ arrays) into a state dict that the port's ``MazeModel`` accepts with
 ``sinc``, ``first_bn``, ``trunk.block{i}.{bn1,conv1,bn2,conv2,downsample,se}``,
 ``fc1``, ``fc2``, ``fmsl.{proj,proj_bn,prototypes,weight,temperature}``, and
 for RawNet ``encoder.{sinc,first_bn,block{i},fc_attention{i},bn_before_gru,
-fc1_gru}`` with the GRU's gates ``encoder.gru.cell.{ir,iz,in,hr,hz,hn}``.
+fc1_gru}`` with the GRU's gates ``encoder.gru.cell.{ir,iz,in,hr,hz,hn}``
+(a stacked GRU's later layers ``cell1``, ``cell2``, ..., as in adfmsl's tree).
 
 The LFCC / log-mel models (``models/lcnn.py``, ``models/resnet.py``) keep
 their flax names too (``conv1``, ``nin1``, ``bn1``, ..., ``b1_conv``, ``b1_bn``,

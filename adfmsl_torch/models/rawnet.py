@@ -5,9 +5,14 @@ an FC attention (y = sigmoid(fc(mean_t(h))); h = h*y + y) -> BN -> SELU -> GRU
 -> last hidden state -> fc1_gru. Channels 128 -> 128 -> 128 -> 256 -> 256 ->
 256 -> 256. Layout (B, T, C) throughout, as adfmsl.
 
-With ``fused_eval_frontend`` the front end runs kernel K3 at eval for batches
-of at most 16 (``models/sincnet.py``); with ``fused_eval_trunk`` and a bf16
-trunk every block runs its folded body as kernel K1 (``act='leaky', pool=3``).
+In train mode every BatchNorm normalises with the batch statistics and moves
+its running statistics (``ops/norm.py:bn_train``). With
+``fused_eval_frontend`` the front end runs kernel K3 at eval, and with
+``fused_train_frontend`` in train mode (through ``ops/sinc_fused.py:
+sinc_abs_pool``, whose backward recomputes the composition), for batches of at
+most 16 (``models/sincnet.py``); with ``fused_eval_trunk`` and a bf16 trunk
+every block runs its folded body as kernel K1 (``act='leaky', pool=3``) at
+eval.
 """
 from __future__ import annotations
 
@@ -19,18 +24,27 @@ from torch import nn
 
 from adfmsl_torch.models.blocks import GRU, conv_nhc
 from adfmsl_torch.models.sincnet import SincConv
-from adfmsl_torch.ops.norm import batch_norm, bn_eval
+from adfmsl_torch.ops.norm import batch_norm, bn_forward
 from adfmsl_torch.ops.resblock_fused import fold_block_params, resblock_eval
-from adfmsl_torch.ops.sinc import max_pool3_nhc
+
+
+def max_pool3(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.max_pool(x, (3,), strides=(3,))`` of a (B, T, C) tensor: VALID,
+    the ``T % 3`` tail dropped. Its gradient goes to the first maximum of each
+    window, as XLA's select-and-scatter routes it; ``ops/sinc.py:max_pool3_nhc``
+    (``jnp.max``'s form, used by the front end) splits it between tied maxima,
+    which a bf16 trunk meets often."""
+    return F.max_pool1d(x.transpose(1, 2), 3).transpose(1, 2)
 
 
 class RawNetBlock(nn.Module):
     """BN -> LeakyReLU(0.3) -> Conv k3 -> BN -> LeakyReLU -> Conv k3, plus the
     input (a 1x1 conv on a channel change), then VALID MaxPool3 (adfmsl
-    ``_RawNetBlock`` :23-83). ``first`` drops the leading BN/LeakyReLU.
+    ``_RawNetBlock`` :23-83). ``first`` drops the leading BN/LeakyReLU. The
+    BNs run at the trunk dtype, in train mode on the batch statistics.
 
-    With ``fused_eval`` and a bf16 trunk the body runs folded, as adfmsl's
-    (:40-62): BN stats become per-channel affines (``fold_block_params``,
+    With ``fused_eval`` and a bf16 trunk the body runs folded at eval, as
+    adfmsl's (:40-62): BN stats become per-channel affines (``fold_block_params``,
     recomputed every forward) and ``resblock_eval(act='leaky', pool=3)`` runs
     the whole block as kernel K1."""
 
@@ -51,7 +65,8 @@ class RawNetBlock(nn.Module):
             self.downsample = nn.Conv1d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused_eval and self.dtype == torch.bfloat16:
+        train = self.training
+        if self.fused_eval and self.dtype == torch.bfloat16 and not train:
             tensors = dict(self.named_parameters())
             tensors.update(self.named_buffers())
             ops = fold_block_params(tensors, first=self.first)
@@ -61,14 +76,14 @@ class RawNetBlock(nn.Module):
         dt = self.dtype
         h = x
         if not self.first:
-            h = F.leaky_relu(bn_eval(h, self.bn1, dt), 0.3)
+            h = F.leaky_relu(bn_forward(h, self.bn1, dt, train), 0.3)
         h = conv_nhc(h, self.conv1, dt)
-        h = F.leaky_relu(bn_eval(h, self.bn2, dt), 0.3)
+        h = F.leaky_relu(bn_forward(h, self.bn2, dt, train), 0.3)
         h = conv_nhc(h, self.conv2, dt)
         skip = x.to(dt)
         if self.in_channels != self.out_channels:
             skip = conv_nhc(x, self.downsample, dt)
-        return max_pool3_nhc(h + skip)
+        return max_pool3(h + skip)
 
 
 class RawNetEncoder(nn.Module):
@@ -79,18 +94,16 @@ class RawNetEncoder(nn.Module):
                  block_channels: Sequence[int] = (128, 128, 256, 256, 256, 256),
                  gru_hidden: int = 1024, gru_layers: int = 1, feature_dim: int = 1024,
                  sample_rate: int = 16000, sinc_formula: str = "textbook",
-                 fused_eval_frontend: bool = False, fused_eval_trunk: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 fused_eval_frontend: bool = False, fused_train_frontend: bool = False,
+                 fused_eval_trunk: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if gru_layers != 1:
-            raise NotImplementedError(f"a {gru_layers}-layer GRU is not ported; "
-                                      "the standardized RawNet has one layer")
         self.dtype = dtype
         self.n_blocks = len(block_channels)
         self.sinc = SincConv(sinc_channels, sinc_kernel, sample_rate,
                              formula=sinc_formula,
                              exact_fp32=dtype == torch.float32, post="abs_pool3",
-                             fused_eval=fused_eval_frontend)
+                             fused_eval=fused_eval_frontend,
+                             fused_train=fused_train_frontend)
         self.first_bn = batch_norm(sinc_channels)
         cin = sinc_channels
         for i, cout in enumerate(block_channels):
@@ -100,13 +113,14 @@ class RawNetEncoder(nn.Module):
             self.add_module(f"fc_attention{i}", nn.Linear(cout, cout))
             cin = cout
         self.bn_before_gru = batch_norm(cin)
-        self.gru = GRU(cin, gru_hidden)
+        self.gru = GRU(cin, gru_hidden, layers=gru_layers)
         self.fc1_gru = nn.Linear(gru_hidden, feature_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        train = self.training
         h = self.sinc(x)                                          # (B, T3, C) f32
         # front-end glue at trunk width: BN in f32, cast to the trunk dtype
-        h = F.selu(bn_eval(h.to(self.dtype), self.first_bn, self.dtype))
+        h = F.selu(bn_forward(h.to(self.dtype), self.first_bn, self.dtype, train))
         for i in range(self.n_blocks):
             h = getattr(self, f"block{i}")(h)
             # FC attention gate: the time mean in f32 over the block's output
@@ -116,5 +130,5 @@ class RawNetEncoder(nn.Module):
             h = h * y + y
         # bn_before_gru has no dtype: flax promotes its bf16 input to f32, so
         # the GRU runs in f32
-        h = F.selu(bn_eval(h, self.bn_before_gru, torch.float32))
+        h = F.selu(bn_forward(h, self.bn_before_gru, torch.float32, train))
         return self.fc1_gru(self.gru(h))

@@ -6,7 +6,8 @@ front end (80 mels), channels-last (B, H, W, C) as flax, convolutions in the
 trunk dtype. flax's 'SAME' padding is asymmetric at stride 2 on even sizes
 (the 7x7/2 stem on 404 frames pads 2 | 3; the 3x3/2 max pool, with -inf, and
 the 3x3/2 block convs pad 0 | 1), so it is applied explicitly
-(``models/blocks.py:same_pads``). Eval only, as ``models/lcnn.py``.
+(``models/blocks.py:same_pads``). Every BatchNorm (stem, blocks, projection
+shortcut) uses the batch statistics in train mode (``ops/norm.py:bn_forward``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from torch import nn
 from adfmsl_torch.config.base import ModelConfig
 from adfmsl_torch.models.blocks import conv2d_nhwc, max_pool2d_nhwc
 from adfmsl_torch.models.lcnn import SpectralModel, mean_pooled
-from adfmsl_torch.ops.norm import batch_norm, bn_eval
+from adfmsl_torch.ops.norm import batch_norm, bn_forward
 
 STAGES = ((64, 2), (128, 2), (256, 2), (512, 2))       # channels, blocks
 
@@ -40,11 +41,13 @@ class BasicBlock(nn.Module):
             self.proj_bn = batch_norm(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        h = torch.relu(bn_eval(conv2d_nhwc(x, self.conv1, dt, self.stride), self.bn1, dt))
-        h = bn_eval(conv2d_nhwc(h, self.conv2, dt), self.bn2, dt)
+        dt, train = self.dtype, self.training
+        h = conv2d_nhwc(x, self.conv1, dt, self.stride)
+        h = torch.relu(bn_forward(h, self.bn1, dt, train))
+        h = bn_forward(conv2d_nhwc(h, self.conv2, dt), self.bn2, dt, train)
         if hasattr(self, "proj"):
-            x = bn_eval(conv2d_nhwc(x, self.proj, dt, self.stride), self.proj_bn, dt)
+            x = bn_forward(conv2d_nhwc(x, self.proj, dt, self.stride), self.proj_bn, dt,
+                           train)
         return torch.relu(h + x)
 
 
@@ -70,12 +73,13 @@ class ResNet18(SpectralModel):
     def trunk(self, feats: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         h = conv2d_nhwc(feats[..., None], self.stem, dt, stride=2)
-        h = torch.relu(bn_eval(h, self.stem_bn, dt))
+        h = torch.relu(bn_forward(h, self.stem_bn, dt, self.training))
         h = max_pool2d_nhwc(h, 3, 2, same=True)
         for i, (_, n_blocks) in enumerate(STAGES):
             for j in range(n_blocks):
                 h = getattr(self, f"layer{i}_{j}")(h)
         return mean_pooled(h, (1, 2))
 
-    def head(self, pooled: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def head(self, pooled: torch.Tensor, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         return self.outputs(self.fc(pooled), pooled)

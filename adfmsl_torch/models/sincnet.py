@@ -3,18 +3,20 @@ stride 1). Output layout (B, T', C).
 
 ``post='none'`` is the plain filterbank conv (maze4 / maze5). ``post='abs_pool3'``
 is the RawNet front end, VALID MaxPool3 of ``|conv|`` -> (B, T3, C), with
-adfmsl's dispatch (:82-107): at eval with ``fused_eval`` and a batch of at most
-``fused_max_batch`` rows it runs kernel K3 (``ops/sinc_fused.py``), otherwise
-the f32 composition (``ops/sinc.py:sinc_abs_pool3_nhc``).
+adfmsl's dispatch (:82-107): with ``fused_train`` in train mode, or
+``fused_eval`` at eval, and a batch of at most ``fused_max_batch`` rows it runs
+kernel K3 (``ops/sinc_fused.py``; in train mode through ``sinc_abs_pool``,
+whose backward recomputes the composition), otherwise the f32 composition
+(``ops/sinc.py:sinc_abs_pool3_nhc``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from adfmsl_torch.ops.sinc import (sinc_abs_pool3_nhc, sinc_conv_nhc, sinc_filters,
-                                   sinc_init)
-from adfmsl_torch.ops.sinc_fused import sinc_abs_pool_fused
+from adfmsl_torch.ops.sinc import (conv_precision, sinc_abs_pool3_nhc, sinc_conv_nhc,
+                                   sinc_filters, sinc_init)
+from adfmsl_torch.ops.sinc_fused import sinc_abs_pool, sinc_abs_pool_fused
 
 
 class SincConv(nn.Module):
@@ -22,7 +24,8 @@ class SincConv(nn.Module):
                  sample_rate: int = 16000, min_low_hz: float = 50.0,
                  min_band_hz: float = 50.0, formula: str = "textbook",
                  exact_fp32: bool = False, post: str = "none",
-                 fused_eval: bool = False, fused_max_batch: int = 16):
+                 fused_eval: bool = False, fused_train: bool = False,
+                 fused_max_batch: int = 16):
         super().__init__()
         if post not in ("none", "abs_pool3"):
             raise ValueError(f"unknown SincConv post {post!r}")
@@ -32,13 +35,10 @@ class SincConv(nn.Module):
         self.min_low_hz = min_low_hz
         self.min_band_hz = min_band_hz
         self.formula = formula
-        # adfmsl pins precision='highest' for float32 maze models
-        # (models/mazes.py:123-124), and its RawNet conv is exact f32 on the
-        # CPU; the card's counterpart is a cuDNN conv without TF32, which
-        # cuDNN otherwise uses for float32 by default
-        self.exact_fp32 = exact_fp32
+        self.exact_fp32 = exact_fp32          # see ops/sinc.py:conv_precision
         self.post = post
         self.fused_eval = fused_eval
+        self.fused_train = fused_train
         self.fused_max_batch = fused_max_batch
         low, band = sinc_init(out_channels, sample_rate, min_low_hz, min_band_hz)
         self.low_hz = nn.Parameter(torch.from_numpy(low))
@@ -61,15 +61,13 @@ class SincConv(nn.Module):
         with ``post='abs_pool3'``."""
         filt = self.filters()
         if self.post == "abs_pool3":
-            if (self.fused_eval and not self.training
-                    and x.shape[0] <= self.fused_max_batch):
+            fused = self.fused_train if self.training else self.fused_eval
+            if fused and x.shape[0] <= self.fused_max_batch:
+                if self.training:
+                    return sinc_abs_pool(x, filt, self.exact_fp32)
                 return sinc_abs_pool_fused(x.contiguous(), filt)
             composition = sinc_abs_pool3_nhc
         else:
             composition = sinc_conv_nhc
-        if self.exact_fp32:
-            cudnn = torch.backends.cudnn
-            with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                             deterministic=cudnn.deterministic, allow_tf32=False):
-                return composition(x, filt)
-        return composition(x, filt)
+        with conv_precision(self.exact_fp32):
+            return composition(x, filt)

@@ -2,7 +2,8 @@
 
 Port of ``adfmsl/ops/sinc.py``: ``sinc_init`` (:38), ``_nsinc`` (:48),
 ``sinc_filters`` (:54, both formulas), ``sinc_conv_nhc`` (:147) as one
-``F.conv1d`` and the RawNet front end ``sinc_abs_pool3_nhc`` (:293). adfmsl's
+``F.conv1d`` and the RawNet front end ``sinc_abs_pool3_nhc`` (:293), with
+``conv_precision``, the cuDNN setting those convolutions run under. adfmsl's
 other executors (block-GEMM, space-to-depth, time segments) are TPU layout
 choices with exact parity, and are not ported.
 
@@ -14,6 +15,7 @@ scaling the effective cutoff by pi vs the textbook band-pass.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Tuple
 
@@ -56,7 +58,12 @@ def sinc_filters(low_hz: torch.Tensor, band_hz: torch.Tensor, kernel_size: int,
     window = torch.from_numpy(hann(kernel_size, periodic=False)).to(dev)
 
     low = min_low_hz + low_hz.abs()                                     # (C,)
-    high = torch.clamp(low + min_band_hz + band_hz.abs(), min_low_hz, sample_rate / 2.0)
+    # jnp.clip's gradient: minimum(maximum(.)), which halves the gradient at a
+    # bound where torch.clamp passes all of it; the mel-spaced init puts the
+    # last filter's high edge exactly on sample_rate / 2
+    high = torch.minimum(torch.maximum(low + min_band_hz + band_hz.abs(),
+                                       low.new_tensor(min_low_hz)),
+                         low.new_tensor(sample_rate / 2.0))
     f_lo = (low / sample_rate)[:, None]                                  # (C,1)
     f_hi = (high / sample_rate)[:, None]
     if formula == "reference":
@@ -70,6 +77,19 @@ def sinc_filters(low_hz: torch.Tensor, band_hz: torch.Tensor, kernel_size: int,
     else:
         raise ValueError(f"unknown sinc formula {formula!r}")
     return window[None, :] * (h_hi - h_lo)
+
+
+def conv_precision(exact_fp32: bool):
+    """The context the sinc convolutions run in. With ``exact_fp32`` cuDNN
+    may not use TF32, which it otherwise does for float32 by default: adfmsl
+    pins precision='highest' for float32 maze models (models/mazes.py:123-124)
+    and its RawNet conv is exact f32 on the CPU. Otherwise cuDNN's defaults
+    stand."""
+    if not exact_fp32:
+        return contextlib.nullcontext()
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
 
 
 def sinc_conv_nhc(x: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:

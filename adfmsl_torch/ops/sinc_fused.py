@@ -10,6 +10,14 @@ bf16, the VALID stride-1 correlation over the K taps accumulates in f32, then
 tensor and the plain PyTorch version (``sinc_abs_pool_plain``, the same math
 with the same rounding points) for a CPU tensor; anything else raises. The
 kernel is built with nvcc at its first call (ops/_build.py).
+
+``sinc_abs_pool`` is the trainable form, the port of adfmsl's custom VJP
+(``sinc_fused.py:137-159``): its forward is ``sinc_abs_pool_fused``, and its
+backward recomputes the f32 composition ``sinc_abs_pool3_nhc`` at the saved,
+unrounded operands and takes its VJP (``_sap_bwd`` :152). So the max-pool
+routes the gradient by the f32 recompute's argmax, which can differ from the
+kernel's bf16 max at near-ties (adfmsl :17-23). The backward is no kernel in
+adfmsl and none here.
 """
 from __future__ import annotations
 
@@ -18,7 +26,7 @@ import functools
 
 import torch
 
-from adfmsl_torch.ops.sinc import sinc_abs_pool3_nhc
+from adfmsl_torch.ops.sinc import conv_precision, sinc_abs_pool3_nhc
 
 MAX_CHANNELS = 256
 MAX_TAPS = 256
@@ -89,3 +97,34 @@ def sinc_abs_pool_fused(x: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
 
 
 sinc_abs_pool_fused.launches = 0
+
+
+class _SincAbsPool(torch.autograd.Function):
+    """K3 forward, backward through the f32 composition's recompute."""
+
+    @staticmethod
+    def forward(ctx, x, filters, exact_fp32):
+        ctx.save_for_backward(x, filters)
+        ctx.exact_fp32 = exact_fp32
+        return sinc_abs_pool_fused(x, filters)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, filters = ctx.saved_tensors
+        need_x, need_f = ctx.needs_input_grad[:2]
+        with torch.enable_grad(), conv_precision(ctx.exact_fp32):
+            xr = x.detach().requires_grad_(need_x)
+            fr = filters.detach().requires_grad_(need_f)
+            wrt = [t for t in (xr, fr) if t.requires_grad]
+            grads = iter(torch.autograd.grad(sinc_abs_pool3_nhc(xr, fr), wrt, g))
+        return (next(grads) if need_x else None, next(grads) if need_f else None, None)
+
+
+def sinc_abs_pool(x: torch.Tensor, filters: torch.Tensor,
+                  exact_fp32: bool = False) -> torch.Tensor:
+    """The trainable fused front end: ``sinc_abs_pool_fused(x, filters)``
+    forward, differentiable in ``filters`` (and in ``x`` where it requires a
+    gradient) through the f32 composition recomputed in the backward under
+    ``conv_precision(exact_fp32)``, the setting of the composition it stands
+    in for. ``x`` (B, T) f32, ``filters`` (C, K) f32."""
+    return _SincAbsPool.apply(x.contiguous(), filters, exact_fp32)

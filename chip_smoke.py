@@ -29,6 +29,14 @@ Phases, each printing its own lines:
    bound, the largest of the tensor-core, f32 and bytes times (the filterbank
    counted by its nonzero weights). Phases 2 to 3b run with TF32 off in cuDNN and cuBLAS, so the plain
    versions are exact f32;
+3c. K3's trainable wrapper (``ops/sinc_fused.py:sinc_abs_pool``, K3 forward,
+   the f32 composition's VJP recomputed in the backward) at (2, 8000), (3,
+   8001) and the training batch 12 at cut 64600: its forward against K3's
+   plain version (1e-3 * max), its backward (d x, d filters; one seeded
+   cotangent) against autograd through the composition at the unrounded
+   operands (1e-4 * max), TF32 off; then, with cuDNN's defaults as the bf16
+   models run it, its forward and backward times, the plain forward's, the
+   composition's forward + backward (information only) and both bounds;
 4. the main path, for maze5, maze5_fmsl, main, main_fmsl, lcnn_lfcc,
    lcnn1d_lfcc and resnet18_logmel: a synthetic
    ASVspoof fixture with 40 eval utterances goes through
@@ -63,29 +71,47 @@ Phases, each printing its own lines:
    both bounds (6 bytes an element: x and dz read, dx written; 10 bytes: the
    two passes). Then K2's entry point, ``adfmsl_torch.measure_bn_relu_bwd``,
    runs in-process, its launch count checked;
-7. training, for maze5 and maze5_fmsl at full width: a synthetic fixture of
-   48 train and 24 dev utterances goes through ``adfmsl_torch.cli.train`` at
-   cut 64600 and batch 12 for one epoch without a dev set, then with
-   ``--restore`` and the dev set for a second. What the CLI wrote is read
-   back and checked: epoch_0 after the first run, then epoch_1 alone (best-1
-   retention drops epoch 0, whose missing dev metric ranks worst); finite
-   losses, no skipped step, 4 and then 8 steps and updates, every parameter
-   and BN running statistic moved; then ``cli.evaluate --model_path`` on it,
-   with K1 launched 5 times a batch;
-8. one f32 train step of maze5 at batch 2, cut 16000, randomness off, on the
-   card and on the CPU from the same weights (TF32 off): loss within 1e-4
-   relative, gradients as in tests/test_torch_train_step.py (cosine >= 0.999,
-   norm within 1 % for leaves of 1 % of the global norm or more);
-9. train throughput of maze5 and maze5_fmsl (bf16, dropout and SpecAugment
-   on) at batch 12 and 32: utt/s over 5 timed steps after 2 warm ones,
-   ending in a synchronize, with the peak memory; then ``torch.profiler``
-   over 3 more steps: the device's busy share, the step's device time split
-   by its forward / backward / update labels (``train/steps.py``), and, at
-   batch 32, the operators and kernels with the most device time;
+7. training, for maze5, maze5_fmsl, main, main_fmsl, lcnn_lfcc, lcnn1d_lfcc
+   and resnet18_logmel at full width: a synthetic fixture of 48 train and 24
+   dev utterances goes through ``adfmsl_torch.cli.train`` at cut 64600 and
+   batch 12 for one epoch without a dev set, then with ``--restore`` and the
+   dev set for a second. What the CLI wrote is read back and checked:
+   epoch_0 after the first run, then epoch_1 alone (best-1 retention drops
+   epoch 0, whose missing dev metric ranks worst); finite losses, no skipped
+   step, 4 and then 8 steps and updates, every parameter and BN running
+   statistic moved, K3 never launched (the CLI sets no fused training front
+   end, as adfmsl's); then ``cli.evaluate --model_path`` on it with the flags
+   and launch counts of the model's main path (K1 5 a batch for maze5, 6 and
+   K3 1 a batch for RawNet with ``--fused_frontend``, none for the LFCC /
+   log-mel models);
+7b. RawNet's fused training front end, for main and main_fmsl: a ``Trainer``
+   built in-process with ``exp.model.extra['fused_train_frontend']`` trains
+   one epoch of the fixture at batch 12, cut 64600, with K3 launched exactly
+   once a train step (the count set to 0 just before); then, from the same
+   weights and batch with the randomness off, one step against the
+   composition front end: loss within 5e-2 relative, global gradient cosine
+   >= 0.85 (adfmsl's bounds, tests/test_models.py:327-337);
+8. one f32 train step of maze5 and of main at batch 2, cut 16000, randomness
+   off, on the card and on the CPU from the same weights (TF32 off): loss
+   within 1e-4 relative, gradients as in tests/test_torch_train_step.py
+   (cosine >= 0.999, norm within 1 % for leaves of 1 % of the global norm or
+   more);
+9. train throughput (bf16, the configurations' randomness on) of maze5 and
+   maze5_fmsl at batch 12 and 32; of main and main_fmsl at batch 12 with the
+   composition front end and with K3, and at batch 32 with the composition;
+   of lcnn_lfcc, lcnn1d_lfcc and resnet18_logmel at batch 12 and 32. utt/s
+   over 5 timed steps after 2 warm ones, ending in a synchronize (the LFCC /
+   log-mel models, host-bound: the median and spread of five windows of
+   about 3 s), with the peak memory; then ``torch.profiler`` over 3 more
+   steps: the device's busy share, the step's device time split by its
+   forward / backward / update labels (``train/steps.py``), and the
+   operators and kernels with the most device time and the operators with
+   the most host time;
 10. a ``kernels`` line: every ported kernel with its launches on the main
-   paths (K2's on its entry point, K4's as lcnn1d_lfcc's front end), its max
-   error, its time at the main path's shapes beside its plain version's time,
-   its bound and the library call's time (none exists).
+   paths (K2's on its entry point, K4's as lcnn1d_lfcc's front end, K3's and
+   its trainable wrapper's in the fused train steps too), its max error, its
+   time at the main path's shapes beside its plain version's time, its bound
+   and the library call's time (none exists).
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -153,6 +179,30 @@ K2_OPS_PER_ELEMENT = 20           # f32 operations of both passes, per element
 K2_MEASURE_ITERS = 10
 TRAIN_UTTS, DEV_UTTS, TRAIN_BATCH = 48, 24, 12
 THROUGHPUT_BATCHES, WARM_STEPS, TIMED_STEPS = (12, 32), 2, 5
+# K3's trainable wrapper (forward K3, backward the f32 composition's VJP)
+K3_TRAIN_CASES = [("jax_case", 2, 8000), ("ragged", 3, 8001),
+                  (f"b{TRAIN_BATCH}_cut{CUT}", TRAIN_BATCH, CUT)]
+PEAK_TF32_FLOPS = 495e12          # H100 SXM data sheet, dense TF32
+# models trained through cli.train: (model, evaluate flags, K1 and K3 launches
+# per batch evaluating the checkpoint), as MAIN_PATHS gives them
+TRAIN_MODELS = ["maze5", "maze5_fmsl", "main", "main_fmsl", "lcnn_lfcc", "lcnn1d_lfcc",
+                "resnet18_logmel"]
+# train throughput: (model, label, batch, model extras); the LFCC / log-mel
+# models' steps take a few ms and are host-bound, so their utt/s is the
+# median of SPECTRAL_WINDOWS windows of about SPECTRAL_WINDOW_S seconds
+K3_TRAIN = {"fused_train_frontend": True}
+TRAIN_THROUGHPUT = (
+    [(n, f"b{b}", b, {}) for n in ("maze5", "maze5_fmsl") for b in THROUGHPUT_BATCHES]
+    + [(n, label, b, extra) for n in ("main", "main_fmsl")
+       for label, b, extra in ((f"b{TRAIN_BATCH}_composition", TRAIN_BATCH, {}),
+                               (f"b{TRAIN_BATCH}_k3", TRAIN_BATCH, K3_TRAIN),
+                               ("b32_composition", 32, {}))]
+    + [(n, f"b{b}", b, {}) for n in ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")
+       for b in THROUGHPUT_BATCHES])
+SPECTRAL_MODELS = ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")
+# adfmsl's own bounds for the fused training front end against the
+# composition (tests/test_models.py:327-337)
+FUSED_TRAIN_LOSS_REL, FUSED_TRAIN_GRAD_COS = 5e-2, 0.85
 # (model, extra CLI flags, K1, K3 and K4 launches per batch); the LFCC / log-mel
 # models' front end is the composition (ops/lfcc.py), as in adfmsl
 MAIN_PATHS = [("maze5", [], 5, 0, 0), ("maze5_fmsl", [], 5, 0, 0),
@@ -422,6 +472,84 @@ def phase_kernels(rf, sf, lf, dev):
             return k1, k3, k4
         finally:
             torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def k3_train_bound(b, t, c, k, peak_flops):
+    """(ops_ms, bytes_ms) of the trainable wrapper's backward: the recompute's
+    forward and its weight gradient, 2*B*T'*C*K products each, at
+    ``peak_flops`` (the precision the recompute runs at); x and the cotangent
+    read once and d filters written once at the HBM rate."""
+    t_out = t - k + 1
+    flops = 2 * 2.0 * b * t_out * c * k
+    nbytes = 4 * b * t + 4 * b * (t_out // 3) * c + 4 * c * k
+    return flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def k3_train_case(sf, filters, name, b, t, seed, dev):
+    """The trainable wrapper on the card: its forward against K3's plain
+    version (1e-3 * max), its backward (d x and d filters, one seeded
+    cotangent) against autograd through the f32 composition at the unrounded
+    operands (1e-4 * max), both with TF32 off; then its times with cuDNN's
+    defaults, as the bf16 models' front end runs (TF32 in the recompute)."""
+    from adfmsl_torch.ops.sinc import sinc_abs_pool3_nhc
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c, k = filters.shape
+    x = 0.1 * torch.randn((b, t), generator=g, device=dev)
+    cot = torch.randn((b, (t - k + 1) // 3, c), generator=g, device=dev)
+    f = filters.clone().requires_grad_(True)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        xr = x.clone().requires_grad_(True)
+        y = sf.sinc_abs_pool(xr, f, True)
+        dx, df = torch.autograd.grad(y, (xr, f), cot)
+        torch.cuda.synchronize()
+        want_y = sf.sinc_abs_pool_plain(x, filters)
+        xw, fw = x.clone().requires_grad_(True), filters.clone().requires_grad_(True)
+        want_dx, want_df = torch.autograd.grad(sinc_abs_pool3_nhc(xw, fw), (xw, fw), cot)
+    errs = {}
+    for what, got, want, rel in (("y", y, want_y, 1e-3), ("dfilters", df, want_df, 1e-4),
+                                 ("dx", dx, want_dx, 1e-4)):
+        check(tuple(got.shape) == tuple(want.shape), f"K3-train {name}: {what} shape")
+        errs[what] = ((got - want).abs().max().item(), rel * want.abs().max().item())
+    del y, dx, df, want_y, want_dx, want_df, xr, xw, fw
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        fwd_ms = cuda_ms(lambda: sf.sinc_abs_pool(x, f))
+        plain_fwd_ms = cuda_ms(lambda: sf.sinc_abs_pool_plain(x, filters))
+        y = sf.sinc_abs_pool(x, f)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, (f,), cot, retain_graph=True))
+        del y
+
+        def composition():
+            return torch.autograd.grad(sinc_abs_pool3_nhc(x, f), (f,), cot)
+        composition_ms = cuda_ms(composition)
+    fwd_ops, fwd_bytes = k3_bound(b, t, c, k)
+    bwd_ops, bwd_bytes = k3_train_bound(b, t, c, k, PEAK_TF32_FLOPS)
+    rec = {"case": name, "B": b, "T": t, "C": c, "K": k,
+           **{f"max_abs_err_{w}": e for w, (e, _) in errs.items()},
+           **{f"tol_{w}": tl for w, (_, tl) in errs.items()},
+           "forward_ms": fwd_ms, "backward_ms": bwd_ms, "ms": fwd_ms + bwd_ms,
+           "plain_forward_ms": plain_fwd_ms, "plain_ms": plain_fwd_ms + bwd_ms,
+           "composition_fwd_bwd_ms": composition_ms,
+           "backward_precision": "tf32 (cuDNN's default, as the bf16 models run it)",
+           "forward_bound_ms": max(fwd_ops, fwd_bytes),
+           "backward_bound_ms": max(bwd_ops, bwd_bytes),
+           "ops_ms": fwd_ops + bwd_ops, "bytes_ms": fwd_bytes + bwd_bytes,
+           "bound_ms": max(fwd_ops, fwd_bytes) + max(bwd_ops, bwd_bytes),
+           "bound_by": "operations" if fwd_ops + bwd_ops >= fwd_bytes + bwd_bytes else "bytes"}
+    print("K3_train " + json.dumps(rec), flush=True)
+    for what, (e, tl) in errs.items():
+        check(math.isfinite(e) and e <= tl, f"K3-train {name}: {what} error {e} > {tl}")
+    del x, cot, f
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_k3_train(sf, dev):
+    """K3's trainable wrapper (``ops/sinc_fused.py:sinc_abs_pool``) at the CPU
+    tests' cases and at the training batch, cut 64600."""
+    filters = sinc_filters_at_init(dev)
+    return [k3_train_case(sf, filters, *c, seed=20 + i, dev=dev)
+            for i, c in enumerate(K3_TRAIN_CASES)]
 
 
 def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, rf, sf, lf,
@@ -736,10 +864,11 @@ def phase_k2(k2, dev):
     return recs, entry
 
 
-def phase_train(name, rf, k2, fixture, tmp, dev):
+def phase_train(name, rf, k2, sf, fixture, tmp, dev):
     """cli.train for one epoch, then --restore for a second, each checked
     through the files it wrote; then cli.evaluate --model_path on the
-    checkpoint; returns the run's record."""
+    checkpoint, with ``MAIN_PATHS``' flags and launch counts; returns the
+    run's record."""
     from adfmsl_torch.cli import evaluate
     from adfmsl_torch.cli import train as cli_train
     from adfmsl_torch.models import build_model, load_checkpoint
@@ -756,6 +885,7 @@ def phase_train(name, rf, k2, fixture, tmp, dev):
     steps_per_epoch = TRAIN_UTTS // TRAIN_BATCH
     rf.resblock_eval.launches = 0
     k2.bn_relu_bwd.launches = 0
+    sf.sinc_abs_pool_fused.launches = 0
     t0 = time.perf_counter()
     hist, models = [], {}
     # the first epoch has no dev set (the default dev protocol is looked up in
@@ -784,6 +914,9 @@ def phase_train(name, rf, k2, fixture, tmp, dev):
         exp, models[epoch] = load_checkpoint(path, map_location="cpu")
     wall_s = time.perf_counter() - t0
     k1_train, k2_train = rf.resblock_eval.launches, k2.bn_relu_bwd.launches
+    k3_train = sf.sinc_abs_pool_fused.launches
+    # the CLI sets no fused training front end, as adfmsl's: K3 stays idle
+    check(k3_train == 0, f"{name}: K3 launched {k3_train} times in cli.train")
     init = build_model(exp.model, device="cpu", seed=exp.train.seed).state_dict()
     for a, b, what in ((init, models[0], "epoch 0"), (models[0], models[1], "epoch 1")):
         still = [k for k, v in b.items() if not k.endswith("num_batches_tracked")
@@ -792,14 +925,16 @@ def phase_train(name, rf, k2, fixture, tmp, dev):
 
     ev = fixture["eval"]
     out = os.path.join(tmp, f"{name}_trained_scores.txt")
+    _, flags, k1_per_batch, k3_per_batch, _ = next(p for p in MAIN_PATHS if p[0] == name)
     rf.resblock_eval.launches = 0
+    sf.sinc_abs_pool_fused.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = evaluate.main(["--model_type", name, "--model_path", ck, "--protocol",
                             ev["protocol"], "--data_dir", ev["audio_dir"], "--output", out,
-                            "--batch_size", str(EVAL_BATCH), "--device", dev.type])
+                            "--batch_size", str(EVAL_BATCH), "--device", dev.type, *flags])
     torch.cuda.synchronize()
-    k1_eval = rf.resblock_eval.launches
+    k1_eval, k3_eval = rf.resblock_eval.launches, sf.sinc_abs_pool_fused.launches
     check(rc == 0, f"{name}: evaluate of the checkpoint exited {rc}")
     with open(out) as fh:
         lines = [ln.split() for ln in fh.read().splitlines()]
@@ -807,14 +942,88 @@ def phase_train(name, rf, k2, fixture, tmp, dev):
           and bool(np.isfinite([float(ln[1]) for ln in lines]).all()),
           f"{name}: score file of the trained model")
     n_batches = -(-EVAL_UTTS // EVAL_BATCH)
-    check(k1_eval == 5 * n_batches, f"{name}: K1 launched {k1_eval} times evaluating "
-                                    f"the checkpoint, expected {5 * n_batches}")
+    check(k1_eval == k1_per_batch * n_batches,
+          f"{name}: K1 launched {k1_eval} times evaluating the checkpoint, expected "
+          f"{k1_per_batch * n_batches}")
+    check(k3_eval == k3_per_batch * n_batches,
+          f"{name}: K3 launched {k3_eval} times evaluating the checkpoint, expected "
+          f"{k3_per_batch * n_batches}")
     rec = {"model": name, "cut": CUT, "batch": TRAIN_BATCH, "train_utts": TRAIN_UTTS,
            "dev_utts": DEV_UTTS, "epochs": hist, "steps": 2 * steps_per_epoch,
            "retained_epochs": mgr.all_epochs(), "k1_launches_training": k1_train,
-           "k2_launches_training": k2_train, "k1_launches_evaluate": k1_eval,
-           "wall_s": wall_s}
+           "k2_launches_training": k2_train, "k3_launches_training": k3_train,
+           "evaluate_flags": flags, "k1_launches_evaluate": k1_eval,
+           "k3_launches_evaluate": k3_eval, "wall_s": wall_s}
     print("train " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_fused_train(name, sf, fixture, dev):
+    """RawNet's fused training front end through the ``Trainer``, built
+    in-process with ``exp.model.extra['fused_train_frontend']`` (no CLI flag
+    sets it, as in adfmsl): one epoch of the fixture at batch 12, cut 64600,
+    with K3 launched exactly once a train step (the count set to 0 just
+    before). Then, from the same weights and batch with the randomness off,
+    one step against the composition front end: loss within 5e-2 relative and
+    global gradient cosine >= 0.85, adfmsl's bounds (tests/test_models.py:
+    327-337)."""
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.data import parse_protocol
+    from adfmsl_torch.models import build_model
+    from adfmsl_torch.train import (Optimizer, Trainer, TrainState, make_dataset_and_loader,
+                                    make_train_step)
+
+    exp = make_experiment(name)
+    exp.train.batch_size, exp.train.num_epochs, exp.train.log_every_steps = TRAIN_BATCH, 1, 0
+    exp.model.extra.update(K3_TRAIN)
+    tr = fixture["train"]
+    loader = make_dataset_and_loader(exp, parse_protocol(tr["protocol"], exp.data.label_polarity),
+                                     tr["audio_dir"], shuffle=True)
+    trainer = Trainer(exp, loader, None, device=dev)
+    sf.sinc_abs_pool_fused.launches = 0
+    t0 = time.perf_counter()
+    (epoch,) = trainer.fit()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, steps = sf.sinc_abs_pool_fused.launches, trainer.state.step
+    check(steps == TRAIN_UTTS // TRAIN_BATCH and launches == steps,
+          f"{name}: K3 launched {launches} times in {steps} fused train steps")
+    check(math.isfinite(epoch.train_loss) and epoch.skipped_batches == 0,
+          f"{name}: fused training epoch {epoch}")
+    del trainer
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = 0.1 * torch.randn((TRAIN_BATCH, CUT), generator=g, device=dev)
+    y = (torch.arange(TRAIN_BATCH, device=dev) % 2).long()
+    m = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+    loss, grads = {}, {}
+    for key, extra in (("k3", K3_TRAIN), ("composition", {})):
+        e = make_experiment(name)
+        e.model.extra.update(extra)
+        if e.model.fmsl is not None:
+            e.model.fmsl.proj_dropout, e.model.fmsl.enable_lsa = 0.0, False
+        model = build_model(e.model, device=dev, seed=0)
+        st = TrainState(model, Optimizer(e.train.optimizer, model.parameters(), 10, 1), seed=0)
+        met = make_train_step(e)(st, x, y, m, st.generators(0, 0))
+        check(float(met["skipped"]) == 0.0, f"{name}: {key} step skipped")
+        loss[key], grads[key] = float(met["loss"]), _grads(st, met)
+        del model, st
+    a = np.concatenate(list(grads["k3"].values()))
+    b = np.concatenate([grads["composition"][k] for k in grads["k3"]])
+    cos = float(a @ b) / float(np.linalg.norm(a) * np.linalg.norm(b))
+    rel = abs(loss["k3"] - loss["composition"]) / abs(loss["composition"])
+    rec = {"model": name, "batch": TRAIN_BATCH, "cut": CUT, "steps": steps,
+           "k3_launches": launches, "train_loss": epoch.train_loss, "wall_s": wall_s,
+           "loss_k3": loss["k3"], "loss_composition": loss["composition"],
+           "loss_rel_diff": rel, "loss_tol": FUSED_TRAIN_LOSS_REL,
+           "grad_cosine": cos, "grad_cosine_min": FUSED_TRAIN_GRAD_COS}
+    print("fused_train " + json.dumps(rec), flush=True)
+    check(math.isfinite(rel) and rel <= FUSED_TRAIN_LOSS_REL,
+          f"{name}: fused-front-end loss differs by {rel}")
+    check(math.isfinite(cos) and cos >= FUSED_TRAIN_GRAD_COS,
+          f"{name}: fused-front-end gradient cosine {cos}")
+    del x
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -825,13 +1034,13 @@ def _grads(state, metrics):
             for n, p in state.model.named_parameters()}
 
 
-def phase_train_card_vs_cpu(dev):
-    """One f32 step of maze5 on the card and on the CPU from the same init."""
+def phase_train_card_vs_cpu(name, dev):
+    """One f32 step of ``name`` on the card and on the CPU from the same init."""
     from adfmsl_torch.config import make_experiment
     from adfmsl_torch.models import build_model
     from adfmsl_torch.train import Optimizer, TrainState, make_train_step
 
-    exp = make_experiment("maze5")
+    exp = make_experiment(name)
     exp.data.cut, exp.model.dtype = 16000, "float32"
     exp.model.architecture.dropout_rate = exp.model.architecture.fc_dropout = 0.0
     exp.model.spec_augment.enabled = False
@@ -860,18 +1069,19 @@ def phase_train_card_vs_cpu(dev):
         if na < 3e-5 * gnorm and nb < 3e-5 * gnorm:
             continue
         cos = float(a @ r) / (na * nb)
-        check(cos >= (0.999 if a.size >= 512 else 0.99), f"card vs CPU: {k} cosine {cos}")
+        check(cos >= (0.999 if a.size >= 512 else 0.99),
+              f"card vs CPU ({name}): {k} cosine {cos}")
         ratio_tol = 0.01 if nb >= 0.01 * gnorm else 0.05
-        check(abs(na / nb - 1) <= ratio_tol, f"card vs CPU: {k} norm ratio {na / nb}")
+        check(abs(na / nb - 1) <= ratio_tol, f"card vs CPU ({name}): {k} norm ratio {na / nb}")
         worst_cos, worst_ratio = min(worst_cos, cos), max(worst_ratio, abs(na / nb - 1))
         checked += 1
     rel = abs(loss[str(dev)] - loss["cpu"]) / abs(loss["cpu"])
-    rec = {"model": "maze5", "dtype": "float32", "batch": 2, "cut": 16000,
+    rec = {"model": name, "dtype": "float32", "batch": 2, "cut": 16000,
            "loss_card": loss[str(dev)], "loss_cpu": loss["cpu"], "loss_rel_err": rel,
            "leaves_checked": checked, "worst_grad_cosine": worst_cos,
            "worst_norm_ratio_dev": worst_ratio}
     print("train_card_vs_cpu " + json.dumps(rec), flush=True)
-    check(rel <= 1e-4 and checked >= 20, f"card vs CPU: loss {rel}, {checked} leaves")
+    check(rel <= 1e-4 and checked >= 20, f"card vs CPU ({name}): loss {rel}, {checked} leaves")
     return rec
 
 
@@ -879,7 +1089,7 @@ def profile_steps(step, st, batch_args, first, steps=3, tops=False):
     """``torch.profiler`` over ``steps`` train steps: the device's busy share
     of the wall time, the step's device time split by its labels
     (``STEP_LABELS``) and, with ``tops``, the operators and kernels with the
-    most device time."""
+    most device time and the operators with the most host time."""
     from torch.profiler import ProfilerActivity, profile
 
     from adfmsl_torch.train.steps import STEP_LABELS
@@ -924,44 +1134,79 @@ def profile_steps(step, st, batch_args, first, steps=3, tops=False):
     check(fwd > 0 and upd > 0 and rec["backward_ms"] > 0,
           f"train step split: {rec}")
     if tops:
-        rec.update(top_ops=top(ops, 15), top_kernels=top(kernels, 10))
+        host = sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+        rec.update(top_ops=top(ops, 15), top_kernels=top(kernels, 10),
+                   # host time by operator, the profiler's own cost included
+                   top_host_ops=[{"name": e.key[:120],
+                                  "host_ms_per_step": e.self_cpu_time_total / 1e3 / steps,
+                                  "calls_per_step": e.count / steps} for e in host])
     return rec
 
 
-def phase_train_throughput(name, dev, card):
-    """Train utt/s of the real step, then a profile of it (``profile_steps``)."""
+def train_rate(step, st, batch_args, first, n):
+    """(utt/s, ms per step) of ``n`` train steps by the host clock around work
+    that ends in a synchronize; every step must be finite and applied."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        met = step(st, *batch_args, st.generators(0, first + i))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(math.isfinite(float(met["loss"])) and float(met["skipped"]) == 0,
+          "a timed train step was not finite or was skipped")
+    return batch_args[0].shape[0] * n / secs, secs / n * 1e3
+
+
+def phase_train_throughput(name, configs, dev, card):
+    """Train utt/s of the real step for each (label, batch, model extras) of
+    ``configs``, with the peak memory, then a profile of it
+    (``profile_steps``). Sinc and RawNet models: 5 timed steps after 2 warm
+    ones. The LFCC / log-mel models, host-bound: the median and spread of
+    ``SPECTRAL_WINDOWS`` windows of about ``SPECTRAL_WINDOW_S`` seconds."""
     from adfmsl_torch.config import make_experiment
     from adfmsl_torch.models import build_model
     from adfmsl_torch.train import Optimizer, TrainState, make_train_step
 
     rec = {"model": name, "card": card, "cut": CUT, "dtype": "bfloat16"}
-    for batch in THROUGHPUT_BATCHES:
+    windowed = name in SPECTRAL_MODELS
+    for label, batch, extra in configs:
+        t0 = time.perf_counter()
         exp = make_experiment(name)
+        exp.model.extra.update(extra)
         model = build_model(exp.model, device=dev, seed=0)
         st = TrainState(model, Optimizer(exp.train.optimizer, model.parameters(), 100, 5),
                         seed=0)
         step = make_train_step(exp)
         g = torch.Generator(device=dev).manual_seed(3)
-        x = 0.1 * torch.randn((batch, CUT), generator=g, device=dev)
-        y = (torch.arange(batch, device=dev) % 2).long()
-        m = torch.ones(batch, dtype=torch.bool, device=dev)
+        args = (0.1 * torch.randn((batch, CUT), generator=g, device=dev),
+                (torch.arange(batch, device=dev) % 2).long(),
+                torch.ones(batch, dtype=torch.bool, device=dev))
         torch.cuda.reset_peak_memory_stats(dev)
-        for i in range(WARM_STEPS):
-            step(st, x, y, m, st.generators(0, i))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(TIMED_STEPS):
-            met = step(st, x, y, m, st.generators(0, WARM_STEPS + i))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        check(math.isfinite(float(met["loss"])) and float(met["skipped"]) == 0,
-              f"{name}: train step at batch {batch}")
-        rec[f"b{batch}"] = {"utt_per_s": batch * TIMED_STEPS / secs,
-                            "step_ms": secs / TIMED_STEPS * 1e3,
-                            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-                            **profile_steps(step, st, (x, y, m), WARM_STEPS + TIMED_STEPS,
-                                            tops=batch == THROUGHPUT_BATCHES[-1])}
-        del model, st, x
+        train_rate(step, st, args, 0, WARM_STEPS)
+        first = WARM_STEPS
+        if windowed:
+            reps = max(TIMED_STEPS, math.ceil(SPECTRAL_WINDOW_S * 1e3
+                                              / train_rate(step, st, args, first,
+                                                           TIMED_STEPS)[1]))
+            first += TIMED_STEPS
+            rates = []
+            for _ in range(SPECTRAL_WINDOWS):
+                rates.append(train_rate(step, st, args, first, reps)[0])
+                first += reps
+            timing = {"utt_per_s": float(np.median(rates)),
+                      "utt_per_s_windows": {"median": float(np.median(rates)),
+                                            "min": min(rates), "max": max(rates),
+                                            "windows": rates, "reps": reps}}
+            timing["step_ms"] = batch / timing["utt_per_s"] * 1e3
+        else:
+            rate, ms = train_rate(step, st, args, first, TIMED_STEPS)
+            first += TIMED_STEPS
+            timing = {"utt_per_s": rate, "step_ms": ms}
+        rec[label] = {"batch": batch, "extra": extra, **timing,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                      **profile_steps(step, st, args, first, tops=True),
+                      "seconds": time.perf_counter() - t0}
+        del model, st, args
         torch.cuda.empty_cache()
     print("train_throughput " + json.dumps(rec), flush=True)
     return rec
@@ -977,7 +1222,8 @@ def _summed(recs):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def kernels_line(k1, k2, k2_entry, k3, k4, k4_front, main_path, train):
+def kernels_line(k1, k2, k2_entry, k3, k3_train, k4, k4_front, main_path, train,
+                 fused_train):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -985,7 +1231,12 @@ def kernels_line(k1, k2, k2_entry, k3, k4, k4_front, main_path, train):
     point (no model path reaches it, as in adfmsl), errors over all cases,
     times at maze5's block0 at batch 16 (batch 128 beside them). K3: its times
     at batch 16, the largest batch its dispatch gives it on the main path
-    (batch 128 beside them). K4: launches on its path as lcnn1d_lfcc's front end
+    (batch 128 beside them); its launches on the evaluate paths and in the
+    fused train steps. K3-train (its trainable wrapper): launches in the fused
+    train steps, errors over its cases, forward (K3) and backward (the
+    recompute's VJP) times at batch 12, cut 64600, summed, beside the plain
+    forward with the same backward and the composition's autograd (information
+    only). K4: launches on its path as lcnn1d_lfcc's front end
     (the evaluate paths launch it no time, as adfmsl's ``lfcc`` never calls
     it), times at batch 128, cut 64600, 'high' (batch 384 beside them)."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
@@ -1000,6 +1251,10 @@ def kernels_line(k1, k2, k2_entry, k3, k4, k4_front, main_path, train):
                 "bound_by": r["bound_by"], "two_pass_bound_ms": r["two_pass_bytes_ms"],
                 "composition_ms": r["autograd_bn_relu_bwd_ms"]}
     k1_train = {f"{r['model']} trained checkpoint": r["k1_launches_evaluate"] for r in train}
+    k3_eval_train = {f"{r['model']} trained checkpoint": r["k3_launches_evaluate"]
+                     for r in train}
+    k3_fused = {f"{r['model']} fused training": r["k3_launches"] for r in fused_train}
+    k3t_main = next(r for r in k3_train if r["B"] == TRAIN_BATCH and r["T"] == CUT)
     return {"kernels": [{
         "id": "K1", "name": "resblock_eval", "route": "cuda",
         "source": "adfmsl_torch/csrc/resblock_eval.cu",
@@ -1038,8 +1293,10 @@ def kernels_line(k1, k2, k2_entry, k3, k4, k4_front, main_path, train):
         "id": "K3", "name": "sinc_abs_pool_fused", "route": "cuda",
         "source": "adfmsl_torch/csrc/sinc_abs_pool.cu",
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:81",
-        "launches": sum(r["k3_launches"] for r in main_path),
-        "launches_by_path": {r["model"]: r["k3_launches"] for r in main_path},
+        "launches": (sum(r["k3_launches"] for r in main_path) + sum(k3_eval_train.values())
+                     + sum(k3_fused.values())),
+        "launches_by_path": {**{r["model"]: r["k3_launches"] for r in main_path},
+                             **k3_eval_train, **k3_fused},
         "max_abs_err": max(r["max_abs_err"] for r in k3),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3),
         **_summed([k3_main]),
@@ -1050,6 +1307,26 @@ def kernels_line(k1, k2, k2_entry, k3, k4, k4_front, main_path, train):
         "shapes": f"batch {EVAL_BATCH}, cut {CUT}, C {SINC_C}, K {SINC_K}",
         f"b{BENCH_BATCH}": {**_summed([k3_big]),
                             "composition_ms": k3_big["cudnn_bf16_composition_ms"]},
+    }, {
+        "id": "K3-train", "name": "sinc_abs_pool", "route": "cuda",
+        "source": "adfmsl_torch/csrc/sinc_abs_pool.cu (forward); "
+                  "adfmsl_torch/ops/sinc_fused.py (the autograd Function)",
+        "replaces": "adfmsl/ops/pallas/sinc_fused.py:138",
+        "launches": sum(k3_fused.values()), "launches_by_path": k3_fused,
+        "max_abs_err": max(max(r["max_abs_err_y"], r["max_abs_err_dfilters"],
+                               r["max_abs_err_dx"]) for r in k3_train),
+        "max_err_over_tol": max(max(r[f"max_abs_err_{w}"] / r[f"tol_{w}"]
+                                    for w in ("y", "dfilters", "dx")) for r in k3_train),
+        **{k: k3t_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "forward_ms",
+                                    "backward_ms", "forward_bound_ms", "backward_bound_ms",
+                                    "backward_precision")},
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes max_pool3(|conv|) and its VJP; "
+                        "autograd through the composition is in composition_ms, for "
+                        "information",
+        "composition_ms": k3t_main["composition_fwd_bwd_ms"],
+        "shapes": f"batch {TRAIN_BATCH}, cut {CUT}, C {SINC_C}, K {SINC_K}; forward + "
+                  "backward (d filters)",
     }, {
         "id": "K4", "name": "lfcc_fused", "route": "cuda",
         "source": "adfmsl_torch/csrc/lfcc_fused.cu",
@@ -1109,18 +1386,23 @@ def main() -> int:
     print("device " + json.dumps(device), flush=True)
 
     k1, k3, k4 = phase("kernels", phase_kernels, rf, sf, lf, dev)
+    k3_train = phase("k3_train", phase_k3_train, sf, dev)
     k2_recs, k2_entry = phase("k2", phase_k2, k2, dev)
     with tempfile.TemporaryDirectory() as tmp:
         fixture = generate_fixture(tmp, SyntheticSpec(n_train=TRAIN_UTTS, n_dev=DEV_UTTS,
                                                       n_eval=EVAL_UTTS))
         main_path = phase("main_path", lambda: [
             phase_main_path(*p, rf, sf, lf, fixture, tmp) for p in MAIN_PATHS])
-        train = phase("train", lambda: [phase_train(n, rf, k2, fixture, tmp, dev)
-                                        for n in ("maze5", "maze5_fmsl")])
+        train = phase("train", lambda: [phase_train(n, rf, k2, sf, fixture, tmp, dev)
+                                        for n in TRAIN_MODELS])
+        fused_train = phase("fused_train", lambda: [phase_fused_train(n, sf, fixture, dev)
+                                                    for n in ("main", "main_fmsl")])
     k4_front = phase("k4_frontend", phase_k4_frontend, lf, dev, smi)
-    phase("train_card_vs_cpu", phase_train_card_vs_cpu, dev)
-    phase("train_throughput", lambda: [phase_train_throughput(n, dev, smi)
-                                       for n in ("maze5", "maze5_fmsl")])
+    phase("train_card_vs_cpu", lambda: [phase_train_card_vs_cpu(n, dev)
+                                        for n in ("maze5", "main")])
+    phase("train_throughput", lambda: [
+        phase_train_throughput(n, [c[1:] for c in TRAIN_THROUGHPUT if c[0] == n], dev, smi)
+        for n in dict.fromkeys(c[0] for c in TRAIN_THROUGHPUT)])
     phase("throughput", lambda: [phase_throughput(n, dev, smi)
                                  for n in ("maze5", "maze5_fmsl")])
     phase("throughput_main", phase_throughput_main, dev, smi)
@@ -1129,8 +1411,8 @@ def main() -> int:
     print("phase_seconds " + json.dumps({**phase_s,
                                          "total": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
-    print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k4, k4_front, main_path,
-                                  train)), flush=True)
+    print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3_train, k4, k4_front,
+                                  main_path, train, fused_train)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
