@@ -14,230 +14,570 @@
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): at maze5's block0,
 // batch 128, T 64350, 128 -> 128 channels, the two k3 convs are 1.62 TFLOP
 // (1.64 ms) against 4.2 GB of bf16 x in and y out (1.26 ms): the block is bound
-// by tensor-core operations, and the later blocks (T halves, bytes halve with
-// it) are too. chip_smoke.py recomputes the bound per block from the shapes.
+// by tensor-core operations, and so are the other blocks of maze5 and main
+// (chip_smoke.py:k1_bound recomputes it per block from the shapes). The earlier
+// form of this kernel (wmma 16x16x16, R = 48 rows a CTA, weights read from L2
+// inside the product loop) took 50.46 ms for maze5's five blocks at batch 128
+// and 16.13 ms for main's six, 6.8 % and 6.5 % of the bound; this one takes
+// 9.66 ms and 3.28 ms, 35 % and 31 % (chip_smoke.py, an H100 80GB HBM3 at 700 W).
 //
-// What this design does about it: everything between the two convs stays on
-// chip. One CTA owns R = 48 output rows of one batch row; it stages x rows
-// [r0-2, r0+R+16) in shared memory, computes h there, runs conv1 into a bf16 y1
-// tile of R+16 rows in shared memory, then conv2 (+ the 1x1 skip) into f32 and
-// writes only y and one row of per-tile channel sums, so device memory sees x
-// once and y once. Products go through the tensor cores as bf16 16x16x16 wmma
-// fragments with f32 accumulation: each warp owns 16 output channels, keeps the
-// accumulators of all its row tiles in registers, and loads each weight
-// fragment once per CTA (from L2; the folded weights are at most 384 KB). The
-// halo recomputes 16 of every 64 conv1 rows, and there is no TMA, wgmma or
-// pipelining yet: this is the simple, correct first form, not a fast one.
-// Blocks run in no order, so the channel sums are not carried across tiles as
-// the Pallas grid does: each CTA writes its partial sums to a (B, n_tiles,
-// Cout) scratch and a second launch reduces them in a fixed order, which keeps
-// the result deterministic.
+// The design, and what it does about each limit of that first form:
+// 1. Products are wgmma.mma_async m64nNk16 (N = Cout, 128 or 256) with f32
+//    accumulators in registers and A in registers (the RS form). The three taps
+//    of a conv are the same activation rows shifted by 0, 1 or 2; a shared-
+//    memory descriptor for A cannot start one row into a layout atom, so each
+//    warp loads its 16 x 16 A fragment with ldmatrix.x4 at the tap's row offset
+//    (the RS form's A fragment is the m16n8k16 one that ldmatrix.x4 returns),
+//    and B, the weights, comes from shared memory through a descriptor.
+// 2. Weights are staged asynchronously: (tap, 64-deep k-chunk) x Cout slices
+//    stream through a ring of STAGES buffers by cp.async.bulk with mbarrier
+//    completion (full / empty barriers), ahead of the products. The wrapper
+//    (ops/resblock_fused.py:kernel_weight_layout) lays each slice out once per
+//    call in the no-swizzle K-major canonical layout of the B descriptor, so one
+//    1-D bulk copy lands it: element (n, k) of a slice sits at
+//    ((n/8)*8 + k/8)*64 + (n%8)*8 + k%8, i.e. 8 x 8 core matrices of 128
+//    contiguous bytes, 128 B apart along k (LBO) and 1024 B apart along n (SBO).
+//    No tensor map is needed. Thread 0 is the producer: it refills a stage once
+//    all eight warps have released it. A separate producer warp costs more than
+//    it gives: the register file is split among an SM's four schedulers, so at
+//    two CTAs an SM a ninth warp leaves under 100 registers a thread, and the
+//    128 -> 128 products need about 110 (with a producer warp ptxas gave it 94,
+//    spilled and serialised the wgmmas; a producer warpgroup with setmaxnreg
+//    does not build at two CTAs an SM). One CTA an SM instead loses the overlap
+//    of item 6. A form of this design with a producer warp took 19.00 ms for
+//    maze5's five blocks at batch 128 (chip_smoke.py, the same card).
+// 3. Tiles are sized to wgmma's 64-row M: a CTA owns R = 126 output rows of one
+//    batch row, and each weight slice feeds both warpgroups, 128 rows, so L2
+//    weight reads fall from 4 KB to 1.56 KB per output row at 128 -> 128
+//    (WEIGHT_BYTES / R).
+// 4. The halo: conv1 computes 128 rows of y1 (global r0-1 .. r0+126) from 130
+//    rows of x; conv2 computes 128 rows, keeps 126 and reads 2 zeroed spare y1
+//    rows; 2 rows in 128 are wasted instead of 16 in 64. 126 is a multiple of 3,
+//    so no MaxPool3 window crosses a tile (the Pallas kernel's quant rule,
+//    resblock_fused.py:161). x rows [r0-2, r0+128) that lie in [0, T) are one
+//    contiguous run of global memory and arrive by one bulk copy, dense, at the
+//    end of their tile's region; the threads spread them to a pitch 16 B longer
+//    than the data (which makes ldmatrix free of bank conflicts at any row
+//    offset) through registers. Rows outside [0, T) are not copied and h is
+//    zeroed there after the activation, since act(c1) != 0.
+// 5. Epilogues work on the accumulator layout in registers: conv1's bias, act,
+//    row mask and bf16 rounding go straight into the y1 tile; conv2's bias and
+//    the 1x1 product (accumulated into the same registers) go to an f32 stage
+//    in shared memory that conv2 no longer reads. From there each thread owns 8
+//    channels of a set of rows: it adds the identity skip (x rows loaded from
+//    global memory, where the tile's bulk copy has just brought them into L2,
+//    all before the stage's barrier), takes MaxPool3 over the three rows of a
+//    window, writes y as 16-byte vectors, and the per-tile channel sums are
+//    reduced across threads in a fixed order. A second launch
+//    (reduce_partials_kernel) adds the tiles' sums in tile order, so the
+//    result is deterministic.
+// 6. Shared memory (Cfg<>::TOTAL, checked against 227 KB at compile time): x is
+//    turned into h in place when the skip is the identity, and y1 is written
+//    over h once both warpgroups have retired their conv1 products (a barrier
+//    of the CTA); only the 1x1-skip block keeps a separate x tile, which its
+//    third product reads. The f32 stage and the sums' scratch alias the dead
+//    tiles and the ring. At 128 -> 128 a CTA takes 101 KB and at most 128
+//    registers a thread, so two CTAs share an SM and one's loads and epilogues
+//    overlap the other's products; the wider blocks take about 200 KB and run
+//    one CTA an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int R = 48;               // output rows per tile: a multiple of 16 and of 3
-constexpr int Y1_ROWS = R + 16;     // conv1 rows: global r0-1 .. r0+R+14
-constexpr int X_ROWS = R + 18;      // input rows: global r0-2 .. r0+R+15
-constexpr int MT1 = Y1_ROWS / 16;   // 16-row fragments of y1
-constexpr int MT2 = R / 16;         // 16-row fragments of out
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_C = 256;
+constexpr int R = 126;              // output rows per tile: 2 x 64 - 2, a multiple of 3
+constexpr int M_ROWS = 128;         // rows each conv computes: two 64-row warpgroup tiles
+constexpr int X_ROWS = M_ROWS + 2;  // x / h / y1 tile rows: global r0-2 .. r0+127
+constexpr int KC = 64;              // k depth of one weight slice
+constexpr int THREADS = 256;        // two warpgroups
+constexpr int SMEM_LIMIT = 232448;  // 227 KB: the most a CTA may take on an H100
+constexpr int SMEM_PER_SM = 233472; // 228 KB an SM, of which 1 KB a CTA is reserved
 
-// Shared-memory row pitch in elements: a multiple of 16, so every row starts
-// 32-byte aligned as wmma loads require, and 16 elements of skew across banks.
-__host__ __device__ inline int pitch(int c) { return c + 16; }
+__host__ __device__ constexpr int align128(int v) { return (v + 127) & ~127; }
 
-__host__ __device__ inline size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
-
-struct Layout {
-    size_t xs, hs, y1s, stage, total;
+template <int CIN, int COUT>
+struct Cfg {
+    static constexpr bool SKIP = CIN != COUT;       // 1x1 skip, else identity
+    static constexpr int CIN_ = CIN;
+    static constexpr int XP = CIN + 8;              // x / h row pitch, elements (16 B skew)
+    static constexpr int YP = COUT + 8;             // y1 row pitch
+    static constexpr int SP = COUT + 8;             // f32 stage row pitch
+    static constexpr int SLICE_BYTES = COUT * KC * 2;
+    static constexpr int N1 = 3 * CIN / KC;         // conv1 slices, tap-major
+    static constexpr int N2 = 3 * COUT / KC;        // conv2 slices
+    static constexpr int NSK = SKIP ? CIN / KC : 0; // 1x1 skip slices
+    static constexpr int SLICES = N1 + N2 + NSK;
+    static constexpr int WEIGHT_BYTES = SLICES * SLICE_BYTES;
+    static constexpr int CTAS = COUT == 128 ? 2 : 1;    // CTAs an SM (launch bounds)
+    static constexpr int STAGES = COUT == 128 ? 4 : (SKIP ? 3 : 4);   // weight ring
+    static constexpr int CH = COUT / 8;             // 8-channel chunks of a row
+    static constexpr int NRG = THREADS / CH;        // row groups of the last pass
+    // byte offsets: barriers, [x tile], h / y1 tile, weight ring; the f32 stage
+    // and the sums' scratch alias everything after the barriers
+    static constexpr int BARS = 0;
+    static constexpr int XS = 256;
+    static constexpr int HY = align128(XS + (SKIP ? X_ROWS * XP * 2 : 0));
+    static constexpr int HY_BYTES = X_ROWS * (XP > YP ? XP : YP) * 2;
+    static constexpr int RING = align128(HY + HY_BYTES);
+    static constexpr int TOTAL = RING + STAGES * SLICE_BYTES;
+    // x arrives dense (rows of CIN) at the end of the region its skewed tile
+    // takes, and is spread out to the skewed pitch in registers
+    static constexpr int XD = (SKIP ? XS + X_ROWS * XP * 2 : HY + HY_BYTES) - X_ROWS * CIN * 2;
+    static constexpr int RPT = (R + NRG - 1) / NRG;       // last pass: rows a thread
+    static constexpr int WPT = (R / 3 + NRG - 1) / NRG;   // MaxPool3 windows a thread
+    static constexpr int STG = XS;
+    static constexpr int RED = align128(STG + R * SP * 4);
+    static_assert(CIN % KC == 0 && COUT % KC == 0, "channels are whole k-chunks");
+    static_assert(2 * STAGES + 1 <= 256 / 8, "barriers fit their slot");
+    static_assert(RED + NRG * COUT * 4 <= TOTAL, "the f32 stage fits the dead tiles");
+    static_assert(TOTAL <= SMEM_LIMIT, "shared memory of one CTA within 227 KB");
+    static_assert(CTAS * (TOTAL + 1024) <= SMEM_PER_SM, "CTAS fit one SM");
+    static_assert(RING % 16 == 0 && XD % 16 == 0, "bulk copies land 16-byte aligned");
 };
 
-__host__ __device__ inline Layout layout(int cin, int cout) {
-    Layout L;
-    size_t off = 0;
-    L.xs = off;
-    off = align128(off + size_t(X_ROWS) * pitch(cin) * sizeof(bf16));
-    L.hs = off;
-    off = align128(off + size_t(X_ROWS) * pitch(cin) * sizeof(bf16));
-    L.y1s = off;
-    off = align128(off + size_t(Y1_ROWS) * pitch(cout) * sizeof(bf16));
-    L.stage = off;                  // per warp: R x 16 f32
-    off = align128(off + size_t(WARPS) * R * 16 * sizeof(float));
-    L.total = off;
-    return L;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    }
+}
+
+// Global -> shared bulk copy of `bytes` (a multiple of 16), completing on `bar`.
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];"
+                 :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// bf16 pairs in a 32-bit word: the low half is the lower channel.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    uint32_t r;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+    return r;
+}
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// B descriptor of a weight slice at shared address `addr`: no swizzle, K-major,
+// LBO 128 B (next 8 k), SBO 1024 B (next 8 n).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+    return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) |
+           (uint64_t(1024 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// D (64 x 128, f32, registers) += A (64 x 16 bf16, registers: this warp's
+// m16n8k16 A fragment) * B (16 x 128 bf16, shared memory, descriptor).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// D (64 x 256, f32, registers) += A (64 x 16 bf16, registers: this warp's
+// m16n8k16 A fragment) * B (16 x 256 bf16, shared memory, descriptor).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 __device__ __forceinline__ float act_fn(float v, int act) {
     return act == 0 ? fmaxf(v, 0.f) : fmaxf(v, __fmul_rn(0.3f, v));
 }
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+// Eight f32 of the stage.
+__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
+    const float4 lo = *reinterpret_cast<const float4*>(p);
+    const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
 
-__global__ void __launch_bounds__(THREADS)
+// Adds v to the running sums and writes it as eight bf16 (one 16-byte store).
+__device__ __forceinline__ void emit(const float (&v)[8], float (&s)[8], bf16* dst) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[e] += v[e];
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                   pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+
+// One weight slice (64 k) against this warpgroup's 64 rows: four k16 products.
+// `a_addr` is this lane's ldmatrix row address at the slice's first k.
+template <int COUT>
+__device__ __forceinline__ void slice_products(float (&acc)[COUT / 2], uint32_t a_addr,
+                                               uint32_t slice_addr) {
+    uint32_t a[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) ldmatrix_x4(a[ks], a_addr + ks * 32);
+    wgmma_fence();
+    const uint64_t desc = b_desc(slice_addr);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {        // 16 k = two core matrices = 256 B
+        if constexpr (COUT == 128) wgmma_rs_n128(acc, a[ks], desc + 16 * ks);
+        else wgmma_rs_n256(acc, a[ks], desc + 16 * ks);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+}
+
+struct Weights {
+    const bf16* w1;
+    const bf16* w2;
+    const bf16* skw;
+};
+
+// One thread: x rows [r0-2, r0+128) that lie in [0, T), one contiguous run of
+// global memory, in one bulk copy to dense tile rows 0..129 at `xdense`.
+template <class C>
+__device__ __forceinline__ void issue_x(const bf16* x, int b, int T, int r0, uint32_t xdense,
+                                        uint32_t xbar) {
+    constexpr int ROW_BYTES = C::CIN_ * 2;
+    const int g0 = max(r0 - 2, 0), g1 = min(r0 + M_ROWS, T);
+    const uint32_t bytes = uint32_t(g1 - g0) * ROW_BYTES;
+    mbar_expect_tx(xbar, bytes);
+    bulk_g2s(xdense + uint32_t(g0 - (r0 - 2)) * ROW_BYTES, x + (size_t(b) * T + g0) * C::CIN_,
+             bytes, xbar);
+}
+
+// One thread: weight slice i (conv1's, then conv2's, then the 1x1 skip's) into
+// ring stage i % STAGES.
+template <class C>
+__device__ __forceinline__ void issue_slice(int i, const Weights& w, uint32_t ring,
+                                            uint32_t full0) {
+    const size_t slice_elems = size_t(C::SLICE_BYTES) / 2;
+    const int s = i % C::STAGES;
+    const bf16* src = i < C::N1 ? w.w1 + i * slice_elems
+                    : i < C::N1 + C::N2 ? w.w2 + (i - C::N1) * slice_elems
+                    : w.skw + (i - C::N1 - C::N2) * slice_elems;
+    mbar_expect_tx(full0 + 8 * s, C::SLICE_BYTES);
+    bulk_g2s(ring + s * C::SLICE_BYTES, src, C::SLICE_BYTES, full0 + 8 * s);
+}
+
+// Waits for the next weight slice, runs its products, hands the buffer back.
+template <class C, int N>
+__device__ __forceinline__ void consume(float (&acc)[N], int& slice, uint32_t full0,
+                                        uint32_t empty0, uint32_t ring, int tid,
+                                        const Weights& w, uint32_t a_addr) {
+    const int s = slice % C::STAGES;
+    mbar_wait(full0 + 8 * s, (slice / C::STAGES) & 1);
+    slice_products<2 * N>(acc, a_addr, ring + s * C::SLICE_BYTES);
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(empty0 + 8 * s);
+    if (tid == 0 && slice + C::STAGES < C::SLICES) {   // refill: thread 0 is the producer
+        mbar_wait(empty0 + 8 * s, (slice / C::STAGES) & 1);
+        issue_slice<C>(slice + C::STAGES, w, ring, full0);
+    }
+    ++slice;
+}
+
+// Grid (n_tiles, B), THREADS threads: two warpgroups, rows 0-63 and 64-127 of
+// both convs; thread 0 also issues the bulk copies.
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(THREADS, Cfg<CIN, COUT>::CTAS)
 resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
                      const bf16* __restrict__ w1, const float* __restrict__ b1,
                      const bf16* __restrict__ w2, const float* __restrict__ bt,
                      const bf16* __restrict__ skw, bf16* __restrict__ y,
-                     float* __restrict__ partial, int T, int cin, int cout,
-                     int act, int pool) {
+                     float* __restrict__ partial, int T, int act, int pool) {
+    using C = Cfg<CIN, COUT>;
     extern __shared__ __align__(128) unsigned char smem[];
-    const Layout L = layout(cin, cout);
-    bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
-    bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
-    bf16* y1s = reinterpret_cast<bf16*>(smem + L.y1s);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* stage = reinterpret_cast<float*>(smem + L.stage) + warp * (R * 16);
-    const int ldx = pitch(cin), ldy = pitch(cout);
+    const uint32_t sbase = smem_u32(smem);
+    const uint32_t full0 = sbase + C::BARS, empty0 = full0 + 8 * C::STAGES;
+    const uint32_t xbar = empty0 + 8 * C::STAGES;
+    const uint32_t ring = sbase + C::RING;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int tile = blockIdx.x, n_tiles = gridDim.x, b = blockIdx.y;
     const int r0 = tile * R;
-    const bf16* xb = x + size_t(b) * T * cin;
 
-    // ---- x rows [r0-2, r0+R+16) -> xs (raw, zero outside [0,T)) and hs = h.
-    const int chunks = cin / 8;                     // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < X_ROWS * chunks; idx += THREADS) {
-        const int k = idx / chunks, ch = idx - k * chunks;
-        const int g = r0 - 2 + k;
-        const bool valid = g >= 0 && g < T;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (valid) raw = *reinterpret_cast<const uint4*>(xb + size_t(g) * cin + ch * 8);
-        *reinterpret_cast<uint4*>(xs + k * ldx + ch * 8) = raw;
-        const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
-        uint32_t out[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&in[q]);
-            float f0 = __low2float(p), f1 = __high2float(p);
-            if (pre != nullptr) {
-                const int c = ch * 8 + 2 * q;
-                f0 = act_fn(__fadd_rn(__fmul_rn(f0, pre[c]), pre[cin + c]), act);
-                f1 = act_fn(__fadd_rn(__fmul_rn(f1, pre[c + 1]), pre[cin + c + 1]), act);
-            }
-            if (!valid) f0 = f1 = 0.f;             // SAME padding after the activation
-            __nv_bfloat162 h2 = __floats2bfloat162_rn(f0, f1);
-            out[q] = *reinterpret_cast<const uint32_t*>(&h2);
+    if (tid == 0) {
+        for (int s = 0; s < C::STAGES; ++s) {
+            mbar_init(full0 + 8 * s, 1);              // the producer's expect_tx
+            mbar_init(empty0 + 8 * s, THREADS / 32);  // one arrive a warp
         }
-        *reinterpret_cast<uint4*>(hs + k * ldx + ch * 8) =
-            make_uint4(out[0], out[1], out[2], out[3]);
+        mbar_init(xbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncthreads();
 
-    // ---- y1 row j is global r0-1+j and reads h rows j, j+1, j+2 (taps 0..2).
-    const int n_col_tiles = cout / 16;
-    for (int nt = warp; nt < n_col_tiles; nt += WARPS) {
-        const int n0 = nt * 16;
-        FragC acc[MT1];
+    const Weights wts{w1, w2, skw};
+    const uint32_t xdense = sbase + C::XD;
+    if (tid == 0) {
+        issue_x<C>(x, b, T, r0, xdense, xbar);
+        for (int i = 0; i < C::STAGES && i < C::SLICES; ++i)
+            issue_slice<C>(i, wts, ring, full0);
+    }
+    const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
+    bf16* hy = reinterpret_cast<bf16*>(smem + C::HY);
+    const uint32_t hy_addr = sbase + C::HY, xs_addr = sbase + C::XS;
+    int slice = 0;                      // running slice index, in the producer's order
+
+    // h = act(x*a1 + c1) (or x), zero outside [0, T), rounded to bf16, written
+    // over the dense x at the skewed pitch; the 1x1 skip also keeps raw x there.
+    {
+        constexpr int CHX = CIN / 8, RSTEP = THREADS / CHX;
+        constexpr int NJ = (X_ROWS + RSTEP - 1) / RSTEP;
+        static_assert(THREADS % CHX == 0, "a thread's chunk is fixed");
+        const int ch = tid % CHX, k0 = tid / CHX;
+        float a1[8], c1[8];             // this thread's 8 channels of the affine
 #pragma unroll
-        for (int m = 0; m < MT1; ++m) wmma::fill_fragment(acc[m], 0.f);
-        for (int d = 0; d < 3; ++d) {
-            for (int kc = 0; kc < cin; kc += 16) {
-                FragB wf;
-                wmma::load_matrix_sync(wf, w1 + (size_t(d) * cin + kc) * cout + n0, cout);
-#pragma unroll
-                for (int m = 0; m < MT1; ++m) {
-                    FragA af;
-                    wmma::load_matrix_sync(af, hs + (m * 16 + d) * ldx + kc, ldx);
-                    wmma::mma_sync(acc[m], af, wf, acc[m]);
-                }
-            }
+        for (int e = 0; e < 8; ++e) {
+            a1[e] = pre != nullptr ? pre[ch * 8 + e] : 1.f;
+            c1[e] = pre != nullptr ? pre[CIN + ch * 8 + e] : 0.f;
         }
+        auto h2 = [&](uint32_t w, int e) {
+            return pack_bf16x2(act_fn(__fadd_rn(__fmul_rn(bf16_lo(w), a1[e]), c1[e]), act),
+                               act_fn(__fadd_rn(__fmul_rn(bf16_hi(w), a1[e + 1]),
+                                                c1[e + 1]), act));
+        };
+        mbar_wait(xbar, 0);
+        const bf16* xd = reinterpret_cast<const bf16*>(smem + C::XD);
+        uint4 v[NJ];
 #pragma unroll
-        for (int m = 0; m < MT1; ++m) {
-            wmma::store_matrix_sync(stage, acc[m], 16, wmma::mem_row_major);
-            __syncwarp();
-            for (int e = lane; e < 256; e += 32) {
-                const int j = m * 16 + (e >> 4), c = n0 + (e & 15);
-                const int g = r0 - 1 + j;
-                const float v = act_fn(__fadd_rn(stage[e], b1[c]), act);
-                y1s[j * ldy + c] = __float2bfloat16(g >= 0 && g < T ? v : 0.f);
+        for (int j = 0; j < NJ; ++j) {
+            const int k = k0 + j * RSTEP, gr = r0 - 2 + k;
+            v[j] = make_uint4(0u, 0u, 0u, 0u);
+            if (k < X_ROWS && gr >= 0 && gr < T)
+                v[j] = *reinterpret_cast<const uint4*>(xd + k * CIN + ch * 8);
+        }
+        __syncthreads();                // dense x is read: the skewed tiles may overwrite it
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            const int k = k0 + j * RSTEP, gr = r0 - 2 + k;
+            if (k < X_ROWS) {
+                if constexpr (C::SKIP)
+                    *reinterpret_cast<uint4*>(smem + C::XS + (k * C::XP + ch * 8) * 2) = v[j];
+                uint4 h = v[j];
+                if (pre != nullptr && gr >= 0 && gr < T)
+                    h = make_uint4(h2(h.x, 0), h2(h.y, 2), h2(h.z, 4), h2(h.w, 6));
+                *reinterpret_cast<uint4*>(hy + k * C::XP + ch * 8) = h;
             }
-            __syncwarp();
         }
     }
     __syncthreads();
 
-    // ---- out row i is global r0+i and reads y1 rows i, i+1, i+2; the 1x1 skip
-    // ---- reads x row i (xs row i+2) and accumulates into the same fragments.
-    const bool identity = skw == nullptr;
+    // This lane's ldmatrix row (output row of the warpgroup's 64) and k offset.
+    const int arow = wg * 64 + wi * 16 + (lane & 15);
+    const int acol = (lane >> 4) * 8;
+    float acc[COUT / 2];
+
+    // ---- conv1: y1 row j (global r0-1+j) reads h rows j+d, d = 0..2.
+#pragma unroll
+    for (int e = 0; e < COUT / 2; ++e) acc[e] = 0.f;
+    for (int d = 0; d < 3; ++d)
+        for (int kc = 0; kc < CIN; kc += KC)
+            consume<C>(acc, slice, full0, empty0, ring, tid, wts,
+                       hy_addr + ((arow + d) * C::XP + kc + acol) * 2);
+    __syncthreads();                // every warp is done reading h: y1 may overwrite it
+#pragma unroll
+    for (int jj = 0; jj < COUT / 8; ++jj) {
+        const int col = jj * 8 + 2 * t;
+        const float c0 = b1[col], c1 = b1[col + 1];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int j = wg * 64 + wi * 16 + g + 8 * hf;
+            const int gr = r0 - 1 + j;
+            float v0 = act_fn(__fadd_rn(acc[4 * jj + 2 * hf], c0), act);
+            float v1 = act_fn(__fadd_rn(acc[4 * jj + 2 * hf + 1], c1), act);
+            if (gr < 0 || gr >= T) v0 = v1 = 0.f;
+            *reinterpret_cast<uint32_t*>(hy + j * C::YP + col) = pack_bf16x2(v0, v1);
+        }
+    }
+    for (int idx = tid; idx < 2 * C::CH; idx += THREADS)     // spare rows 128, 129
+        *reinterpret_cast<uint4*>(hy + (M_ROWS + idx / C::CH) * C::YP + (idx % C::CH) * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+
+    // ---- conv2: out row i (global r0+i) reads y1 rows i+d; the 1x1 skip reads
+    // ---- x row i (tile row i+2) into the same accumulators.
+#pragma unroll
+    for (int e = 0; e < COUT / 2; ++e) acc[e] = 0.f;
+    for (int d = 0; d < 3; ++d)
+        for (int kc = 0; kc < COUT; kc += KC)
+            consume<C>(acc, slice, full0, empty0, ring, tid, wts,
+                       hy_addr + ((arow + d) * C::YP + kc + acol) * 2);
+    if constexpr (C::SKIP)
+        for (int kc = 0; kc < CIN; kc += KC)
+            consume<C>(acc, slice, full0, empty0, ring, tid, wts,
+                       xs_addr + ((arow + 2) * C::XP + kc + acol) * 2);
+    __syncthreads();                // the tiles and the ring are dead: stage over them
+
+    // acc + bt -> f32 stage, rows 0 .. R-1 (the identity skip is added below)
+    float* stg = reinterpret_cast<float*>(smem + C::STG);
+#pragma unroll
+    for (int jj = 0; jj < COUT / 8; ++jj) {
+        const int col = jj * 8 + 2 * t;
+        const float c0 = bt[col], c1 = bt[col + 1];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int i = wg * 64 + wi * 16 + g + 8 * hf;
+            if (i < R)
+                *reinterpret_cast<float2*>(stg + i * C::SP + col) =
+                    make_float2(__fadd_rn(acc[4 * jj + 2 * hf], c0),
+                                __fadd_rn(acc[4 * jj + 2 * hf + 1], c1));
+        }
+    }
+    // ---- last pass: out = stage (+ x), MaxPool3 or not, y as 16-byte vectors
+    // ---- and the tile's channel sums. Thread (rg, ch) owns channels ch*8 ..
+    // ---- ch*8+7 of rows (or windows) rg, rg+NRG, ...; the identity skip's x
+    // ---- rows (fetched into L2 by the tile's bulk copy) are loaded first.
+    const int ch = tid % C::CH, rg = tid / C::CH;
     const int t_out = T / pool;
-    for (int nt = warp; nt < n_col_tiles; nt += WARPS) {
-        const int n0 = nt * 16;
-        FragC acc[MT2];
+    constexpr int NXR = C::SKIP ? 1 : (C::RPT > 3 * C::WPT ? C::RPT : 3 * C::WPT);
+    uint4 xr[NXR];
+    if constexpr (!C::SKIP) {
+        const bf16* xb = x + (size_t(b) * T + r0) * CIN + ch * 8;
 #pragma unroll
-        for (int m = 0; m < MT2; ++m) wmma::fill_fragment(acc[m], 0.f);
-        for (int d = 0; d < 3; ++d) {
-            for (int kc = 0; kc < cout; kc += 16) {
-                FragB wf;
-                wmma::load_matrix_sync(wf, w2 + (size_t(d) * cout + kc) * cout + n0, cout);
+        for (int j = 0; j < NXR; ++j) {
+            const int i = pool == 1 ? rg + j * C::NRG : 3 * (rg + (j / 3) * C::NRG) + j % 3;
+            xr[j] = make_uint4(0u, 0u, 0u, 0u);
+            if (i < R && r0 + i < T)
+                xr[j] = *reinterpret_cast<const uint4*>(xb + size_t(i) * CIN);
+        }
+    }
+    __syncthreads();
+    bf16* yb = y + size_t(b) * t_out * COUT + ch * 8;
+    auto out8 = [&](float (&v)[8], int i, const uint4& xv) {    // out row i of the tile
+        load8(v, stg + i * C::SP + ch * 8);
+        if constexpr (!C::SKIP) {
+            const uint32_t w[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-                for (int m = 0; m < MT2; ++m) {
-                    FragA af;
-                    wmma::load_matrix_sync(af, y1s + (m * 16 + d) * ldy + kc, ldy);
-                    wmma::mma_sync(acc[m], af, wf, acc[m]);
-                }
+            for (int q = 0; q < 4; ++q) {
+                v[2 * q] = __fadd_rn(v[2 * q], bf16_lo(w[q]));
+                v[2 * q + 1] = __fadd_rn(v[2 * q + 1], bf16_hi(w[q]));
             }
         }
-        if (!identity) {
-            for (int kc = 0; kc < cin; kc += 16) {
-                FragB wf;
-                wmma::load_matrix_sync(wf, skw + size_t(kc) * cout + n0, cout);
+    };
+    float s[8];
 #pragma unroll
-                for (int m = 0; m < MT2; ++m) {
-                    FragA af;
-                    wmma::load_matrix_sync(af, xs + (2 + m * 16) * ldx + kc, ldx);
-                    wmma::mma_sync(acc[m], af, wf, acc[m]);
-                }
-            }
-        }
+    for (int e = 0; e < 8; ++e) s[e] = 0.f;
+    if (pool == 1) {
 #pragma unroll
-        for (int m = 0; m < MT2; ++m)
-            wmma::store_matrix_sync(stage + m * 256, acc[m], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < R * 16; e += 32) {        // out = acc + bt + skip
-            const int i = e >> 4, c = n0 + (e & 15);
-            float v = __fadd_rn(stage[e], bt[c]);
-            if (identity) v = __fadd_rn(v, __bfloat162float(xs[(2 + i) * ldx + c]));
-            stage[e] = v;
-        }
-        __syncwarp();
-        // Each lane keeps one column (lane & 15) and every other row; the two
-        // halves meet in one shuffle, so the per-tile sum has a fixed order.
-        float s = 0.f;
-        if (pool == 1) {
-            for (int e = lane; e < R * 16; e += 32) {
-                const int g = r0 + (e >> 4);
-                if (g < T) {
-                    const float v = stage[e];
-                    y[(size_t(b) * t_out + g) * cout + n0 + (e & 15)] = __float2bfloat16(v);
-                    s += v;
-                }
-            }
-        } else {
-            for (int e = lane; e < (R / 3) * 16; e += 32) {
-                const int p = e >> 4, c = e & 15;
-                const int gp = r0 / 3 + p;                // valid iff gp < T/3
-                if (gp < t_out) {
-                    const float v = fmaxf(fmaxf(stage[(3 * p) * 16 + c],
-                                                stage[(3 * p + 1) * 16 + c]),
-                                          stage[(3 * p + 2) * 16 + c]);
-                    y[(size_t(b) * t_out + gp) * cout + n0 + c] = __float2bfloat16(v);
-                    s += v;
-                }
+        for (int j = 0; j < C::RPT; ++j) {
+            const int i = rg + j * C::NRG;
+            if (i < R && r0 + i < T) {
+                float v[8];
+                out8(v, i, xr[C::SKIP ? 0 : j]);
+                emit(v, s, yb + size_t(r0 + i) * COUT);
             }
         }
-        s += __shfl_down_sync(0xffffffffu, s, 16);
-        if (lane < 16) partial[(size_t(b) * n_tiles + tile) * cout + n0 + lane] = s;
-        __syncwarp();
+    } else {                        // window p covers rows 3p .. 3p+2; r0 % 3 == 0
+#pragma unroll
+        for (int j = 0; j < C::WPT; ++j) {
+            const int p = rg + j * C::NRG;
+            if (p < R / 3 && r0 / 3 + p < t_out) {
+                float v[8], u[8];
+                out8(v, 3 * p, xr[C::SKIP ? 0 : 3 * j]);
+                out8(u, 3 * p + 1, xr[C::SKIP ? 0 : 3 * j + 1]);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], u[e]);
+                out8(u, 3 * p + 2, xr[C::SKIP ? 0 : 3 * j + 2]);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], u[e]);
+                emit(v, s, yb + size_t(r0 / 3 + p) * COUT);
+            }
+        }
+    }
+    float* red = reinterpret_cast<float*>(smem + C::RED);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[rg * COUT + ch * 8 + e] = s[e];
+    __syncthreads();
+    if (tid < COUT) {               // row groups added in order: deterministic
+        float sum = 0.f;
+        for (int r = 0; r < C::NRG; ++r) sum += red[r * COUT + tid];
+        partial[(size_t(b) * n_tiles + tile) * COUT + tid] = sum;
     }
 }
 
@@ -254,42 +594,103 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
     sums[idx] = s;
 }
 
+template <int CIN, int COUT>
+cudaError_t set_smem() {
+    return cudaFuncSetAttribute(resblock_eval_kernel<CIN, COUT>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Cfg<CIN, COUT>::TOTAL);
+}
+
+template <int CIN, int COUT>
+cudaError_t launch(const void* x, const void* pre, const void* w1, const void* b1,
+                   const void* w2, const void* bt, const void* skw, void* y, void* partial,
+                   int bsz, int T, int act, int pool, cudaStream_t s) {
+    cudaError_t err = set_smem<CIN, COUT>();
+    if (err != cudaSuccess) return err;
+    resblock_eval_kernel<CIN, COUT><<<dim3((T + R - 1) / R, bsz), THREADS,
+                                      Cfg<CIN, COUT>::TOTAL, s>>>(
+        static_cast<const bf16*>(x), static_cast<const float*>(pre),
+        static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+        static_cast<const bf16*>(w2), static_cast<const float*>(bt),
+        static_cast<const bf16*>(skw), static_cast<bf16*>(y),
+        static_cast<float*>(partial), T, act, pool);
+    return cudaGetLastError();
+}
+
+// The instantiation's figures: rows a tile, shared memory a CTA, threads, CTAs
+// an SM (the occupancy calculator), weight bytes a tile, ring stages.
+template <int CIN, int COUT>
+cudaError_t config(int* info) {
+    using C = Cfg<CIN, COUT>;
+    cudaError_t err = set_smem<CIN, COUT>();
+    if (err != cudaSuccess) return err;
+    int ctas = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, resblock_eval_kernel<CIN, COUT>, THREADS, C::TOTAL);
+    info[0] = R;
+    info[1] = C::TOTAL;
+    info[2] = THREADS;
+    info[3] = ctas;
+    info[4] = C::WEIGHT_BYTES;
+    info[5] = C::STAGES;
+    return err;
+}
+
+// The three (Cin, Cout, skip) the models use: 0, 1, 2; -1 for anything else.
+int variant(int cin, int cout, bool skip) {
+    if (cin == 128 && cout == 128 && !skip) return 0;
+    if (cin == 128 && cout == 256 && skip) return 1;
+    if (cin == 256 && cout == 256 && !skip) return 2;
+    return -1;
+}
+
 }  // namespace
 
 extern "C" int resblock_eval_rows(void) { return R; }
 
+// Fills info[0..5] (see config) for the (cin, cout, skip) instantiation on
+// `device`; returns a CUDA error code (cudaErrorInvalidValue for a shape the
+// kernel does not take).
+extern "C" int resblock_eval_config(int cin, int cout, int skip, int device, int* info) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return int(err);
+    switch (variant(cin, cout, skip != 0)) {
+        case 0: return int(config<128, 128>(info));
+        case 1: return int(config<128, 256>(info));
+        case 2: return int(config<256, 256>(info));
+        default: return int(cudaErrorInvalidValue);
+    }
+}
+
 // Launches K1 and its sum reduction on `stream`; returns cudaGetLastError().
-// x (B,T,Cin) bf16; pre (2,Cin) f32 or null; w1 (3,Cin,Cout), w2 (3,Cout,Cout)
-// bf16; b1, bt (Cout) f32; skw (Cin,Cout) bf16 or null (then Cin == Cout);
-// y (B,T/pool,Cout) bf16; partial (B,ceil(T/R),Cout) f32 scratch; sums (B,Cout)
-// f32. act 0 = ReLU, 1 = LeakyReLU(0.3); pool 1 or 3; device = the CUDA device index.
+// x (B,T,Cin) bf16; pre (2,Cin) f32 or null; w1, w2 and skw bf16 in the
+// kernel's slice layout (ops/resblock_fused.py:kernel_weight_layout) of
+// (3,Cin,Cout), (3,Cout,Cout) and (Cin,Cout), skw null for the identity skip;
+// b1, bt (Cout) f32; y (B,T/pool,Cout) bf16; partial (B,ceil(T/R),Cout) f32
+// scratch; sums (B,Cout) f32. (Cin, Cout, skip) is (128, 128, identity),
+// (128, 256, 1x1) or (256, 256, identity). act 0 = ReLU, 1 = LeakyReLU(0.3);
+// pool 1 or 3; device = the CUDA device index.
 extern "C" int resblock_eval_launch(const void* x, const void* pre, const void* w1,
                                     const void* b1, const void* w2, const void* bt,
                                     const void* skw, void* y, void* partial, void* sums,
                                     int bsz, int T, int cin, int cout, int act,
                                     int pool, int device, void* stream) {
-    if (bsz <= 0 || T < pool || cin % 16 || cout % 16 || cin > MAX_C || cout > MAX_C ||
-        (pool != 1 && pool != 3) || (act != 0 && act != 1) ||
-        (skw == nullptr && cin != cout) || bsz > 65535)
+    const int v = variant(cin, cout, skw != nullptr);
+    if (v < 0 || bsz <= 0 || T < pool || (pool != 1 && pool != 3) ||
+        (act != 0 && act != 1) || bsz > 65535)
         return int(cudaErrorInvalidValue);
     // this library links its own CUDA runtime: select the caller's device
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return int(err);
-    const Layout L = layout(cin, cout);
-    err = cudaFuncSetAttribute(
-        resblock_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.total));
-    if (err != cudaSuccess) return int(err);
-    const int n_tiles = (T + R - 1) / R;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    resblock_eval_kernel<<<dim3(n_tiles, bsz), THREADS, L.total, s>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(pre),
-        static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-        static_cast<const bf16*>(w2), static_cast<const float*>(bt),
-        static_cast<const bf16*>(skw), static_cast<bf16*>(y),
-        static_cast<float*>(partial), T, cin, cout, act, pool);
-    err = cudaGetLastError();
+    if (v == 0)
+        err = launch<128, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
+    else if (v == 1)
+        err = launch<128, 256>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
+    else
+        err = launch<256, 256>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
     if (err != cudaSuccess) return int(err);
-    const int n = bsz * cout;
+    const int n_tiles = (T + R - 1) / R, n = bsz * cout;
     reduce_partials_kernel<<<(n + 255) / 256, 256, 0, s>>>(
         static_cast<const float*>(partial), static_cast<float*>(sums), bsz, n_tiles, cout);
     return int(cudaGetLastError());

@@ -18,7 +18,10 @@ f32, the sums and the pool act on the f32 out, and y is out rounded to bf16.
 ``resblock_eval`` runs the CUDA kernel (csrc/resblock_eval.cu) for a CUDA
 tensor and the plain PyTorch version (``resblock_eval_plain``, the same math
 with the same rounding points) for a CPU tensor; anything else raises. The
-kernel is built with nvcc at its first call (ops/_build.py).
+kernel is built with nvcc at its first call (ops/_build.py). It takes the
+(Cin, Cout, skip) of the models' blocks: (128, 128, identity), (128, 256, 1x1)
+and (256, 256, identity), and its weights in the slice layout that
+``kernel_weight_layout`` makes.
 """
 from __future__ import annotations
 
@@ -32,6 +35,9 @@ import torch.nn.functional as F
 from adfmsl_torch.ops.sinc import max_pool3_nhc
 
 _ACTS = {"relu": 0, "leaky": 1}
+# (Cin, Cout, 1x1 skip) the kernel is instantiated for
+KERNEL_SHAPES = ((128, 128, False), (128, 256, True), (256, 256, False))
+SLICE_K = 64                        # k depth of one weight slice
 
 
 def fold_block_params(t: Mapping[str, torch.Tensor], *, first: bool,
@@ -62,6 +68,23 @@ def fold_block_params(t: Mapping[str, torch.Tensor], *, first: bool,
         skw = f("downsample.weight")[:, :, 0].T              # (Cin, Cout)
         bt = bt + f("downsample.bias")
     return pre, w1.contiguous(), b1, w2.contiguous(), bt, skw
+
+
+def kernel_weight_layout(w: torch.Tensor) -> torch.Tensor:
+    """A (taps, K, N) or (K, N) weight in bf16, laid out as the kernel's producer
+    streams it: (tap, 64-deep k-chunk) slices in that order, each slice N x 64
+    in the no-swizzle K-major layout of a wgmma B descriptor, 8 x 8 core
+    matrices of 128 contiguous bytes: element (n, k) of a slice at
+    ((n // 8) * 8 + k // 8) * 64 + (n % 8) * 8 + k % 8. Flat, contiguous."""
+    if w.dim() == 2:
+        w = w[None]
+    taps, k, n = w.shape
+    if k % SLICE_K or n % 8:
+        raise ValueError(f"kernel_weight_layout: K {k} must be a multiple of "
+                         f"{SLICE_K} and N {n} of 8")
+    t = w.reshape(taps, k // SLICE_K, 8, 8, n // 8, 8).permute(0, 1, 4, 2, 5, 3)
+    out = torch.empty(t.shape, dtype=torch.bfloat16, device=w.device)  # (d, kc, nb, kb, nlo, klo)
+    return out.copy_(t).reshape(-1)              # one copy: rounds to bf16 and lays out
 
 
 def _act(v: torch.Tensor, act: str) -> torch.Tensor:
@@ -111,7 +134,23 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.resblock_eval_launch.restype = i
     lib.resblock_eval_rows.argtypes = []
     lib.resblock_eval_rows.restype = i
+    lib.resblock_eval_config.argtypes = [i, i, i, i, p]
+    lib.resblock_eval_config.restype = i
     return lib
+
+
+def kernel_config(cin: int, cout: int, skip: bool, device: int = 0) -> dict:
+    """The kernel's figures for one instantiation on CUDA device ``device``:
+    rows a tile, shared memory a CTA, threads a CTA, CTAs an SM (the CUDA
+    occupancy calculator), weight bytes a tile and weight-ring stages."""
+    info = (ctypes.c_int * 6)()
+    rc = _kernel_lib().resblock_eval_config(cin, cout, int(skip), device, info)
+    if rc != 0:
+        raise RuntimeError(f"resblock_eval_config({cin}, {cout}, {skip}) failed "
+                           f"with CUDA error {rc}")
+    keys = ("rows", "smem_bytes", "threads", "ctas_per_sm", "weight_bytes_per_tile",
+            "stages")
+    return dict(zip(keys, info))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
@@ -132,13 +171,11 @@ def _launch(x, pre, w1, b1, w2, bt, skw, act, pool):
                          f"bf16 tensor, got {x.dtype} {tuple(x.shape)}")
     bsz, tin, cin = x.shape
     cout = w1.shape[-1]
-    if cin % 16 or cout % 16 or max(cin, cout) > 256:
-        raise ValueError(f"resblock_eval: channels {cin}->{cout} must be "
-                         "multiples of 16, at most 256")
+    if (cin, cout, skw is not None) not in KERNEL_SHAPES:
+        raise ValueError(f"resblock_eval: the kernel takes (Cin, Cout, 1x1 skip) in "
+                         f"{KERNEL_SHAPES}, got ({cin}, {cout}, {skw is not None})")
     if act not in _ACTS or pool not in (1, 3) or tin < pool or bsz > 65535:
         raise ValueError(f"resblock_eval: act={act!r} pool={pool} T={tin}")
-    if skw is None and cin != cout:
-        raise ValueError("resblock_eval: an identity skip needs Cin == Cout")
     dev = x.device
     _check("w1", w1, (3, cin, cout), dev)
     _check("w2", w2, (3, cout, cout), dev)
@@ -149,15 +186,13 @@ def _launch(x, pre, w1, b1, w2, bt, skw, act, pool):
         pre = pre.float().contiguous()
     if skw is not None:
         _check("skw", skw, (cin, cout), dev)
-        skw = skw.to(torch.bfloat16).contiguous()
-    w1 = w1.to(torch.bfloat16).contiguous()
-    w2 = w2.to(torch.bfloat16).contiguous()
+        skw = kernel_weight_layout(skw)
+    w1 = kernel_weight_layout(w1)
+    w2 = kernel_weight_layout(w2)
     b1 = b1.float().contiguous()
     bt = bt.float().contiguous()
-    # 16-byte row loads of x and 32-byte wmma fragment loads of the weights
-    for name, t, align in (("x", x, 16), ("w1", w1, 32), ("w2", w2, 32), ("skw", skw, 32)):
-        if t is not None and t.data_ptr() % align:
-            raise ValueError(f"resblock_eval: {name} is not {align}-byte aligned")
+    if x.data_ptr() % 16:                # the bulk copy moves 16-byte aligned rows
+        raise ValueError("resblock_eval: x is not 16-byte aligned")
 
     lib = _kernel_lib()
     n_tiles = -(-tin // lib.resblock_eval_rows())
@@ -180,7 +215,8 @@ def resblock_eval(x, pre, w1, b1, w2, bt, skw, act: str = "relu",
                   pool: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """One folded eval block body: (B, T, Cin) bf16 -> (y bf16 (B, T//pool,
     Cout), sums f32 (B, Cout)). Operands as ``fold_block_params`` returns them
-    (f32 weights are rounded to bf16 here, as the Pallas wrapper does).
+    (f32 weights are rounded to bf16 here, as the Pallas wrapper does, and laid
+    out for the kernel by ``kernel_weight_layout``, every call).
 
     A CUDA ``x`` launches the K1 kernel (and counts the launch in
     ``resblock_eval.launches``) or raises; a CPU ``x`` runs the plain version."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``adfmsl_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # every phase below
+    python3 chip_smoke.py --only kernels    # phases 1 and 2-3b only
 
 Phases, each printing its own lines:
 
@@ -15,7 +16,11 @@ Phases, each printing its own lines:
    abs error beside its tolerance (y: 2e-2 * max|y|, sums: 1e-3 * max|sums|),
    the kernel's and the plain version's times, the time of a cuDNN
    composition of the same function (information only: no single PyTorch
-   call computes it) and the bound;
+   call computes it) and the bound, and the kernel's figures for the
+   instantiation: tile rows, shared memory a CTA, registers a thread, spills
+   and whether ptxas serialised the wgmma products (from the ``-Xptxas -v``
+   report in the library's build.log), CTAs an SM (the occupancy calculator)
+   and L2 weight bytes per output row;
 3. kernel K3 (the fused sinc conv + |.| + MaxPool3 RawNet front end) against
    its plain version: the CPU tests' (2, 8000) and ragged cases, and batch 16
    and 128 at cut 64600, C 128, K 251. Error against 1e-3 * max|plain|; the
@@ -115,17 +120,22 @@ Phases, each printing its own lines:
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
-before it. Without a card, or without the repo beside this script, the run
-exits non-zero and prints no result.
+before it. ``--only kernels`` runs the build and phases 2-3b, ends with a
+``kernels_phase`` line (K1's times summed over maze5's and main's blocks, K3's
+and K4's main-path records) and prints no ``{"ok": ...}`` line: it is the quick
+loop for kernel work, not a smoke run. Without a card, or without the repo
+beside this script, the run exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import ast
 import contextlib
 import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -301,7 +311,42 @@ def cudnn_composition(ops, act):
     return run
 
 
-def k1_case(rf, name, b, t, cin, cout, pre, skip, act, pool, seed, dev):
+def k1_build_report():
+    """(Cin, Cout) -> registers a thread, spill store bytes and whether ptxas
+    serialised the wgmma products, for each K1 instantiation, read from the
+    ``-Xptxas -v`` report that ops/_build.py keeps beside the library."""
+    from adfmsl_torch.ops import _build
+
+    log = (_build.library_path("resblock_eval").parent / "build.log").read_text()
+    serialized = set(re.findall(r"C7512\).*?for the function '(\S+)'", log))
+    report = {}
+    for m in re.finditer(r"Compiling entry function '(\S*resblock_eval_kernelILi(\d+)ELi(\d+)E"
+                         r"\S*)'.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S):
+        name, cin, cout, spill, regs = m.groups()
+        report[(int(cin), int(cout))] = {"registers_per_thread": int(regs),
+                                         "spill_store_bytes": int(spill),
+                                         "wgmma_serialized": name in serialized}
+    return report
+
+
+def k1_figures(rf):
+    """(Cin, Cout) -> K1's figures for that instantiation: tile rows, shared
+    memory a CTA, threads, CTAs an SM, weight-ring stages, L2 weight bytes per
+    output row, and the build report's registers, spills and serialisation."""
+    report = k1_build_report()
+    figs = {}
+    for cin, cout, skip in rf.KERNEL_SHAPES:
+        c = rf.kernel_config(cin, cout, skip)
+        figs[(cin, cout)] = {
+            "tile_rows": c["rows"], "smem_bytes_per_cta": c["smem_bytes"],
+            "threads_per_cta": c["threads"], "ctas_per_sm": c["ctas_per_sm"],
+            "stages": c["stages"],
+            "l2_weight_bytes_per_row": c["weight_bytes_per_tile"] / c["rows"],
+            **report.get((cin, cout), {"registers_per_thread": None})}
+    return figs
+
+
+def k1_case(rf, figs, name, b, t, cin, cout, pre, skip, act, pool, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, t, cin), generator=g, device=dev).to(torch.bfloat16)
     ops = random_block(g, dev, cin, cout, pre, skip)
@@ -327,7 +372,8 @@ def k1_case(rf, name, b, t, cin, cout, pre, skip, act, pool, seed, dev):
            "kernel_ms": ms, "plain_ms": plain_ms,
            "cudnn_composition_ms": composition_ms,
            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           **figs[(cin, cout)]}
     print("K1 " + json.dumps(rec), flush=True)
     check(math.isfinite(err_y) and err_y <= tol_y, f"K1 {name}: y error {err_y} > {tol_y}")
     check(math.isfinite(err_s) and err_s <= tol_s,
@@ -461,7 +507,8 @@ def phase_kernels(rf, sf, lf, dev):
         old = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            k1 = [k1_case(rf, *c, seed=i, dev=dev) for i, c in enumerate(K1_CASES)]
+            figs = k1_figures(rf)
+            k1 = [k1_case(rf, figs, *c, seed=i, dev=dev) for i, c in enumerate(K1_CASES)]
             filters = sinc_filters_at_init(dev)
             k3 = [k3_case(sf, filters, *c, seed=i, dev=dev)
                   for i, c in enumerate(K3_CASES)]
@@ -1222,6 +1269,34 @@ def _summed(recs):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+K1_FIGURE_KEYS = ("tile_rows", "smem_bytes_per_cta", "threads_per_cta", "ctas_per_sm",
+                  "stages", "l2_weight_bytes_per_row", "registers_per_thread",
+                  "spill_store_bytes", "wgmma_serialized")
+
+
+def _k1_instantiations(k1):
+    """K1's figures for each (Cin, Cout) its cases ran."""
+    out = {}
+    for r in k1:
+        out.setdefault(f"{r['cin']}->{r['cout']}", {k: r.get(k) for k in K1_FIGURE_KEYS})
+    return out
+
+
+def kernels_phase_line(k1, k3, k4):
+    """The ``kernels_phase`` record of ``--only kernels``: K1 summed over
+    maze5's and main's blocks with its figures, K3 and K4 at their main-path
+    shapes."""
+    return {"kernels_phase": {
+        "K1": {"maze5_blocks": _summed([r for r in k1 if r["case"].startswith("maze5_block")]),
+               "main_blocks": _summed([r for r in k1 if r["case"].startswith("main_block")]),
+               "max_err_over_tol": max(max(r["max_abs_err_y"] / r["tol_y"],
+                                           r["max_abs_err_sums"] / r["tol_sums"])
+                                       for r in k1),
+               "instantiations": _k1_instantiations(k1)},
+        "K3": _summed([next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)]),
+        "K4": _summed([next(r for r in k4 if r["B"] == BENCH_BATCH)])}}
+
+
 def kernels_line(k1, k2, k2_entry, k3, k3_train, k4, k4_front, main_path, train,
                  fused_train):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
@@ -1270,6 +1345,8 @@ def kernels_line(k1, k2, k2_entry, k3, k3_train, k4, k4_front, main_path, train,
         "library_note": "no single PyTorch call computes the folded block",
         "shapes": f"the five maze5 trunk blocks at batch {BENCH_BATCH}, cut {CUT}",
         "main_blocks": _summed([r for r in k1 if r["case"].startswith("main_block")]),
+        "redesigned_shapes": sorted(_k1_instantiations(k1)),
+        "instantiations": _k1_instantiations(k1),
     }, {
         "id": "K2", "name": "bn_relu_bwd", "route": "cuda",
         "source": "adfmsl_torch/csrc/bn_relu_bwd.cu",
@@ -1348,6 +1425,11 @@ def kernels_line(k1, k2, k2_entry, k3, k3_train, k4, k4_front, main_path, train,
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=["kernels"], default=None,
+                    help="run only the build and the kernels phase (no main path, "
+                         "no {\"ok\": ...} line)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -1386,6 +1468,12 @@ def main() -> int:
     print("device " + json.dumps(device), flush=True)
 
     k1, k3, k4 = phase("kernels", phase_kernels, rf, sf, lf, dev)
+    if args.only == "kernels":
+        print("phase_seconds " + json.dumps({**phase_s,
+                                             "total": time.perf_counter() - t_start}))
+        print(smi, flush=True)
+        print(json.dumps(kernels_phase_line(k1, k3, k4)), flush=True)
+        return 0
     k3_train = phase("k3_train", phase_k3_train, sf, dev)
     k2_recs, k2_entry = phase("k2", phase_k2, k2, dev)
     with tempfile.TemporaryDirectory() as tmp:

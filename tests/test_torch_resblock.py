@@ -4,8 +4,11 @@ The port's plain version (adfmsl_torch.ops.resblock_fused.resblock_eval_plain)
 is held against adfmsl's Pallas kernel in interpret mode and its f32 XLA
 reference, on test_pallas.py's cases plus RawNet's LeakyReLU / MaxPool3 shapes
 (128->128, 128->256 with the 1x1 skip, 256->256), at test_pallas.py's
-tolerance (rtol 2e-2, atol 2e-2 * max). The CUDA kernel is
-held against the plain version on the card (marker ``cuda``).
+tolerance (rtol 2e-2, atol 2e-2 * max). The kernel's weight layout
+(``kernel_weight_layout``) is read back on the CPU by the address arithmetic
+the kernel's source note gives. The CUDA kernel is held against the plain
+version on the card (marker ``cuda``), on these cases and on cases that land on
+its 126-row tile's seams, for each of its three (Cin, Cout) instantiations.
 
 JAX is imported inside the tests that compare with adfmsl, so that the card
 tests also run on a machine without JAX:
@@ -27,6 +30,27 @@ CASES = [  # (B, T, Cin, Cout), first, skip, act, pool
 ]
 IDS = ["head", "ragged", "skip1x1", "leaky_pool3", "rawnet_skip1x1_pool3",
        "rawnet_256_pool3"]
+# The kernel's tile holds R = 126 output rows (42 MaxPool3 windows).
+SEAM_CASES = [
+    ((1, 125, 128, 128), False, False, "relu", 1),    # one row short of a tile
+    ((1, 126, 128, 128), False, False, "relu", 1),    # exactly one tile
+    ((1, 127, 128, 128), True, False, "relu", 1),     # one row into the second
+    ((2, 252, 128, 128), False, False, "relu", 1),    # exactly two tiles
+    ((1, 253, 128, 128), False, False, "relu", 1),    # one row into the third
+    ((2, 379, 128, 128), False, False, "relu", 1),    # one row into the fourth
+    ((1, 253, 128, 128), False, False, "leaky", 3),   # last window ends 1 row before T
+    ((1, 254, 128, 128), False, False, "leaky", 3),   # last window ends 2 rows before T
+    ((2, 3, 128, 128), False, False, "leaky", 3),     # one pool window
+    ((2, 1, 128, 128), False, False, "relu", 1),      # one row
+    ((3, 1000, 128, 128), False, False, "relu", 1),   # batch 3, eight tiles
+    ((2, 379, 128, 256), False, True, "relu", 1),     # 1x1 skip instantiation
+    ((1, 254, 128, 256), False, True, "leaky", 3),
+    ((2, 379, 256, 256), False, False, "leaky", 3),   # 256 -> 256 instantiation
+    ((1, 127, 256, 256), False, False, "relu", 1),
+]
+SEAM_IDS = ["t125", "t126", "t127_head", "t252", "t253", "t379", "pool3_t253",
+            "pool3_t254", "pool3_t3", "t1", "b3_t1000", "skip_t379", "skip_pool3_t254",
+            "c256_pool3_t379", "c256_t127"]
 
 
 def _rand_block(rng, cin, cout, first, skip):
@@ -136,8 +160,44 @@ def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
         rf.resblock_eval(x.to("meta"), *args)
 
 
+def _read_kernel_layout(flat, taps, k, n):
+    """Weight (taps, K, N) read back from the kernel's slice layout by the
+    address arithmetic of csrc/resblock_eval.cu's note: slice (tap, k // 64),
+    then element (n, k % 64) at ((n//8)*8 + (k%64)//8)*64 + (n%8)*8 + k%8."""
+    d, kk, nn = np.meshgrid(np.arange(taps), np.arange(k), np.arange(n), indexing="ij")
+    kl = kk % 64
+    off = ((d * (k // 64) + kk // 64) * n * 64
+           + ((nn // 8) * 8 + kl // 8) * 64 + (nn % 8) * 8 + kl % 8)
+    return flat[torch.from_numpy(off.reshape(-1))].reshape(taps, k, n)
+
+
+@pytest.mark.parametrize("cin,cout,skip", rf.KERNEL_SHAPES,
+                         ids=["c128_128", "c128_256_skip", "c256_256"])
+def test_kernel_weight_layout_reads_back_bit_for_bit(cin, cout, skip):
+    rng = np.random.default_rng(13)
+    _, w1, _, w2, _, skw = _rand_block(rng, cin, cout, False, skip)
+    for w in (w1, w2) + ((skw,) if skip else ()):
+        w = torch.from_numpy(w)
+        flat = rf.kernel_weight_layout(w)
+        assert flat.dtype == torch.bfloat16 and flat.dim() == 1 and flat.is_contiguous()
+        assert flat.numel() == w.numel()
+        ref = w.to(torch.bfloat16).reshape((-1,) + tuple(w.shape[-2:]))
+        got = _read_kernel_layout(flat, *ref.shape)
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+def test_launch_refuses_shapes_the_kernel_lacks():
+    rng = np.random.default_rng(17)
+    for cin, cout, skip in ((64, 64, False), (128, 128, True), (256, 128, True)):
+        x = torch.zeros((1, 10, cin), dtype=torch.bfloat16)
+        args = [_torch(a) for a in _rand_block(rng, cin, cout, False, skip)]
+        with pytest.raises(ValueError, match="the kernel takes"):
+            rf._launch(x, *args, act="relu", pool=1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,first,skip,act,pool", CASES, ids=IDS)
+@pytest.mark.parametrize("shape,first,skip,act,pool", CASES + SEAM_CASES,
+                         ids=IDS + SEAM_IDS)
 def test_kernel_matches_plain_on_card(shape, first, skip, act, pool, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the K1 kernel has no CPU form")
@@ -160,3 +220,4 @@ def test_kernel_matches_plain_on_card(shape, first, skip, act, pool, monkeypatch
                                atol=2e-2 * float(np.abs(yp).max()))
     np.testing.assert_allclose(s.cpu().numpy(), sp, rtol=0,
                                atol=1e-3 * float(np.abs(sp).max()))
+
