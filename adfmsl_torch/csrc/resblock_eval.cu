@@ -84,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -138,42 +140,6 @@ struct Cfg {
     static_assert(RING % 16 == 0 && XD % 16 == 0, "bulk copies land 16-byte aligned");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
-}
-
-// Returns once the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done = 0;
-    while (!done) {
-        asm volatile("{\n.reg .pred p;\n"
-                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     "selp.u32 %0, 1, 0, p;\n}"
-                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    }
-}
-
-// Global -> shared bulk copy of `bytes` (a multiple of 16), completing on `bar`.
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
-                                         uint32_t bar) {
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                 "[%0], [%1], %2, [%3];"
-                 :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
 // bf16 pairs in a 32-bit word: the low half is the lower channel.
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     uint32_t r;
@@ -186,23 +152,6 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// B descriptor of a weight slice at shared address `addr`: no swizzle, K-major,
-// LBO 128 B (next 8 k), SBO 1024 B (next 8 n).
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-    return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) |
-           (uint64_t(1024 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
 // D (64 x 128, f32, registers) += A (64 x 16 bf16, registers: this warp's
@@ -303,7 +252,7 @@ __device__ __forceinline__ void slice_products(float (&acc)[COUT / 2], uint32_t 
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) ldmatrix_x4(a[ks], a_addr + ks * 32);
     wgmma_fence();
-    const uint64_t desc = b_desc(slice_addr);
+    const uint64_t desc = b_desc(slice_addr, 1024);   // SBO: 8 n of a 64-deep slice
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {        // 16 k = two core matrices = 256 B
         if constexpr (COUT == 128) wgmma_rs_n128(acc, a[ks], desc + 16 * ks);

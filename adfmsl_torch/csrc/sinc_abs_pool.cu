@@ -10,178 +10,206 @@
 //
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): at batch 128, cut 64600,
 // C 128 and K 251 the correlation is 2*B*T'*C*K = 529 GFLOP (0.54 ms) against 33 MB
-// of x in and 1.41 GB of f32 out (0.43 ms): bound by tensor-core operations, with
+// of x in and 1.41 GB of f32 out (0.42 ms): bound by tensor-core operations, with
 // the bytes close behind. chip_smoke.py recomputes the bound from each case's shapes.
+// The first form of this kernel (an R = 48-row im2col tile in shared memory, wmma
+// 16x16x16, the max through an f32 stage, no overlap) took 0.868 ms at batch 16 and
+// 6.52 ms at batch 128 on an H100 80GB HBM3 at 700 W, 7.7-8.2 % of the bound; this one
+// takes 0.203 and 1.183 ms (chip_smoke.py, the same card).
 //
-// What this design does about it: the correlation runs on the tensor cores as an
-// implicit GEMM, (conv positions x K) by (K x C), and the conv output (3x the pooled
-// one) never reaches device memory: only the pooled f32 rows are written. The TPU
-// kernel's block-Toeplitz layout (128-sample rows, nj shifted 128x128 matrices, 1.5x
-// redundant products) exists for the TPU's 128x128 MXU and is not carried over.
-// Work items are (batch row, tile of R = 48 conv positions): whole pool groups and
-// whole 16-row fragments. A persistent grid of as many CTAs as fit on the card walks
-// them in order; each CTA stages the bf16 filters once, transposed to (K, C) and
-// zero-padded to KP = 16*ceil(K/16) taps. Per tile it stages the x window
-// [t0, t0+R+KP-1) in bf16, builds the im2col tile A[r][k] = x[t0+r+k] (R x KP) in
-// shared memory, and runs bf16 16x16x16 wmma fragments with f32 accumulators, each
-// warp owning 16-column tiles of C. The accumulators then go through a per-warp f32
-// stage (in the im2col region, which is free by then), where the max of |.| over each
-// row triple is taken and written. There is no TMA, wgmma or pipelining yet: this is
-// the simple, correct first form, not a fast one.
+// The design (the tile engine of csrc/sinc_abs_pool_bwd.cu, in bf16):
+// 1. Pool-major rows. A CTA tile is 128 pooled rows (384 conv rows) of one batch row;
+//    warpgroup w owns pooled rows 64w .. 64w+63 and walks the 64-channel tiles. Its
+//    three wgmma m64n64k16 accumulators j = 0, 1, 2 hold conv rows 3i + j, so the max
+//    over a pool triple is taken in registers across the three and only pooled rows
+//    exist: no f32 stage.
+// 2. A from registers, no im2col: A_j[i][k] = bf16(x[t0 + 3i + j + k]). The tile's x
+//    window is kept in shared memory twice in bf16, E[m] = x[t0 + m] and O[m] =
+//    x[t0 + m + 1], so every (x[s], x[s+1]) pair of the m16n8k16 fragment is one aligned
+//    32-bit load (from E for even s, from O for odd s). O starts 64 bytes off E's bank
+//    alignment, so the two halves of a warp (either parity) hit disjoint banks.
+// 3. B, the filters, comes from shared memory through a descriptor:
+//    ops/sinc_fused.py:kernel_filter_layout lays them out once per call in bf16, in the
+//    no-swizzle K-major core-matrix layout (8 channels x 8 taps, 128 B), and each
+//    persistent CTA bulk-copies all channel tiles once (cp.async.bulk, mbarrier; 64 KB
+//    at C 128, K 251).
+// 4. The next tile's x window is loaded into registers (3 samples a thread) under the
+//    current tile's products, then rounded and stored.
+// 5. The output is written straight from the accumulator layout: each thread stores
+//    two adjacent channels (8 bytes), a quad 32 contiguous bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int R = 48;                        // conv positions per tile: 16 pooled rows
-constexpr int MT = R / 16;                   // 16-row fragments per tile
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
+constexpr int NC = 64;          // channels of a tile: the wgmma N
+constexpr int PR = 128;         // pooled rows of a CTA tile: 64 a warpgroup
+constexpr int CR = 3 * PR;      // conv rows of a CTA tile
+constexpr int THREADS = 256;    // two warpgroups
 constexpr int MAX_C = 256;
 constexpr int MAX_K = 256;
-constexpr int MAX_NT = MAX_C / 16 / WARPS;   // 16-column tiles per warp, at most
+constexpr int XPT = 3;          // x window samples a thread stages: (CR + 256) / THREADS
+constexpr int WIN = CR + MAX_K + 8;     // bf16 elements of one window copy
+constexpr int SMEM_LIMIT = 232448;
 
 __host__ __device__ inline int kpad(int k) { return (k + 15) / 16 * 16; }
+__host__ __device__ inline int align128(int v) { return (v + 127) & ~127; }
 
-__host__ __device__ inline size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
-
-struct Layout {
-    size_t ws, as, xs, total;
+struct Smem {
+    int e, o, w, total;         // byte offsets: window E, window O, filters; barrier at 0
 };
 
-// Row pitches are multiples of 16 elements, so every row starts 32-byte aligned as
-// wmma loads require, with 16 elements of skew across banks. The im2col region also
-// holds the per-warp f32 stage (R x 16 each) once the products are done.
-__host__ __device__ inline Layout layout(int c, int k) {
-    const int kp = kpad(k);
-    size_t a_bytes = size_t(R) * (kp + 16) * sizeof(bf16);
-    const size_t stage_bytes = size_t(WARPS) * R * 16 * sizeof(float);
-    if (stage_bytes > a_bytes) a_bytes = stage_bytes;
-    Layout L;
-    size_t off = 0;
-    L.ws = off;
-    off = align128(off + size_t(kp) * (c + 16) * sizeof(bf16));
-    L.as = off;
-    off = align128(off + a_bytes);
-    L.xs = off;
-    off = align128(off + size_t(R + kp) * sizeof(bf16));
-    L.total = off;
-    return L;
+__host__ __device__ inline Smem smem_layout(int c, int k) {
+    Smem s;
+    s.e = 128;
+    s.o = align128(s.e + WIN * 2) + 64;
+    s.w = align128(s.o + WIN * 2);
+    s.total = align128(s.w + ((c + NC - 1) / NC) * NC * kpad(k) * 2);
+    return s;
 }
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+// D (64 x 64, f32, registers) += A (64 x 16 bf16, registers: this warp's m16n8k16 A
+// fragment) * B (16 x 64 bf16, shared memory, descriptor).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
 
-__global__ void __launch_bounds__(THREADS)
-sinc_abs_pool_kernel(const float* __restrict__ x, const float* __restrict__ filt,
-                     float* __restrict__ out, int T, int C, int K, int t3,
-                     int n_tiles, long long n_items) {
+// Persistent grid of CTAs of THREADS threads walking the items (batch row, tile of
+// 128 pooled rows) in order; wl holds every channel tile's bf16 filters.
+__global__ void __launch_bounds__(THREADS, 1)
+sinc_abs_pool_kernel(const float* __restrict__ x, const uint16_t* __restrict__ wl,
+                     float* __restrict__ out, int T, int C, int K, int t3, int n_tiles,
+                     int items) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const int kp = kpad(K);
-    const Layout L = layout(C, K);
-    bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
-    bf16* as = reinterpret_cast<bf16*>(smem + L.as);
-    bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* stage = reinterpret_cast<float*>(smem + L.as) + warp * (R * 16);
-    const int ldw = C + 16, lda = kp + 16;
-    const int n_col_tiles = C / 16;
+    const int kp = kpad(K), n_ct = (C + NC - 1) / NC, xwin = CR + kp;
+    const Smem L = smem_layout(C, K);
+    const uint32_t sbase = smem_u32(smem), bar = sbase, wsm = sbase + L.w;
+    __nv_bfloat16* we = reinterpret_cast<__nv_bfloat16*>(smem + L.e);
+    __nv_bfloat16* wo = reinterpret_cast<__nv_bfloat16*>(smem + L.o);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wg = warp >> 2, wi = warp & 3, gq = lane >> 2, tq = lane & 3;
+    const int ct_bytes = NC * kp * 2;
 
-    // ---- filters -> ws[k][c] = bf16(f[c, k]), zero for the padded taps k >= K.
-    for (int idx = threadIdx.x; idx < kp * C; idx += THREADS) {
-        const int k = idx / C, c = idx - k * C;
-        ws[k * ldw + c] = __float2bfloat16(k < K ? filt[size_t(c) * K + k] : 0.f);
+    if (tid == 0) {
+        mbar_init(bar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {                             // every channel tile's filters, once
+        mbar_expect_tx(bar, n_ct * ct_bytes);
+        for (int ct = 0; ct < n_ct; ++ct)
+            bulk_g2s(wsm + ct * ct_bytes, wl + size_t(ct) * NC * kp, ct_bytes, bar);
     }
 
-    for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
-        const int b = int(item / n_tiles), tile = int(item - (long long)b * n_tiles);
-        const int t0 = tile * R;
+    float xv[XPT];
+    auto fetch = [&](int item) {                // the item's x window, zero past T
+        const int b = item / n_tiles, t0 = (item - b * n_tiles) * CR;
         const float* xb = x + size_t(b) * T;
-        __syncthreads();   // the filters are staged; the last tile's stage is consumed
+#pragma unroll
+        for (int q = 0; q < XPT; ++q) {
+            const int i = tid + q * THREADS;
+            xv[q] = i < xwin && t0 + i < T ? xb[t0 + i] : 0.f;
+        }
+    };
+    if (blockIdx.x < items) fetch(blockIdx.x);
+    mbar_wait(bar, 0);
 
-        // ---- x window [t0, t0+R+KP-1) in bf16, zero past T (those taps meet zero
-        // ---- weights, or feed conv rows past T' that the pool drops).
-        for (int i = threadIdx.x; i < R + kp - 1; i += THREADS) {
-            const int g = t0 + i;
-            xs[i] = __float2bfloat16(g < T ? xb[g] : 0.f);
+    // This thread's rows of the A fragment: pooled rows i and i + 8 of the tile
+    // (the latter 24 samples on); the pair (x[s], x[s+1]) for s = 3i + j + 2t + kc
+    // comes from E (s even) or O (s odd) as one 32-bit word.
+    const int arow = wg * 64 + wi * 16 + gq;
+    const uint32_t* pw[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+        const int s0 = 3 * arow + j + 2 * tq, par = s0 & 1;
+        pw[j] = reinterpret_cast<const uint32_t*>((par ? wo : we) + (s0 - par));
+    }
+
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int b = item / n_tiles, tile = item - b * n_tiles;
+        __syncthreads();                        // the last tile's readers of the window are done
+#pragma unroll
+        for (int q = 0; q < XPT; ++q) {
+            const int i = tid + q * THREADS;
+            if (i < xwin) {
+                const __nv_bfloat16 v = __float2bfloat16(xv[q]);
+                we[i] = v;
+                if (i > 0) wo[i - 1] = v;
+            }
         }
         __syncthreads();
+        if (item + int(gridDim.x) < items) fetch(item + gridDim.x);
 
-        // ---- im2col: A[r][k] = xs[r + k], eight taps (16 bytes) per store.
-        const int chunks = kp / 8;
-        for (int idx = threadIdx.x; idx < R * chunks; idx += THREADS) {
-            const int r = idx / chunks, k0 = (idx - r * chunks) * 8;
-            uint32_t w[4];
+        for (int ct = 0; ct < n_ct; ++ct) {
+            float acc[3][32];
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const uint32_t lo = __bfloat16_as_ushort(xs[r + k0 + 2 * q]);
-                const uint32_t hi = __bfloat16_as_ushort(xs[r + k0 + 2 * q + 1]);
-                w[q] = lo | (hi << 16);
+            for (int j = 0; j < 3; ++j)
+#pragma unroll
+                for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+            const uint32_t wct = wsm + ct * ct_bytes;
+            for (int kc = 0; kc < kp; kc += 16) {     // no wgmma in a branch (ptxas C7520)
+                uint32_t a[3][4];
+#pragma unroll
+                for (int j = 0; j < 3; ++j) {
+                    const uint32_t* w = pw[j] + kc / 2;
+                    a[j][0] = w[0];
+                    a[j][1] = w[12];            // row + 8: 24 samples on
+                    a[j][2] = w[4];             // k + 8
+                    a[j][3] = w[16];
+                }
+                wgmma_fence();
+                const uint64_t db = b_desc(wct + kc * 16, kp * 16);
+#pragma unroll
+                for (int j = 0; j < 3; ++j) wgmma_bf16(acc[j], a[j], db);
+                wgmma_commit();
+                wgmma_wait_all();
             }
-            *reinterpret_cast<uint4*>(as + r * lda + k0) = make_uint4(w[0], w[1], w[2], w[3]);
-        }
-        __syncthreads();
-
-        // ---- conv rows [t0, t0+R) x this warp's column tiles, f32 accumulation.
-        FragC acc[MAX_NT][MT];
+            // ---- max over the triple of |z|, straight from the accumulators
 #pragma unroll
-        for (int j = 0; j < MAX_NT; ++j)
+            for (int hf = 0; hf < 2; ++hf) {
+                const int p = tile * PR + arow + 8 * hf;
+                if (p >= t3) continue;
+                float* op = out + (size_t(b) * t3 + p) * C + ct * NC + 2 * tq;
 #pragma unroll
-            for (int m = 0; m < MT; ++m) wmma::fill_fragment(acc[j][m], 0.f);
-        for (int kc = 0; kc < kp; kc += 16) {
-            FragA af[MT];
+                for (int jj = 0; jj < 8; ++jj) {
+                    if (ct * NC + 8 * jj >= C) continue;
+                    float v[2];
 #pragma unroll
-            for (int m = 0; m < MT; ++m)
-                wmma::load_matrix_sync(af[m], as + (m * 16) * lda + kc, lda);
-#pragma unroll
-            for (int j = 0; j < MAX_NT; ++j) {
-                const int nt = warp + j * WARPS;
-                if (nt < n_col_tiles) {
-                    FragB wf;
-                    wmma::load_matrix_sync(wf, ws + kc * ldw + nt * 16, ldw);
-#pragma unroll
-                    for (int m = 0; m < MT; ++m) wmma::mma_sync(acc[j][m], af[m], wf, acc[j][m]);
+                    for (int e = 0; e < 2; ++e) {
+                        const int idx = 4 * jj + 2 * hf + e;
+                        v[e] = fmaxf(fmaxf(fabsf(acc[0][idx]), fabsf(acc[1][idx])),
+                                     fabsf(acc[2][idx]));
+                    }
+                    *reinterpret_cast<float2*>(op + 8 * jj) = make_float2(v[0], v[1]);
                 }
             }
-        }
-        __syncthreads();   // every warp is done with the im2col tile: it becomes the stage
-
-        // ---- |.|, max over row triples, write the pooled rows below T3.
-#pragma unroll
-        for (int j = 0; j < MAX_NT; ++j) {
-            const int nt = warp + j * WARPS;
-            if (nt >= n_col_tiles) continue;
-#pragma unroll
-            for (int m = 0; m < MT; ++m)
-                wmma::store_matrix_sync(stage + m * 256, acc[j][m], 16, wmma::mem_row_major);
-            __syncwarp();
-            for (int e = lane; e < (R / 3) * 16; e += 32) {
-                const int p = e >> 4, c = e & 15;
-                const int gp = t0 / 3 + p;
-                if (gp < t3) {
-                    const float v = fmaxf(fmaxf(fabsf(stage[(3 * p) * 16 + c]),
-                                                fabsf(stage[(3 * p + 1) * 16 + c])),
-                                          fabsf(stage[(3 * p + 2) * 16 + c]));
-                    out[(size_t(b) * t3 + gp) * C + nt * 16 + c] = v;
-                }
-            }
-            __syncwarp();
         }
     }
 }
 
 }  // namespace
 
-// Launches K3 on `stream`; returns cudaGetLastError(). x (B, T) f32; filters (C, K)
-// f32; out (B, (T-K+1)//3, C) f32. C a multiple of 16, at most 256; K at most 256;
-// T-K+1 >= 3. device = the CUDA device index.
-extern "C" int sinc_abs_pool_launch(const void* x, const void* filters, void* out,
+// Launches K3 on `stream`; returns cudaGetLastError(). x (B, T) f32; wl the filters in
+// ops/sinc_fused.py:kernel_filter_layout's bf16 layout; out (B, (T-K+1)//3, C) f32.
+// C a multiple of 16, at most 256; K at most 256; T-K+1 >= 3. device = the CUDA device
+// index.
+extern "C" int sinc_abs_pool_launch(const void* x, const void* wl, void* out,
                                     int bsz, int T, int C, int K, int device,
                                     void* stream) {
     if (bsz <= 0 || K <= 0 || K > MAX_K || C <= 0 || C % 16 || C > MAX_C ||
@@ -190,9 +218,10 @@ extern "C" int sinc_abs_pool_launch(const void* x, const void* filters, void* ou
     // this library links its own CUDA runtime: select the caller's device
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return int(err);
-    const Layout L = layout(C, K);
+    const Smem L = smem_layout(C, K);
+    if (L.total > SMEM_LIMIT) return int(cudaErrorInvalidValue);
     err = cudaFuncSetAttribute(sinc_abs_pool_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.total));
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (err != cudaSuccess) return int(err);
     int n_sm = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
@@ -202,12 +231,13 @@ extern "C" int sinc_abs_pool_launch(const void* x, const void* filters, void* ou
     if (err != cudaSuccess) return int(err);
     if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
     const int t3 = (T - K + 1) / 3;
-    const int n_tiles = (t3 + R / 3 - 1) / (R / 3);
-    const long long n_items = (long long)bsz * n_tiles;
+    const int n_tiles = (t3 + PR - 1) / PR;
+    const long long items = (long long)bsz * n_tiles;
+    if (items > 0x7fffffffLL) return int(cudaErrorInvalidValue);
     const long long slots = (long long)n_sm * per_sm;
-    const int grid = int(n_items < slots ? n_items : slots);
+    const int grid = int(items < slots ? items : slots);
     sinc_abs_pool_kernel<<<grid, THREADS, L.total, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(filters),
-        static_cast<float*>(out), T, C, K, t3, n_tiles, n_items);
+        static_cast<const float*>(x), static_cast<const uint16_t*>(wl),
+        static_cast<float*>(out), T, C, K, t3, n_tiles, int(items));
     return int(cudaGetLastError());
 }

@@ -3,8 +3,8 @@
 Each library is compiled from ``adfmsl_torch/csrc`` into a plain-C shared
 object for ``sm_90a`` (no PyTorch headers, so a build takes seconds) under
 ``adfmsl_torch/_build/``, which git ignores. The directory name carries a hash
-of the sources and flags, so an edited source builds anew and an unchanged
-one is reused. Nothing here runs at import time.
+of the sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source builds anew and an unchanged one is reused. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIBRARIES = {"resblock_eval": ("resblock_eval.cu",),
              "bn_relu_bwd": ("bn_relu_bwd.cu",),
              "sinc_abs_pool": ("sinc_abs_pool.cu",),
+             "sinc_abs_pool_bwd": ("sinc_abs_pool_bwd.cu",),
              "lfcc_fused": ("lfcc_fused.cu",)}
 
 
@@ -45,7 +46,7 @@ def library_path(name: str) -> Path:
     (-Xptxas -v) is kept beside it as build.log."""
     sources = LIBRARIES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in (*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))):  # headers too
         h.update(s.encode())
         h.update((CSRC / s).read_bytes())
     out_dir = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}"

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``adfmsl_torch``) on one CUDA card.
 
     python3 chip_smoke.py                   # every phase below
-    python3 chip_smoke.py --only kernels    # phases 1 and 2-3b only
+    python3 chip_smoke.py --only kernels    # phases 1 and 2-3d only
 
 Phases, each printing its own lines:
 
@@ -34,14 +34,25 @@ Phases, each printing its own lines:
    bound, the largest of the tensor-core, f32 and bytes times (the filterbank
    counted by its nonzero weights). Phases 2 to 3b run with TF32 off in cuDNN and cuBLAS, so the plain
    versions are exact f32;
-3c. K3's trainable wrapper (``ops/sinc_fused.py:sinc_abs_pool``, K3 forward,
-   the f32 composition's VJP recomputed in the backward) at (2, 8000), (3,
-   8001) and the training batch 12 at cut 64600: its forward against K3's
-   plain version (1e-3 * max), its backward (d x, d filters; one seeded
-   cotangent) against autograd through the composition at the unrounded
-   operands (1e-4 * max), TF32 off; then, with cuDNN's defaults as the bf16
-   models run it, its forward and backward times, the plain forward's, the
-   composition's forward + backward (information only) and both bounds;
+3d. K3's backward kernel (``ops/sinc_fused.py:sinc_abs_pool_bwd``, d filters)
+   against its plain version at 'tf32' (cuDNN TF32) and '3xtf32' (exact f32):
+   the CPU tests' cases, the training batch 12 at cut 64600, C 256 / K 129,
+   C 16 / K 7 and an exact-tie case; the cotangent is zeroed at the near-tie
+   triples (``sinc_fused.near_tie_mask``) on both sides, and d filters must
+   agree within 2e-3 * max ('tf32') or 1e-4 * max ('3xtf32'); at batch 12
+   both sides' error and bias against the same steps in f64; the kernel's,
+   the plain version's and autograd's (through the composition, information
+   only) times beside the bound; then K3's and the backward's registers,
+   spills and wgmma serialisation from build.log;
+3c. K3's trainable wrapper (``ops/sinc_fused.py:sinc_abs_pool``: K3 forward,
+   the backward kernel for d filters, the f32 composition's VJP for d x) at
+   (2, 8000), (3, 8001) and the training batch 12 at cut 64600, TF32 off: its
+   forward against K3's plain version (1e-3 * max), d filters (one backward
+   kernel launch) against the plain backward with the near-tie triples
+   zeroed, d x against autograd through the composition (1e-4 * max); then,
+   with cuDNN's defaults as the bf16 models run it, its forward and backward
+   times, the plain versions', the composition's forward + backward
+   (information only) and both bounds;
 4. the main path, for maze5, maze5_fmsl, main, main_fmsl, lcnn_lfcc,
    lcnn1d_lfcc and resnet18_logmel: a synthetic
    ASVspoof fixture with 40 eval utterances goes through
@@ -91,8 +102,9 @@ Phases, each printing its own lines:
    log-mel models);
 7b. RawNet's fused training front end, for main and main_fmsl: a ``Trainer``
    built in-process with ``exp.model.extra['fused_train_frontend']`` trains
-   one epoch of the fixture at batch 12, cut 64600, with K3 launched exactly
-   once a train step (the count set to 0 just before); then, from the same
+   one epoch of the fixture at batch 12, cut 64600, with K3 and its backward
+   kernel each launched exactly once a train step (the counts set to 0 just
+   before); then, from the same
    weights and batch with the randomness off, one step against the
    composition front end: loss within 5e-2 relative, global gradient cosine
    >= 0.85 (adfmsl's bounds, tests/test_models.py:327-337);
@@ -114,15 +126,15 @@ Phases, each printing its own lines:
    the most host time;
 10. a ``kernels`` line: every ported kernel with its launches on the main
    paths (K2's on its entry point, K4's as lcnn1d_lfcc's front end, K3's and
-   its trainable wrapper's in the fused train steps too), its max error, its
+   its backward kernel's in the fused train steps too), its max error, its
    time at the main path's shapes beside its plain version's time, its bound
    and the library call's time (none exists).
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
-before it. ``--only kernels`` runs the build and phases 2-3b, ends with a
-``kernels_phase`` line (K1's times summed over maze5's and main's blocks, K3's
-and K4's main-path records) and prints no ``{"ok": ...}`` line: it is the quick
+before it. ``--only kernels`` runs the build and phases 2-3d, ends with a
+``kernels_phase`` line (K1's times summed over maze5's and main's blocks, K3's,
+its backward's and K4's main-path records) and prints no ``{"ok": ...}`` line: it is the quick
 loop for kernel work, not a smoke run. Without a card, or without the repo
 beside this script, the run exits non-zero and prints no result.
 """
@@ -189,9 +201,19 @@ K2_OPS_PER_ELEMENT = 20           # f32 operations of both passes, per element
 K2_MEASURE_ITERS = 10
 TRAIN_UTTS, DEV_UTTS, TRAIN_BATCH = 48, 24, 12
 THROUGHPUT_BATCHES, WARM_STEPS, TIMED_STEPS = (12, 32), 2, 5
-# K3's trainable wrapper (forward K3, backward the f32 composition's VJP)
+# K3's trainable wrapper (forward K3, d filters the backward kernel, d x the f32
+# composition's VJP)
 K3_TRAIN_CASES = [("jax_case", 2, 8000), ("ragged", 3, 8001),
                   (f"b{TRAIN_BATCH}_cut{CUT}", TRAIN_BATCH, CUT)]
+# the backward kernel (ops/sinc_fused.py:sinc_abs_pool_bwd): name, B, T, C, K; each
+# at both precisions, d filters within K3_BWD_TOL * max of the plain version's once
+# the near-tie triples (sinc_fused.near_tie_mask) are zeroed on both sides
+K3_BWD_CASES = [("jax_case", 2, 8000, SINC_C, SINC_K), ("ragged", 3, 8001, SINC_C, SINC_K),
+                (f"b{TRAIN_BATCH}_cut{CUT}", TRAIN_BATCH, CUT, SINC_C, SINC_K),
+                ("c256_k129", 3, 5000, 256, 129), ("c16_k7", 3, 5000, 16, 7),
+                ("ties", 2, 8000, SINC_C, SINC_K)]
+K3_BWD_TOL = {"tf32": 2e-3, "3xtf32": 1e-4}
+K3_BWD_PASSES = {"tf32": 1, "3xtf32": 3}
 PEAK_TF32_FLOPS = 495e12          # H100 SXM data sheet, dense TF32
 # models trained through cli.train: (model, evaluate flags, K1 and K3 launches
 # per batch evaluating the checkpoint), as MAIN_PATHS gives them
@@ -243,20 +265,24 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warm`` runs."""
+def cuda_ms(fn, reps: int = 5, warm: int = 2, runs: int = 3) -> float:
+    """Milliseconds per call of ``fn``: CUDA events around ``reps`` calls in a
+    row, then one synchronize, the median of ``runs`` such runs after ``warm``
+    calls. The calls queue behind each other, so where the card is slower than
+    the host's wrappers the host's time between launches does not count."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -497,10 +523,91 @@ def sinc_filters_at_init(dev):
     return sinc_filters(torch.from_numpy(low), torch.from_numpy(band), SINC_K).to(dev)
 
 
+def build_report(lib, kernel):
+    """Registers a thread, spill store bytes and whether ptxas serialised the
+    wgmma products, for each entry function of library ``lib`` whose name
+    holds ``kernel``, from the ``-Xptxas -v`` report ops/_build.py keeps."""
+    from adfmsl_torch.ops import _build
+
+    log = (_build.library_path(lib).parent / "build.log").read_text()
+    serialized = set(re.findall(r"C7520\).*?in the function '(\S+)'", log))
+    report = {}
+    for m in re.finditer(r"Compiling entry function '(\S*" + kernel + r"\S*)'.*?"
+                         r"(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S):
+        name, spill, regs = m.groups()
+        report[name] = {"registers_per_thread": int(regs), "spill_store_bytes": int(spill),
+                        "wgmma_serialized": name in serialized}
+    return report
+
+
+def sinc_case_input(name, b, t, seed, dev):
+    """0.1 * N(0, 1) audio; the ``ties`` case adds a constant stretch (pool
+    triples of z bit-equal: the gradient splits three ways) and a silent one."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.1 * torch.randn((b, t), generator=g, device=dev)
+    if name == "ties":
+        x[:, 1000:2500] = 0.05
+        x[:, 3000:4200] = 0.0
+    return x, g
+
+
+def k3_bwd_case(sf, name, b, t, c, k, precision, seed, dev):
+    """The backward kernel (d filters) against its plain version under the
+    cuDNN setting of the composition it stands in for (TF32 for 'tf32', exact
+    f32 for '3xtf32'), the cotangent zeroed at near-tie triples on both sides;
+    then the kernel's, the plain version's and autograd's (through the
+    composition, information only) times beside the bound."""
+    from adfmsl_torch.ops.sinc import sinc_abs_pool3_nhc, sinc_filters, sinc_init
+
+    low, band = sinc_init(c)
+    f = sinc_filters(torch.from_numpy(low), torch.from_numpy(band), k).to(dev)
+    x, g = sinc_case_input(name, b, t, seed, dev)
+    cot = torch.randn((b, (t - k + 1) // 3, c), generator=g, device=dev)
+    near = sf.near_tie_mask(x, f, precision)
+    cot = torch.where(near, 0.0, cot)
+    n_near = int(near.sum())
+    del near
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=precision == "tf32"):
+        got = sf.sinc_abs_pool_bwd(x, f, cot, precision)
+        torch.cuda.synchronize()
+        want = sf.sinc_abs_pool_bwd_plain(x, f, cot, precision)
+        err = (got - want).abs().max().item()
+        tol = K3_BWD_TOL[precision] * want.abs().max().item()
+        ms = cuda_ms(lambda: sf.sinc_abs_pool_bwd(x, f, cot, precision))
+        plain_ms = cuda_ms(lambda: sf.sinc_abs_pool_bwd_plain(x, f, cot, precision))
+        fr = f.clone().requires_grad_(True)
+        autograd_ms = cuda_ms(lambda: torch.autograd.grad(sinc_abs_pool3_nhc(x, fr), (fr,),
+                                                          cot))
+    accuracy = {}
+    if b == TRAIN_BATCH:            # both sides against the same steps in f64
+        ref = sf.sinc_abs_pool_bwd_plain(x.double(), f.double(), cot.double())
+        scale = ref.abs().max().item()
+        accuracy = {f"{side}_vs_f64_over_max": (v.double() - ref).abs().max().item() / scale
+                    for side, v in (("kernel", got), ("plain", want))}
+        accuracy.update({f"{side}_bias_vs_f64_over_max":
+                         ((v.double() - ref) * ref.sign()).mean().item() / scale
+                         for side, v in (("kernel", got), ("plain", want))})
+        del ref
+    ops_ms, bytes_ms = k3_train_bound(b, t, c, k, PEAK_TF32_FLOPS / K3_BWD_PASSES[precision])
+    rec = {"case": name, "precision": precision, "B": b, "T": t, "C": c, "K": k,
+           "near_tie_triples_zeroed": n_near, "triples": b * ((t - k + 1) // 3) * c,
+           "max_abs_err": err, "tol": tol, **accuracy, "kernel_ms": ms, "plain_ms": plain_ms,
+           "composition_autograd_ms": autograd_ms,
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print("K3_bwd " + json.dumps(rec), flush=True)
+    check(math.isfinite(err) and err <= tol,
+          f"K3 backward {name} {precision}: error {err} > {tol}")
+    del x, f, cot, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels(rf, sf, lf, dev):
     """K1, K3 and K4 against their plain versions, TF32 off so those are f32
     (K4's plain version rounds its operands to bf16 itself at 'high' and
-    'default', where TF32 products are exact)."""
+    'default', where TF32 products are exact); then K3's backward kernel at
+    both precisions (``k3_bwd_case``)."""
     from adfmsl_torch.ops.mel import linear_filterbank
 
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -516,9 +623,13 @@ def phase_kernels(rf, sf, lf, dev):
             fb_nonzeros = int(np.count_nonzero(linear_filterbank(SR, N_FFT, N_FILTER)))
             k4 = [k4_case(lf, comp, fb_nonzeros, *c, seed=i, dev=dev)
                   for i, c in enumerate(K4_CASES)]
-            return k1, k3, k4
         finally:
             torch.backends.cuda.matmul.allow_tf32 = old
+    k3b = [k3_bwd_case(sf, *c, precision=p, seed=30 + i, dev=dev)
+           for i, c in enumerate(K3_BWD_CASES) for p in K3_BWD_TOL]
+    figs = {**build_report("sinc_abs_pool", "sinc_abs_pool_kernel"),
+            **build_report("sinc_abs_pool_bwd", "sinc_bwd_kernel")}
+    return k1, k3, k3b, k4, figs
 
 
 def k3_train_bound(b, t, c, k, peak_flops):
@@ -533,37 +644,45 @@ def k3_train_bound(b, t, c, k, peak_flops):
 
 
 def k3_train_case(sf, filters, name, b, t, seed, dev):
-    """The trainable wrapper on the card: its forward against K3's plain
-    version (1e-3 * max), its backward (d x and d filters, one seeded
-    cotangent) against autograd through the f32 composition at the unrounded
-    operands (1e-4 * max), both with TF32 off; then its times with cuDNN's
-    defaults, as the bf16 models' front end runs (TF32 in the recompute)."""
+    """The trainable wrapper on the card, TF32 off: its forward against K3's
+    plain version (1e-3 * max); d filters (the backward kernel at '3xtf32', one
+    launch a backward) against the plain backward with the near-tie triples'
+    cotangent zeroed on both sides (1e-4 * max); d x against autograd through
+    the f32 composition (1e-4 * max). Then its times with cuDNN's defaults, as
+    the bf16 models' front end runs (the backward kernel at 'tf32')."""
     from adfmsl_torch.ops.sinc import sinc_abs_pool3_nhc
 
     g = torch.Generator(device=dev).manual_seed(seed)
     c, k = filters.shape
     x = 0.1 * torch.randn((b, t), generator=g, device=dev)
     cot = torch.randn((b, (t - k + 1) // 3, c), generator=g, device=dev)
+    cot = torch.where(sf.near_tie_mask(x, filters, "3xtf32"), 0.0, cot)
     f = filters.clone().requires_grad_(True)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         xr = x.clone().requires_grad_(True)
         y = sf.sinc_abs_pool(xr, f, True)
+        before = sf.sinc_abs_pool_bwd.launches
         dx, df = torch.autograd.grad(y, (xr, f), cot)
         torch.cuda.synchronize()
+        check(sf.sinc_abs_pool_bwd.launches == before + 1,
+              f"K3-train {name}: the backward kernel launched "
+              f"{sf.sinc_abs_pool_bwd.launches - before} times in one backward")
         want_y = sf.sinc_abs_pool_plain(x, filters)
-        xw, fw = x.clone().requires_grad_(True), filters.clone().requires_grad_(True)
-        want_dx, want_df = torch.autograd.grad(sinc_abs_pool3_nhc(xw, fw), (xw, fw), cot)
+        want_df = sf.sinc_abs_pool_bwd_plain(x, filters, cot, "3xtf32")
+        xw = x.clone().requires_grad_(True)
+        (want_dx,) = torch.autograd.grad(sinc_abs_pool3_nhc(xw, filters), (xw,), cot)
     errs = {}
     for what, got, want, rel in (("y", y, want_y, 1e-3), ("dfilters", df, want_df, 1e-4),
                                  ("dx", dx, want_dx, 1e-4)):
         check(tuple(got.shape) == tuple(want.shape), f"K3-train {name}: {what} shape")
         errs[what] = ((got - want).abs().max().item(), rel * want.abs().max().item())
-    del y, dx, df, want_y, want_dx, want_df, xr, xw, fw
+    del y, dx, df, want_y, want_dx, want_df, xr, xw
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
         fwd_ms = cuda_ms(lambda: sf.sinc_abs_pool(x, f))
         plain_fwd_ms = cuda_ms(lambda: sf.sinc_abs_pool_plain(x, filters))
         y = sf.sinc_abs_pool(x, f)
         bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, (f,), cot, retain_graph=True))
+        plain_bwd_ms = cuda_ms(lambda: sf.sinc_abs_pool_bwd_plain(x, filters, cot, "tf32"))
         del y
 
         def composition():
@@ -575,7 +694,8 @@ def k3_train_case(sf, filters, name, b, t, seed, dev):
            **{f"max_abs_err_{w}": e for w, (e, _) in errs.items()},
            **{f"tol_{w}": tl for w, (_, tl) in errs.items()},
            "forward_ms": fwd_ms, "backward_ms": bwd_ms, "ms": fwd_ms + bwd_ms,
-           "plain_forward_ms": plain_fwd_ms, "plain_ms": plain_fwd_ms + bwd_ms,
+           "plain_forward_ms": plain_fwd_ms, "plain_backward_ms": plain_bwd_ms,
+           "plain_ms": plain_fwd_ms + plain_bwd_ms,
            "composition_fwd_bwd_ms": composition_ms,
            "backward_precision": "tf32 (cuDNN's default, as the bf16 models run it)",
            "forward_bound_ms": max(fwd_ops, fwd_bytes),
@@ -1009,8 +1129,8 @@ def phase_fused_train(name, sf, fixture, dev):
     """RawNet's fused training front end through the ``Trainer``, built
     in-process with ``exp.model.extra['fused_train_frontend']`` (no CLI flag
     sets it, as in adfmsl): one epoch of the fixture at batch 12, cut 64600,
-    with K3 launched exactly once a train step (the count set to 0 just
-    before). Then, from the same weights and batch with the randomness off,
+    with K3 and its backward kernel each launched exactly once a train step
+    (the counts set to 0 just before). Then, from the same weights and batch with the randomness off,
     one step against the composition front end: loss within 5e-2 relative and
     global gradient cosine >= 0.85, adfmsl's bounds (tests/test_models.py:
     327-337)."""
@@ -1027,14 +1147,18 @@ def phase_fused_train(name, sf, fixture, dev):
     loader = make_dataset_and_loader(exp, parse_protocol(tr["protocol"], exp.data.label_polarity),
                                      tr["audio_dir"], shuffle=True)
     trainer = Trainer(exp, loader, None, device=dev)
-    sf.sinc_abs_pool_fused.launches = 0
+    sf.sinc_abs_pool_fused.launches = sf.sinc_abs_pool_bwd.launches = 0
     t0 = time.perf_counter()
     (epoch,) = trainer.fit()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, steps = sf.sinc_abs_pool_fused.launches, trainer.state.step
+    bwd_launches = sf.sinc_abs_pool_bwd.launches
     check(steps == TRAIN_UTTS // TRAIN_BATCH and launches == steps,
           f"{name}: K3 launched {launches} times in {steps} fused train steps")
+    check(bwd_launches == steps,
+          f"{name}: K3's backward kernel launched {bwd_launches} times in {steps} "
+          "fused train steps")
     check(math.isfinite(epoch.train_loss) and epoch.skipped_batches == 0,
           f"{name}: fused training epoch {epoch}")
     del trainer
@@ -1060,7 +1184,8 @@ def phase_fused_train(name, sf, fixture, dev):
     cos = float(a @ b) / float(np.linalg.norm(a) * np.linalg.norm(b))
     rel = abs(loss["k3"] - loss["composition"]) / abs(loss["composition"])
     rec = {"model": name, "batch": TRAIN_BATCH, "cut": CUT, "steps": steps,
-           "k3_launches": launches, "train_loss": epoch.train_loss, "wall_s": wall_s,
+           "k3_launches": launches, "k3_bwd_launches": bwd_launches,
+           "train_loss": epoch.train_loss, "wall_s": wall_s,
            "loss_k3": loss["k3"], "loss_composition": loss["composition"],
            "loss_rel_diff": rel, "loss_tol": FUSED_TRAIN_LOSS_REL,
            "grad_cosine": cos, "grad_cosine_min": FUSED_TRAIN_GRAD_COS}
@@ -1282,10 +1407,10 @@ def _k1_instantiations(k1):
     return out
 
 
-def kernels_phase_line(k1, k3, k4):
+def kernels_phase_line(k1, k3, k3b, k4, figs):
     """The ``kernels_phase`` record of ``--only kernels``: K1 summed over
-    maze5's and main's blocks with its figures, K3 and K4 at their main-path
-    shapes."""
+    maze5's and main's blocks with its figures, K3, K3's backward (both
+    precisions) and K4 at their main-path shapes, K3's build figures."""
     return {"kernels_phase": {
         "K1": {"maze5_blocks": _summed([r for r in k1 if r["case"].startswith("maze5_block")]),
                "main_blocks": _summed([r for r in k1 if r["case"].startswith("main_block")]),
@@ -1294,10 +1419,20 @@ def kernels_phase_line(k1, k3, k4):
                                        for r in k1),
                "instantiations": _k1_instantiations(k1)},
         "K3": _summed([next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)]),
+        f"K3_b{BENCH_BATCH}": _summed([next(r for r in k3 if r["B"] == BENCH_BATCH)]),
+        **{f"K3_bwd_{p}": _summed([_k3_bwd_main(k3b, p)]) for p in K3_BWD_TOL},
+        "K3_bwd_max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3b),
+        "K3_build": figs,
         "K4": _summed([next(r for r in k4 if r["B"] == BENCH_BATCH)])}}
 
 
-def kernels_line(k1, k2, k2_entry, k3, k3_train, k4, k4_front, main_path, train,
+def _k3_bwd_main(k3b, precision):
+    """The backward kernel's record at the training batch, cut 64600."""
+    return next(r for r in k3b if r["precision"] == precision and r["B"] == TRAIN_BATCH
+                and r["T"] == CUT)
+
+
+def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, train,
                  fused_train):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
@@ -1307,11 +1442,12 @@ def kernels_line(k1, k2, k2_entry, k3, k3_train, k4, k4_front, main_path, train,
     times at maze5's block0 at batch 16 (batch 128 beside them). K3: its times
     at batch 16, the largest batch its dispatch gives it on the main path
     (batch 128 beside them); its launches on the evaluate paths and in the
-    fused train steps. K3-train (its trainable wrapper): launches in the fused
-    train steps, errors over its cases, forward (K3) and backward (the
-    recompute's VJP) times at batch 12, cut 64600, summed, beside the plain
-    forward with the same backward and the composition's autograd (information
-    only). K4: launches on its path as lcnn1d_lfcc's front end
+    fused train steps. K3-bwd (the backward kernel of K3's trainable wrapper,
+    for d filters): launches in the fused train steps, errors over its cases at
+    both precisions, times at batch 12, cut 64600, 'tf32' (the bf16 models'
+    precision; '3xtf32' beside them), beside the plain backward, autograd
+    through the composition (information only) and the whole wrapper's
+    forward + backward. K4: launches on its path as lcnn1d_lfcc's front end
     (the evaluate paths launch it no time, as adfmsl's ``lfcc`` never calls
     it), times at batch 128, cut 64600, 'high' (batch 384 beside them)."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
@@ -1329,6 +1465,8 @@ def kernels_line(k1, k2, k2_entry, k3, k3_train, k4, k4_front, main_path, train,
     k3_eval_train = {f"{r['model']} trained checkpoint": r["k3_launches_evaluate"]
                      for r in train}
     k3_fused = {f"{r['model']} fused training": r["k3_launches"] for r in fused_train}
+    k3b_fused = {f"{r['model']} fused training": r["k3_bwd_launches"] for r in fused_train}
+    k3b_main = {p: _k3_bwd_main(k3b, p) for p in K3_BWD_TOL}
     k3t_main = next(r for r in k3_train if r["B"] == TRAIN_BATCH and r["T"] == CUT)
     return {"kernels": [{
         "id": "K1", "name": "resblock_eval", "route": "cuda",
@@ -1385,25 +1523,28 @@ def kernels_line(k1, k2, k2_entry, k3, k3_train, k4, k4_front, main_path, train,
         f"b{BENCH_BATCH}": {**_summed([k3_big]),
                             "composition_ms": k3_big["cudnn_bf16_composition_ms"]},
     }, {
-        "id": "K3-train", "name": "sinc_abs_pool", "route": "cuda",
-        "source": "adfmsl_torch/csrc/sinc_abs_pool.cu (forward); "
-                  "adfmsl_torch/ops/sinc_fused.py (the autograd Function)",
-        "replaces": "adfmsl/ops/pallas/sinc_fused.py:138",
-        "launches": sum(k3_fused.values()), "launches_by_path": k3_fused,
-        "max_abs_err": max(max(r["max_abs_err_y"], r["max_abs_err_dfilters"],
-                               r["max_abs_err_dx"]) for r in k3_train),
-        "max_err_over_tol": max(max(r[f"max_abs_err_{w}"] / r[f"tol_{w}"]
-                                    for w in ("y", "dfilters", "dx")) for r in k3_train),
-        **{k: k3t_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "forward_ms",
-                                    "backward_ms", "forward_bound_ms", "backward_bound_ms",
-                                    "backward_precision")},
+        "id": "K3-bwd", "name": "sinc_abs_pool_bwd", "route": "cuda",
+        "source": "adfmsl_torch/csrc/sinc_abs_pool_bwd.cu",
+        "replaces": "adfmsl/ops/pallas/sinc_fused.py:152 (_sap_bwd, the custom VJP of "
+                    "sinc_abs_pool :138)",
+        "launches": sum(k3b_fused.values()), "launches_by_path": k3b_fused,
+        "max_abs_err": max(r["max_abs_err"] for r in k3b),
+        "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3b),
+        **_summed([k3b_main["tf32"]]),
         "library_ms": None,
-        "library_note": "no single PyTorch call computes max_pool3(|conv|) and its VJP; "
+        "library_note": "no single PyTorch call computes the VJP of max_pool3(|conv|); "
                         "autograd through the composition is in composition_ms, for "
                         "information",
-        "composition_ms": k3t_main["composition_fwd_bwd_ms"],
-        "shapes": f"batch {TRAIN_BATCH}, cut {CUT}, C {SINC_C}, K {SINC_K}; forward + "
-                  "backward (d filters)",
+        "composition_ms": k3b_main["tf32"]["composition_autograd_ms"],
+        "near_tie_triples_zeroed": k3b_main["tf32"]["near_tie_triples_zeroed"],
+        "shapes": f"batch {TRAIN_BATCH}, cut {CUT}, C {SINC_C}, K {SINC_K}, 'tf32'",
+        "3xtf32": {**_summed([k3b_main["3xtf32"]]),
+                   "composition_ms": k3b_main["3xtf32"]["composition_autograd_ms"]},
+        "wrapper": {k: k3t_main[k] for k in ("ms", "plain_ms", "bound_ms", "forward_ms",
+                                             "backward_ms", "composition_fwd_bwd_ms")},
+        "wrapper_max_err_over_tol": max(max(r[f"max_abs_err_{w}"] / r[f"tol_{w}"]
+                                            for w in ("y", "dfilters", "dx"))
+                                        for r in k3_train),
     }, {
         "id": "K4", "name": "lfcc_fused", "route": "cuda",
         "source": "adfmsl_torch/csrc/lfcc_fused.cu",
@@ -1467,12 +1608,12 @@ def main() -> int:
               "build_s": phase_s["build"], "libraries": sorted(libs)}
     print("device " + json.dumps(device), flush=True)
 
-    k1, k3, k4 = phase("kernels", phase_kernels, rf, sf, lf, dev)
+    k1, k3, k3b, k4, figs = phase("kernels", phase_kernels, rf, sf, lf, dev)
     if args.only == "kernels":
         print("phase_seconds " + json.dumps({**phase_s,
                                              "total": time.perf_counter() - t_start}))
         print(smi, flush=True)
-        print(json.dumps(kernels_phase_line(k1, k3, k4)), flush=True)
+        print(json.dumps(kernels_phase_line(k1, k3, k3b, k4, figs)), flush=True)
         return 0
     k3_train = phase("k3_train", phase_k3_train, sf, dev)
     k2_recs, k2_entry = phase("k2", phase_k2, k2, dev)
@@ -1499,7 +1640,7 @@ def main() -> int:
     print("phase_seconds " + json.dumps({**phase_s,
                                          "total": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
-    print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3_train, k4, k4_front,
+    print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front,
                                   main_path, train, fused_train)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
