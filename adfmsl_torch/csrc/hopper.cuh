@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks the port's kernels share: mbarriers, bulk copies
-// into shared memory, the shared-memory matrix descriptor of a wgmma B operand and
-// the wgmma fences. Included by the kernel sources; ops/_build.py hashes it into every
+// into shared memory, the shared-memory matrix descriptor of a wgmma B operand,
+// ldmatrix, the register-A m64n64k16 bf16 wgmma and the wgmma fences. Included by the kernel sources; ops/_build.py hashes it into every
 // library's build key.
 #pragma once
 
@@ -51,6 +51,33 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t sbo) {
     return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) |
            (uint64_t(sbo >> 4) << 32);
+}
+
+// Four 8 x 8 b16 matrices from shared memory; lane l gives the row address of
+// matrix l / 8. With rows 0-15 at k 0 (lanes 0-15) and at k 8 (lanes 16-31) it
+// returns a warp's m16n8k16 A fragment, the register-A form of wgmma.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// D (64 x 64, f32, registers) += A (64 x 16 bf16, registers: this warp's m16n8k16 A
+// fragment) * B (16 x 64 bf16, shared memory, descriptor).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_fence() {

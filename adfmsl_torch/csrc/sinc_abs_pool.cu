@@ -71,25 +71,6 @@ __host__ __device__ inline Smem smem_layout(int c, int k) {
     return s;
 }
 
-// D (64 x 64, f32, registers) += A (64 x 16 bf16, registers: this warp's m16n8k16 A
-// fragment) * B (16 x 64 bf16, shared memory, descriptor).
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4],
-                                           uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
 // Persistent grid of CTAs of THREADS threads walking the items (batch row, tile of
 // 128 pooled rows) in order; wl holds every channel tile's bf16 filters.
 __global__ void __launch_bounds__(THREADS, 1)
@@ -176,7 +157,7 @@ sinc_abs_pool_kernel(const float* __restrict__ x, const uint16_t* __restrict__ w
                 wgmma_fence();
                 const uint64_t db = b_desc(wct + kc * 16, kp * 16);
 #pragma unroll
-                for (int j = 0; j < 3; ++j) wgmma_bf16(acc[j], a[j], db);
+                for (int j = 0; j < 3; ++j) wgmma_rs_n64(acc[j], a[j], db);
                 wgmma_commit();
                 wgmma_wait_all();
             }

@@ -4,7 +4,9 @@ Each library is compiled from ``adfmsl_torch/csrc`` into a plain-C shared
 object for ``sm_90a`` (no PyTorch headers, so a build takes seconds) under
 ``adfmsl_torch/_build/``, which git ignores. The directory name carries a hash
 of the sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
-source builds anew and an unchanged one is reused. Nothing here runs at import time.
+source builds anew and an unchanged one is reused. A diagnostic variant of a
+library (``defines``, passed to nvcc as ``-D``) builds beside it under a key of
+its own. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -40,12 +42,14 @@ def _nvcc() -> str:
                        "built from adfmsl_torch/csrc at first use")
 
 
-def library_path(name: str) -> Path:
-    """Compile the sources of library ``name`` into lib<name>.so unless an
-    identical build exists; returns its path. The compiler's resource report
-    (-Xptxas -v) is kept beside it as build.log."""
+def library_path(name: str, defines: tuple = ()) -> Path:
+    """Compile the sources of library ``name`` (with ``-D`` each of
+    ``defines``) into lib<name>.so unless an identical build exists; returns
+    its path. The compiler's resource report (-Xptxas -v) is kept beside it as
+    build.log."""
     sources = LIBRARIES[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in (*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))):  # headers too
         h.update(s.encode())
         h.update((CSRC / s).read_bytes())
@@ -56,7 +60,7 @@ def library_path(name: str) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in sources]]
+    cmd = [_nvcc(), *flags, "-o", tmp, *[str(CSRC / s) for s in sources]]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
@@ -77,6 +81,6 @@ def build_all() -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
+def load_library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load once per process."""
-    return ctypes.CDLL(str(library_path(name)))
+    return ctypes.CDLL(str(library_path(name, defines)))

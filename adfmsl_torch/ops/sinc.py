@@ -45,6 +45,27 @@ def _nsinc(x: torch.Tensor) -> torch.Tensor:
                        torch.sin(px) / torch.where(px == 0, torch.ones_like(px), px))
 
 
+class _AbsJax(torch.autograd.Function):
+    """``|z|`` with ``jnp.abs``'s gradient: slope +1 at z = 0 and at z = -0.0,
+    where ``torch.abs`` takes 0. One saved tensor and one elementwise pass in
+    the backward, as ``torch.abs``'s own."""
+
+    @staticmethod
+    def forward(ctx, z):
+        ctx.save_for_backward(z)
+        return z.abs()
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        return torch.where(z < 0, -g, g)
+
+
+def abs_jax(z: torch.Tensor) -> torch.Tensor:
+    """``z.abs()`` whose gradient is ``jnp.abs``'s (+1 at both zeros)."""
+    return _AbsJax.apply(z)
+
+
 def sinc_filters(low_hz: torch.Tensor, band_hz: torch.Tensor, kernel_size: int,
                  sample_rate: int = 16000, min_low_hz: float = 50.0,
                  min_band_hz: float = 50.0, formula: str = "textbook") -> torch.Tensor:
@@ -57,11 +78,11 @@ def sinc_filters(low_hz: torch.Tensor, band_hz: torch.Tensor, kernel_size: int,
     n = (torch.arange(kernel_size, dtype=torch.float32, device=dev) - half) / sample_rate
     window = torch.from_numpy(hann(kernel_size, periodic=False)).to(dev)
 
-    low = min_low_hz + low_hz.abs()                                     # (C,)
+    low = min_low_hz + abs_jax(low_hz)                                   # (C,)
     # jnp.clip's gradient: minimum(maximum(.)), which halves the gradient at a
     # bound where torch.clamp passes all of it; the mel-spaced init puts the
     # last filter's high edge exactly on sample_rate / 2
-    high = torch.minimum(torch.maximum(low + min_band_hz + band_hz.abs(),
+    high = torch.minimum(torch.maximum(low + min_band_hz + abs_jax(band_hz),
                                        low.new_tensor(min_low_hz)),
                          low.new_tensor(sample_rate / 2.0))
     f_lo = (low / sample_rate)[:, None]                                  # (C,1)
@@ -109,5 +130,7 @@ def max_pool3_nhc(x: torch.Tensor) -> torch.Tensor:
 
 def sinc_abs_pool3_nhc(x: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
     """The RawNet front end as a composition: VALID MaxPool3 of
-    ``|sinc_conv_nhc(x, filters)|`` -> (B, (T-K+1)//3, C)."""
-    return max_pool3_nhc(sinc_conv_nhc(x, filters).abs())
+    ``|sinc_conv_nhc(x, filters)|`` -> (B, (T-K+1)//3, C). The magnitude
+    takes ``jnp.abs``'s gradient (``abs_jax``), so pool triples that are
+    exactly 0 route their gradient as adfmsl's do."""
+    return max_pool3_nhc(abs_jax(sinc_conv_nhc(x, filters)))

@@ -56,9 +56,8 @@ def sinc_abs_pool_bwd_plain(x: torch.Tensor, filters: torch.Tensor, g: torch.Ten
     - each pool triple's gradient g goes to its maxima of |z|, split evenly
       among tied maxima (the VJP of ``jnp.max`` and of ``amax``);
     - times d|z|/dz as ``jnp.abs`` takes it: +1 where z >= 0 (z = 0 too), -1
-      where z < 0. ``torch.abs`` takes 0 at z = 0, so autograd through the
-      composition differs there: only where a whole triple is exactly 0 and
-      meets nonzero x at zero taps of the filters (the ends of a silence);
+      where z < 0, as autograd through the composition takes it
+      (``ops/sinc.py:abs_jax``);
     - d filters[c, k] = sum_{b,t} G[b, t, c] * x[b, t + k], as the conv's
       weight gradient (the backward autograd takes)."""
     if precision not in PRECISIONS:

@@ -28,11 +28,14 @@ Phases, each printing its own lines:
    -> abs -> max_pool1d, information only) beside the bound;
 3b. kernel K4 (the fused LFCC front end) against its plain version: the CPU
    tests' (2, 16000) and (1, 64600) (404 frames) at the 'high', 'default' and
-   'highest' tiers, then batch 128 and 384 at cut 64600, 'high'. Error against
-   1e-4 * max|plain| (and their ratio); the kernel's, the plain version's and
-   a ``torch.stft`` (cuFFT) composition's times (information only) beside the
-   bound, the largest of the tensor-core, f32 and bytes times (the filterbank
-   counted by its nonzero weights). Phases 2 to 3b run with TF32 off in cuDNN and cuBLAS, so the plain
+   'highest' tiers, then batch 128 and 384 at cut 64600, 'high', and batch 128,
+   'default'. Error against 1e-4 * max|plain| (and their ratio); the kernel's,
+   the plain version's and a ``torch.stft`` (cuFFT) composition's times
+   (information only) beside the bound, the largest of the tensor-core, f32
+   and bytes times (the filterbank counted by its nonzero weights); the
+   tier's figures: frames a warpgroup tile and a CTA, shared memory a CTA
+   (the library's, held against the wrapper's formula), W ring stages, CTAs
+   an SM, registers, spills and wgmma serialisation from build.log. Phases 2 to 3b run with TF32 off in cuDNN and cuBLAS, so the plain
    versions are exact f32;
 3d. K3's backward kernel (``ops/sinc_fused.py:sinc_abs_pool_bwd``, d filters)
    against its plain version at 'tf32' (cuDNN TF32) and '3xtf32' (exact f32):
@@ -248,7 +251,8 @@ N_BINS = N_FFT // 2 + 1
 K4_CASES = [(f"{name}_{p}", b, t, p)       # name, B, T, precision tier
             for name, b, t in (("jax_case", 2, 16000), ("ragged_404_frames", 1, CUT))
             for p in ("high", "default", "highest")
-            ] + [(f"b{b}_cut{CUT}_high", b, CUT, "high") for b in (BENCH_BATCH, 384)]
+            ] + [(f"b{b}_cut{CUT}_high", b, CUT, "high") for b in (BENCH_BATCH, 384)
+                 ] + [(f"b{BENCH_BATCH}_cut{CUT}_default", BENCH_BATCH, CUT, "default")]
 K4_TC_PASSES = {"high": 3, "default": 1, "highest": 0}    # bf16 DFT passes per tier
 # eval throughput of the LFCC / log-mel models: (model, batches)
 SPECTRAL_THROUGHPUT = [("lcnn1d_lfcc", (BENCH_BATCH, 384)), ("lcnn_lfcc", (BENCH_BATCH,)),
@@ -484,7 +488,35 @@ def stft_composition(dev):
     return run
 
 
-def k4_case(lf, comp, fb_nonzeros, name, b, t, precision, seed, dev):
+K4_KERNELS = {"high": "lfcc_tc_kernelILi1E", "default": "lfcc_tc_kernelILi0E",
+              "highest": "lfcc_highest_kernel"}     # each tier's entry function
+
+
+def k4_figures(lf):
+    """Tier -> K4's figures at the model's shape: frames a warpgroup tile and a
+    CTA, shared memory a CTA, W ring stages, threads, CTAs an SM (from the
+    library, held against the wrapper's ``tc_smem_layout``), and the build
+    report's registers, spills and wgmma serialisation."""
+    report = build_report("lfcc_fused", "lfcc_")
+    figs = {}
+    for p, tag in K4_KERNELS.items():
+        c = lf.kernel_config(p, SR, N_FFT, HOP, WIN, N_FILTER, N_LFCC)
+        if p != "highest":
+            words = lf.kernel_operands(SR, N_FFT, WIN, N_FILTER, N_LFCC, p,
+                                       torch.device("cpu")).fb_words
+            want = lf.tc_smem_layout(HOP, WIN, N_FILTER, N_LFCC, p, words)
+            check((c["smem_bytes"], c["stages"], c["cta_frames"]) ==
+                  (want["total"], want["stages"], want["warpgroups"] * c["tile_frames"]),
+                  f"K4 {p}: the library's shared memory {c} differs from the wrapper's {want}")
+        figs[p] = {"tile_frames": c["tile_frames"], "cta_frames": c["cta_frames"],
+                   "smem_bytes_per_cta": c["smem_bytes"], "stages": c["stages"],
+                   "threads_per_cta": c["threads"], "ctas_per_sm": c["ctas_per_sm"],
+                   **next((v for k, v in report.items() if tag in k),
+                          {"registers_per_thread": None})}
+    return figs
+
+
+def k4_case(lf, comp, fb_nonzeros, figs, name, b, t, precision, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, t), generator=g, device=dev)
     out = lf.lfcc_fused(x, precision=precision)
@@ -507,7 +539,7 @@ def k4_case(lf, comp, fb_nonzeros, name, b, t, precision, seed, dev):
            "stft_composition_max_abs_diff": comp_err,
            "tensor_ms": tensor_ms, "f32_ms": f32_ms, "filterbank_nonzeros": fb_nonzeros,
            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **figs[precision]}
     print("K4 " + json.dumps(rec), flush=True)
     check(math.isfinite(err) and err <= tol, f"K4 {name}: error {err} > {tol}")
     del x
@@ -621,7 +653,8 @@ def phase_kernels(rf, sf, lf, dev):
                   for i, c in enumerate(K3_CASES)]
             comp = stft_composition(dev)
             fb_nonzeros = int(np.count_nonzero(linear_filterbank(SR, N_FFT, N_FILTER)))
-            k4 = [k4_case(lf, comp, fb_nonzeros, *c, seed=i, dev=dev)
+            k4_figs = k4_figures(lf)
+            k4 = [k4_case(lf, comp, fb_nonzeros, k4_figs, *c, seed=i, dev=dev)
                   for i, c in enumerate(K4_CASES)]
         finally:
             torch.backends.cuda.matmul.allow_tf32 = old
@@ -1423,7 +1456,21 @@ def kernels_phase_line(k1, k3, k3b, k4, figs):
         **{f"K3_bwd_{p}": _summed([_k3_bwd_main(k3b, p)]) for p in K3_BWD_TOL},
         "K3_bwd_max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3b),
         "K3_build": figs,
-        "K4": _summed([next(r for r in k4 if r["B"] == BENCH_BATCH)])}}
+        "K4": {f"b{b}_{p}": {**_summed([r]), **{k: r[k] for k in K4_FIGURE_KEYS},
+                             "composition_ms": r["stft_composition_ms"]}
+               for b, p in ((BENCH_BATCH, "high"), (384, "high"), (BENCH_BATCH, "default"))
+               for r in [_k4_main(k4, b, p)]},
+        "K4_max_err_over_tol": max(r["err_over_tol"] for r in k4)}}
+
+
+K4_FIGURE_KEYS = ("tile_frames", "cta_frames", "smem_bytes_per_cta", "stages",
+                  "threads_per_cta", "ctas_per_sm", "registers_per_thread",
+                  "spill_store_bytes", "wgmma_serialized")
+
+
+def _k4_main(k4, b, precision):
+    """K4's record at batch ``b``, cut 64600, ``precision``."""
+    return next(r for r in k4 if r["B"] == b and r["T"] == CUT and r["precision"] == precision)
 
 
 def _k3_bwd_main(k3b, precision):
@@ -1451,8 +1498,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     (the evaluate paths launch it no time, as adfmsl's ``lfcc`` never calls
     it), times at batch 128, cut 64600, 'high' (batch 384 beside them)."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
-    k4_main = next(r for r in k4 if r["B"] == BENCH_BATCH)
-    k4_big = next(r for r in k4 if r["B"] == 384)
+    k4_main = _k4_main(k4, BENCH_BATCH, "high")
+    k4_big = _k4_main(k4, 384, "high")
+    k4_default = _k4_main(k4, BENCH_BATCH, "default")
     k3_big = next(r for r in k3 if r["B"] == BENCH_BATCH)
     k2_main = next(r for r in k2 if r["case"] == "maze5_block0_b16")
     k2_big = next(r for r in k2 if r["case"] == "maze5_block0_b128")
@@ -1562,6 +1610,13 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "composition_ms": k4_main["stft_composition_ms"],
         "shapes": f"batch {BENCH_BATCH}, cut {CUT}, 'high', 404 frames x {N_LFCC}",
         "b384": {**_summed([k4_big]), "composition_ms": k4_big["stft_composition_ms"]},
+        "default_b128": {**_summed([k4_default]),
+                         "composition_ms": k4_default["stft_composition_ms"]},
+        "redesigned": "for Hopper: register-A wgmma m64n64k16 on a pitched frame buffer, "
+                      "a producer warp's cp.async.bulk W ring, re/im interleaved, sparse "
+                      "filterbank ('high', 'default'; 'highest' keeps the CUDA-core form)",
+        "figures": {p: {k: next(r for r in k4 if r["precision"] == p)[k]
+                        for k in K4_FIGURE_KEYS} for p in K4_KERNELS},
     }]}
 
 

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from adfmsl_torch.ops import sinc_fused as sf
-from adfmsl_torch.ops.sinc import sinc_abs_pool3_nhc, sinc_filters, sinc_init
+from adfmsl_torch.ops.sinc import abs_jax, sinc_abs_pool3_nhc, sinc_filters, sinc_init
 
 C, K = 128, 251
 SHAPES = [(2, 8000), (3, 8001)]        # T' % 3 == 1 and == 2; both ragged tiles
@@ -80,9 +80,8 @@ def _silent_triples(x, f):
 
 @pytest.mark.parametrize("case", ["jax_case", "ragged", "ties"])
 def test_plain_backward_matches_autograd_and_adfmsl(case):
-    """Bit for bit autograd's VJP of the composition, except on triples that
-    are exactly 0, where ``torch.abs`` takes slope 0 and ``jnp.abs`` slope 1:
-    there the cotangent is zeroed for the autograd comparison only."""
+    """Bit for bit autograd's VJP of the composition, the silent triples of
+    the ``ties`` case included: both take ``jnp.abs``'s slope +1 at z = 0."""
     shape = (3, 8001) if case == "ragged" else (2, 8000)
     x = torch.from_numpy((_tie_x if case == "ties" else _x)(shape, seed=1))
     g = torch.from_numpy(_cotangent(shape, seed=2))
@@ -90,12 +89,69 @@ def test_plain_backward_matches_autograd_and_adfmsl(case):
     got = sf.sinc_abs_pool_bwd_plain(x, f, g)
     assert got.dtype == torch.float32 and tuple(got.shape) == (C, K)
     _close(got, _jax_dfilters(x.numpy(), f, g.numpy()), 1e-4, "d filters vs adfmsl")
-    silent = _silent_triples(x, f)
-    assert bool(silent.any()) == (case == "ties")
-    g = torch.where(silent, 0.0, g)
+    assert bool(_silent_triples(x, f).any()) == (case == "ties")
     fr = f.clone().requires_grad_(True)
     (want,) = torch.autograd.grad(sinc_abs_pool3_nhc(x, fr), (fr,), g)
-    torch.testing.assert_close(sf.sinc_abs_pool_bwd_plain(x, f, g), want, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_composition_autograd_matches_adfmsl_vjp_at_silence():
+    """Autograd through the port's ``sinc_abs_pool3_nhc`` against adfmsl's
+    ``jax.vjp`` of its ``sinc_abs_pool3_nhc`` (adfmsl/ops/sinc.py:293) on
+    audio with silent stretches, no cotangent zeroed: d filters and d x within
+    1e-4 * max (the same f32 composition on both sides, only the order of the
+    f32 sums differs)."""
+    import jax
+    import jax.numpy as jnp
+
+    from adfmsl.ops.sinc import sinc_abs_pool3_nhc as jax_sap3
+
+    shape = (2, 8000)
+    x = _tie_x(shape, seed=13)
+    g = _cotangent(shape, seed=14)
+    f = _filters()
+    assert bool(_silent_triples(torch.from_numpy(x), f).any())
+    xr = torch.from_numpy(x).requires_grad_(True)
+    fr = f.clone().requires_grad_(True)
+    dx, df = torch.autograd.grad(sinc_abs_pool3_nhc(xr, fr), (xr, fr), torch.from_numpy(g))
+    _, vjp = jax.vjp(jax_sap3, jnp.asarray(x), jnp.asarray(f.numpy()))
+    want_dx, want_df = vjp(jnp.asarray(g))
+    _close(df, want_df, 1e-4, "d filters vs adfmsl")
+    _close(dx, want_dx, 1e-4, "d x vs adfmsl")
+
+
+def test_sinc_filters_gradient_at_zero_params_matches_adfmsl():
+    """``sinc_filters``' gradient with ``low_hz[0] = 0`` and ``band_hz[1] = 0``
+    exactly, where ``jnp.abs`` takes slope +1, against ``jax.grad`` of
+    adfmsl's ``sinc_filters`` (adfmsl/ops/sinc.py:54) within 1e-5 * max."""
+    import jax
+    import jax.numpy as jnp
+
+    from adfmsl.ops.sinc import sinc_filters as jax_sinc_filters
+
+    low, band = sinc_init(16)
+    low[0], band[1] = 0.0, 0.0
+    w = np.random.default_rng(15).standard_normal((16, 129)).astype(np.float32)
+
+    def jax_loss(lo, ba):
+        return jnp.sum(jax_sinc_filters(lo, ba, 129) * jnp.asarray(w))
+
+    want_low, want_band = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(low),
+                                                           jnp.asarray(band))
+    lo = torch.from_numpy(low).requires_grad_(True)
+    ba = torch.from_numpy(band).requires_grad_(True)
+    (sinc_filters(lo, ba, 129) * torch.from_numpy(w)).sum().backward()
+    assert float(np.abs(np.asarray(want_low)[0])) > 0 and float(np.abs(np.asarray(want_band)[1])) > 0
+    _close(lo.grad, want_low, 1e-5, "d low_hz vs adfmsl")
+    _close(ba.grad, want_band, 1e-5, "d band_hz vs adfmsl")
+
+
+def test_abs_jax_takes_slope_one_at_both_zeros():
+    z = torch.tensor([0.0, -0.0, 1.0, -1.0], requires_grad=True)
+    y = abs_jax(z)
+    assert torch.equal(y.detach(), torch.tensor([0.0, 0.0, 1.0, 1.0]))
+    y.backward(torch.ones(4))
+    assert torch.equal(z.grad, torch.tensor([1.0, 1.0, 1.0, -1.0]))
 
 
 def test_exact_ties_split_evenly_and_zero_takes_slope_one():
