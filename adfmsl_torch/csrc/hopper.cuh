@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks the port's kernels share: mbarriers, bulk copies
 // into shared memory, the shared-memory matrix descriptor of a wgmma B operand,
-// ldmatrix, the register-A m64n64k16 bf16 wgmma and the wgmma fences. Included by the kernel sources; ops/_build.py hashes it into every
-// library's build key.
+// ldmatrix, the register-A m64n64k16 bf16 wgmma and the wgmma fences, 16-byte shared
+// loads and streaming global stores, and a named barrier over part of a CTA. Included
+// by the kernel sources; ops/_build.py hashes it into every library's build key.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -88,6 +89,26 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// 16 bytes from shared memory at `addr`.
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+    uint4 v;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+    return v;
+}
+
+// 16 bytes to global memory with the streaming hint (.cs: evict first), so that
+// an output written once does not push lines the kernel will read again out of L2.
+__device__ __forceinline__ void st_global_cs16(void* p, uint4 v) {
+    asm volatile("st.global.cs.v4.b32 [%0], {%1, %2, %3, %4};"
+                 :: "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a multiple of 32.
+__device__ __forceinline__ void bar_sync_count(int id, int count) {
+    asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
 }
 
 }  // namespace

@@ -8,7 +8,7 @@ maze5's block0 shapes in bf16, (16, 64350, 128) at batch 16 and
 with a fixed random cotangent:
 
   A_plain       BN(train) -> ReLU in plain torch ops (the forward's math), autograd
-  B_kernel      ``bn_relu_train``: the same forward, the K2 kernel pair backward
+  B_kernel      ``bn_relu_train``: the same forward, K2's one-launch backward
   A_plain_conv  A followed by a k3 bf16 conv, its real consumer in the trunk
   B_kernel_conv B followed by the same conv
 

@@ -167,10 +167,13 @@ class Trainer:
                     watch = dev_acc if not np.isnan(dev_acc) else tm["acc"]
                 else:
                     watch = dev_eer if not np.isnan(dev_eer) else tm["loss"]
-                old = plateau.scale
-                self.state.optimizer.plateau_scale = plateau.update(watch)
-                if plateau.scale != old:
-                    log.info("plateau: lr scale -> %.4g (watch %.4f)", plateau.scale, watch)
+                # written only on a change, so a scale restored from a
+                # checkpoint survives the fresh tracker's first epochs
+                old_scale = plateau.scale
+                new_scale = plateau.update(watch)
+                if new_scale != old_scale:
+                    self.state.optimizer.plateau_scale = new_scale
+                    log.info("plateau: lr scale -> %.4g (watch %.4f)", new_scale, watch)
             stop_value = dev_eer if tc.early_stop_metric == "dev_eer" else dev_acc
             if stopper is not None and not np.isnan(stop_value) and stopper.step(stop_value):
                 log.info("early stopping at epoch %d", epoch)

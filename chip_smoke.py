@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                   # every phase below
     python3 chip_smoke.py --only kernels    # phases 1 and 2-3d only
+    python3 chip_smoke.py --only k2         # K2's library and cases only
 
 Phases, each printing its own lines:
 
@@ -79,17 +80,24 @@ Phases, each printing its own lines:
    batch 128 and 384, lcnn_lfcc and resnet18_logmel at 128 (the median and
    spread of five windows of about 3 s each), each with the front end / trunk
    / head split of a forward (``profile_eval``, the median of 5);
-6. kernel K2 (the BN + ReLU train backward, two passes) against its plain
-   version: the CPU tests' (2, 700, 128) f32 and (3, 1000, 128) bf16 cases,
-   maze5's block0 at batch 16 and 128 and block4's bn2 at batch 12, bf16.
-   Errors beside their tolerances (dx per element: one bf16 ulp of |dx| +
-   1e-3 * max|dx|, or 1e-5 * (|dx| + max|dx|) in f32; dgamma / dbeta: 1e-4 *
-   max, 1e-5 in f32), the kernel's and the plain version's times, the time
-   of autograd's backward
-   through ``F.batch_norm(training=True)`` + ``relu`` (information only) and
-   both bounds (6 bytes an element: x and dz read, dx written; 10 bytes: the
-   two passes). Then K2's entry point, ``adfmsl_torch.measure_bn_relu_bwd``,
-   runs in-process, its launch count checked;
+6. kernel K2 (the BN + ReLU train backward, one cooperative launch) against
+   its plain version: the CPU tests' (2, 700, 128) f32 and (3, 1000, 128)
+   bf16 cases, maze5's block0 at batch 16 and 128 and block4's bn2 at batch
+   12, bf16. Errors beside their tolerances (dx per element: one bf16 ulp of
+   |dx| + 1e-3 * max|dx|, or 1e-5 * (|dx| + max|dx|) in f32; dgamma / dbeta:
+   1e-4 * max, 1e-5 in f32), the kernel's and the plain version's times, the
+   bound (6 bytes an element: x and dz read, dx written) and the two-pass
+   traffic (10 bytes), the host's time to enqueue a call and the kernel's
+   device time from ``torch.profiler`` (at small N the host's is the larger,
+   and the events read it), the kernel's layout (``ops/bn_relu_bwd.py:
+   kernel_config``: rows a stage, ring stages, CTAs, stages a CTA), the bytes
+   its design moves (the two-pass traffic less the stages pass 2 finds still
+   in the ring) and the achieved GB/s of both byte counts; for information,
+   a device copy of x and dz (what the card reaches), and autograd's backward
+   through ``F.batch_norm(training=True)`` + ``relu`` on the strided (B, C, T)
+   transpose and on the contiguous (N, C) view. Then K2's entry point,
+   ``adfmsl_torch.measure_bn_relu_bwd``, runs in-process, its launch count
+   checked (one a backward);
 7. training, for maze5, maze5_fmsl, main, main_fmsl, lcnn_lfcc, lcnn1d_lfcc
    and resnet18_logmel at full width: a synthetic fixture of 48 train and 24
    dev utterances goes through ``adfmsl_torch.cli.train`` at cut 64600 and
@@ -138,8 +146,12 @@ last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 before it. ``--only kernels`` runs the build and phases 2-3d, ends with a
 ``kernels_phase`` line (K1's times summed over maze5's and main's blocks, K3's,
 its backward's and K4's main-path records) and prints no ``{"ok": ...}`` line: it is the quick
-loop for kernel work, not a smoke run. Without a card, or without the repo
-beside this script, the run exits non-zero and prints no result.
+loop for kernel work, not a smoke run. ``--only k2`` builds K2's library
+alone and runs phase 6's cases (not its entry point), ending with a
+``k2_phase`` line and no ``{"ok": ...}`` line; copied into another checkout
+of the port, it measures that checkout's K2 the same way. Without a card, or
+without the repo beside this script, the run exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -991,6 +1003,52 @@ def k2_bound(b, t, c, elem):
             3 * elem * n / PEAK_BYTES * 1e3, 5 * elem * n / PEAK_BYTES * 1e3)
 
 
+def k2_host_device_ms(fn, reps: int = 5):
+    """(host_ms, device_ms) a call of K2's wrapper: the host's time to enqueue
+    ``reps`` calls in a row (no synchronize), and the device time of the
+    kernels whose name holds ``bn_relu`` from ``torch.profiler``. Where the
+    host's time is the larger, CUDA events around calls in a row read it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+                    for e in prof.key_averages() if "bn_relu" in e.key)
+    return host_ms, device_us / reps / 1e3
+
+
+def k2_layout(k2, n, c, dtype, dev):
+    """(layout, design_bytes): ``kernel_config`` on this card (rows a stage,
+    ring stages, CTAs, the fewest and most stages a CTA, shared memory) and
+    the HBM bytes the design moves: x and dz read in pass 1, read again in
+    pass 2 but for the stages still in the ring, dx written (re-reads that
+    hit L2 still count). (None, None) for a checkout whose K2 has no
+    ``kernel_config`` (the two-kernel form before it)."""
+    if not hasattr(k2, "kernel_config"):
+        return None, None
+    card = k2.card_layout(c, dtype, dev.index)
+    cfg = k2.kernel_config(n, c, dtype, card["n_sm"], card["ctas_per_sm"])
+    rows, s = cfg["rows_per_stage"], cfg["stages"]
+    counts = [e - f for f, e in cfg["stage_ranges"]]
+    resident = sum(min(e * rows, n) - max(f, e - s) * rows for f, e in cfg["stage_ranges"])
+    elem = torch.finfo(dtype).bits // 8
+    layout = {"rows_per_stage": rows, "stages": s, "ctas": cfg["ctas"],
+              "ctas_per_sm": card["ctas_per_sm"], "n_sm": card["n_sm"],
+              "stages_per_cta": [min(counts), max(counts)],
+              "smem_bytes": cfg["smem_bytes"], "threads": cfg["threads"],
+              "rows_still_in_ring": resident}
+    return layout, elem * c * (5 * n - 2 * resident)
+
+
 def k2_case(k2, name, b, t, c, dtype, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, t, c), generator=g, device=dev).to(dtype)
@@ -1015,7 +1073,12 @@ def k2_case(k2, name, b, t, c, dtype, seed, dev):
     tol_dg, tol_db = (rel * w.abs().max().item() for w in want[1:])
     del got, want, gx, wx, diff, bound
     ms = cuda_ms(lambda: k2.bn_relu_bwd(x, dz, gamma, beta, mu, rstd))
+    host_ms, device_ms = k2_host_device_ms(lambda: k2.bn_relu_bwd(x, dz, gamma, beta, mu, rstd))
     plain_ms = cuda_ms(lambda: k2.bn_relu_bwd_plain(x, dz, gamma, beta, mu, rstd))
+    src = torch.cat([x.reshape(-1), dz.reshape(-1)])
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src))
+    del src, dst
     leaves = [x.clone().requires_grad_(True), gamma.clone().requires_grad_(True),
               beta.clone().requires_grad_(True)]
     y = torch.relu(F.batch_norm(leaves[0].transpose(1, 2), None, None, leaves[1],
@@ -1023,16 +1086,34 @@ def k2_case(k2, name, b, t, c, dtype, seed, dev):
     dzt = dz.transpose(1, 2)
     composition_ms = cuda_ms(lambda: torch.autograd.grad(y, leaves, dzt, retain_graph=True))
     del y, leaves
-    ops_ms, bytes_ms, two_pass_ms = k2_bound(b, t, c, x.element_size())
+    leaves = [x.reshape(-1, c).clone().requires_grad_(True),
+              gamma.clone().requires_grad_(True), beta.clone().requires_grad_(True)]
+    y = torch.relu(F.batch_norm(leaves[0], None, None, leaves[1], leaves[2],
+                                training=True, eps=1e-5))
+    dzn = dz.reshape(-1, c)
+    composition_nc_ms = cuda_ms(lambda: torch.autograd.grad(y, leaves, dzn,
+                                                            retain_graph=True))
+    del y, leaves
+    elem = x.element_size()
+    ops_ms, bytes_ms, two_pass_ms = k2_bound(b, t, c, elem)
+    layout, design_bytes = k2_layout(k2, b * t, c, dtype, dev)
+    n_bytes = 3 * elem * b * t * c
     rec = {"case": name, "B": b, "T": t, "C": c, "dtype": str(dtype).split(".")[-1],
            "max_abs_err_dx": err_dx, "tol_dx": tol_dx, "dx_excess_over_bound": excess,
            "dx_max_err_over_bound": over_bound,
            "max_abs_err_dgamma": err_dg, "tol_dgamma": tol_dg,
            "max_abs_err_dbeta": err_db, "tol_dbeta": tol_db,
-           "kernel_ms": ms, "plain_ms": plain_ms, "autograd_bn_relu_bwd_ms": composition_ms,
+           "kernel_ms": ms, "kernel_device_ms": device_ms, "host_ms_per_call": host_ms,
+           "plain_ms": plain_ms, "autograd_bn_relu_bwd_ms": composition_ms,
+           "autograd_bn_relu_bwd_nc_ms": composition_nc_ms,
+           "device_copy_ms": copy_ms, "device_copy_gb_per_s": 4 * elem * b * t * c / copy_ms / 1e6,
+           "bound_at_copy_rate_ms": copy_ms * 3 / 4,
            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "two_pass_bytes_ms": two_pass_ms,
            "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "bound_gb_per_s": n_bytes / ms / 1e6, "design_bytes": design_bytes,
+           "design_gb_per_s": design_bytes / ms / 1e6 if design_bytes else None,
+           "layout": layout}
     print("K2 " + json.dumps(rec), flush=True)
     check(math.isfinite(excess) and excess <= 0, f"K2 {name}: dx beyond its bound by {excess}")
     check(math.isfinite(err_dg) and err_dg <= tol_dg, f"K2 {name}: dgamma {err_dg} > {tol_dg}")
@@ -1048,13 +1129,14 @@ def phase_k2(k2, dev):
     from adfmsl_torch import measure_bn_relu_bwd as mb
 
     recs = [k2_case(k2, *c, seed=i, dev=dev) for i, c in enumerate(K2_CASES)]
+    print("k2_build " + json.dumps(build_report("bn_relu_bwd", "bn_relu")), flush=True)
     k2.bn_relu_bwd.launches = 0
     t0 = time.perf_counter()
     res = mb.run("both", iters=K2_MEASURE_ITERS)
     torch.cuda.synchronize()
     launches = k2.bn_relu_bwd.launches
-    # two shapes x two kernel programs x (2 warm + timed) backwards x 2 launches
-    expected = len(mb.SHAPES) * 2 * (2 + K2_MEASURE_ITERS) * 2
+    # two shapes x two kernel programs x (2 warm + timed) backwards, one launch each
+    expected = len(mb.SHAPES) * 2 * (2 + K2_MEASURE_ITERS)
     entry = {"entry_point": "python -m adfmsl_torch.measure_bn_relu_bwd both",
              "iters": K2_MEASURE_ITERS, "launches": launches, "expected": expected,
              "wall_s": time.perf_counter() - t0, "ms": res}
@@ -1506,9 +1588,15 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     k2_big = next(r for r in k2 if r["case"] == "maze5_block0_b128")
 
     def k2_times(r):
-        return {"ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        return {"ms": r["kernel_ms"], "device_ms": r["kernel_device_ms"],
+                "host_ms_per_call": r["host_ms_per_call"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "two_pass_bound_ms": r["two_pass_bytes_ms"],
-                "composition_ms": r["autograd_bn_relu_bwd_ms"]}
+                "composition_ms": r["autograd_bn_relu_bwd_ms"],
+                "composition_nc_ms": r["autograd_bn_relu_bwd_nc_ms"],
+                "device_copy_ms": r["device_copy_ms"],
+                "bound_at_copy_rate_ms": r["bound_at_copy_rate_ms"],
+                "design_gb_per_s": r["design_gb_per_s"]}
     k1_train = {f"{r['model']} trained checkpoint": r["k1_launches_evaluate"] for r in train}
     k3_eval_train = {f"{r['model']} trained checkpoint": r["k3_launches_evaluate"]
                      for r in train}
@@ -1548,10 +1636,15 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         **k2_times(k2_main),
         "library_ms": None,
         "library_note": "no single PyTorch call computes relu(BN_train(x))'s backward; "
-                        "autograd through F.batch_norm + relu is in composition_ms, "
+                        "autograd through F.batch_norm + relu is in composition_ms "
+                        "((B, C, T) transpose) and composition_nc_ms ((N, C) view), "
                         "for information",
         "shapes": "maze5 block0 at batch 16, (16, 64350, 128) bf16",
         "b128": k2_times(k2_big),
+        "layout": k2_main["layout"],
+        "redesigned": "for Hopper: one cooperative launch, a producer warp's "
+                      "cp.async.bulk x / dz ring, a grid barrier, pass 2 in reverse from "
+                      "the ring and L2, streaming dx stores",
     }, {
         "id": "K3", "name": "sinc_abs_pool_fused", "route": "cuda",
         "source": "adfmsl_torch/csrc/sinc_abs_pool.cu",
@@ -1622,9 +1715,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="run only the build and the kernels phase (no main path, "
-                         "no {\"ok\": ...} line)")
+    ap.add_argument("--only", choices=["kernels", "k2"], default=None,
+                    help="kernels: only the build and the kernels phase; k2: only "
+                         "K2's library and cases (no main path, no {\"ok\": ...} line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1657,6 +1750,20 @@ def main() -> int:
         print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
         return res
 
+    if args.only == "k2":
+        phase("build", _build.library_path, "bn_relu_bwd")
+        recs = phase("k2", lambda: [k2_case(k2, *c, seed=i, dev=dev)
+                                    for i, c in enumerate(K2_CASES)])
+        print("phase_seconds " + json.dumps({**phase_s,
+                                             "total": time.perf_counter() - t_start}))
+        print(smi, flush=True)
+        print(json.dumps({"k2_phase": {
+            "source": str(ROOT), "build": build_report("bn_relu_bwd", "bn_relu"),
+            **{r["case"]: {k: r[k] for k in ("kernel_ms", "kernel_device_ms",
+                                               "host_ms_per_call", "plain_ms", "bound_ms",
+                                               "device_copy_ms", "design_gb_per_s")}
+               for r in recs}}}), flush=True)
+        return 0
     libs = phase("build", _build.build_all)
     device = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -1,4 +1,4 @@
-"""K2 (train-mode BN + ReLU with the two-pass backward) in the port vs adfmsl.
+"""K2 (train-mode BN + ReLU with the one-launch backward) in the port vs adfmsl.
 
 The port's ``bn_relu_train`` on the CPU (its backward is the plain version,
 ``bn_relu_bwd_plain``) is held against adfmsl's ``bn_relu_train`` with the
@@ -8,8 +8,13 @@ Tolerances: f32 within 1e-5 relative (atol 1e-5 * max|ref|); bf16 y and dx
 within one bf16 ulp of |ref| plus 1e-3 * max|ref|, dgamma / dbeta (f32 sums
 of the same bf16 inputs) within 1e-4 * max|ref|. The same function is held
 against torch autograd of the plain forward, and the CUDA kernel against the
-plain version on the card (marker ``cuda``):
+plain version on the card (marker ``cuda``): the cases above, maze5's block4,
+N smaller than a stage, N of exactly one stage, N one row past a CTA
+boundary (each CTA two stages of 64 rows on a 132-SM card) and C 256 in f32;
+dgamma and dbeta bitwise the same over two calls.
     python -m pytest --noconftest -q tests/test_torch_bn_relu_bwd.py -m cuda
+``kernel_config``, the kernel's layout, is checked on the CPU over a grid of
+shapes and SM counts.
 """
 import numpy as np
 import pytest
@@ -111,9 +116,17 @@ def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
         k2.bn_relu_bwd(x.to("meta"), ct, gamma, beta, mu, rstd)
 
 
+CARD_CASES = [((12, 4022, 256), "bfloat16", 9),     # maze5's block4
+              ((1, 40, 128), "bfloat16", 11),       # N below one 64-row stage
+              ((2, 32, 128), "bfloat16", 12),       # N of exactly one stage
+              ((1, 132 * 2 * 64 + 1, 128), "bfloat16", 13),   # a row past a CTA
+              ((2, 3000, 256), "float32", 14)]      # C 256 in f32
+CARD_IDS = ["maze5_block4_bf16", "below_one_stage", "one_stage", "cta_boundary_plus_one",
+            "c256_f32"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,seed", CASES + [((12, 4022, 256), "bfloat16", 9)],
-                         ids=IDS + ["maze5_block4_bf16"])
+@pytest.mark.parametrize("shape,dtype,seed", CASES + CARD_CASES, ids=IDS + CARD_IDS)
 def test_kernel_matches_plain_on_card(shape, dtype, seed):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the K2 kernel has no CPU form")
@@ -123,10 +136,53 @@ def test_kernel_matches_plain_on_card(shape, dtype, seed):
     before = k2.bn_relu_bwd.launches
     got = k2.bn_relu_bwd(x, ct, gamma, beta, mu, rstd)
     torch.cuda.synchronize()
-    assert k2.bn_relu_bwd.launches == before + 2
+    assert k2.bn_relu_bwd.launches == before + 1
     got = [t.float().cpu().numpy() for t in got]
     for g, r, what in zip(got, want, ("dx", "dgamma", "dbeta")):
         _close(g, r, dtype, what)
+
+
+@pytest.mark.cuda
+def test_kernel_sums_are_bitwise_the_same_over_two_calls():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K2 kernel has no CPU form")
+    x, gamma, beta, ct = (t.cuda() for t in _inputs((4, 20000, 128), "bfloat16", 21))
+    _, mu, rstd = k2.bn_relu_forward(x, gamma, beta)
+    first = k2.bn_relu_bwd(x, ct, gamma, beta, mu, rstd)
+    second = k2.bn_relu_bwd(x, ct, gamma, beta, mu, rstd)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    assert torch.equal(first[0], second[0])
+
+
+@pytest.mark.parametrize("c", k2.CHANNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_sm", [132, 114])
+def test_kernel_config_covers_every_row_once(c, dtype, n_sm):
+    """Each CTA's stages are contiguous and non-empty, the CTAs' ranges cover
+    the stages (so the rows [0, N)) exactly once in CTA order, the counts
+    differ by at most one, and the ring of at least two stages fits 227 KB."""
+    rows = k2.kernel_config(1, c, dtype, n_sm, 1)["rows_per_stage"]
+    cta_rows = n_sm * rows
+    for n in [1, 2, rows - 1, rows, rows + 1, 5 * rows + 3, cta_rows - 1, cta_rows,
+              cta_rows + 1, 3 * cta_rows + 1, 7 * cta_rows + rows - 1, 16 * 64350]:
+        for per_sm in (1, 2):
+            cfg = k2.kernel_config(n, c, dtype, n_sm, per_sm)
+            assert cfg["rows_per_stage"] * c * (2 if dtype == torch.bfloat16 else 4) * 2 \
+                == k2.STAGE_BYTES
+            assert cfg["stages"] >= 2 and cfg["smem_bytes"] <= 232448
+            assert cfg["n_stages"] * rows >= n > (cfg["n_stages"] - 1) * rows
+            assert cfg["ctas"] == min(n_sm * per_sm, cfg["n_stages"])
+            ranges = cfg["stage_ranges"]
+            assert len(ranges) == cfg["ctas"] and ranges[0][0] == 0
+            assert ranges[-1][1] == cfg["n_stages"]
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            counts = [e - f for f, e in ranges]
+            assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+            covered = np.zeros(n, np.int64)
+            for f, e in ranges:
+                covered[f * rows:min(e * rows, n)] += 1
+            assert (covered == 1).all()
 
 
 def test_entry_point_needs_the_card(monkeypatch):
@@ -149,4 +205,4 @@ def test_entry_point_launches_the_kernel_on_card():
     before = k2.bn_relu_bwd.launches
     res = mb.measure(2, 3000, 128, torch.device("cuda"), iters=2)
     assert set(res) == {"A_plain", "B_kernel", "A_plain_conv", "B_kernel_conv"}
-    assert k2.bn_relu_bwd.launches - before == 2 * (2 + 2) * 2   # 2 programs, 4 backwards
+    assert k2.bn_relu_bwd.launches - before == 2 * (2 + 2) * 1   # 2 programs, 4 backwards
