@@ -111,7 +111,9 @@ def main(argv=None) -> int:
         model.load_state_dict(state, strict=True)
     proto = parse_protocol(args.protocol, exp.data.label_polarity)
     ds = AsvspoofDataset(proto, args.data_dir, cut=exp.data.cut,
-                         pad_mode=exp.data.pad_mode, sample_rate=exp.data.sample_rate)
+                         pad_mode=exp.data.pad_mode, sample_rate=exp.data.sample_rate,
+                         use_native_io=exp.data.use_native_io,
+                         num_workers=exp.data.num_workers)
     loader = DataLoader(ds, args.batch_size, shuffle=False, drop_last=False,
                         prefetch=exp.data.prefetch)
     if args.smoke_test and not smoke_test(model, exp.data.cut):

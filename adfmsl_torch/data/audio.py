@@ -1,8 +1,10 @@
-"""Audio decode: WAV (pure numpy) and resampling.
+"""Audio decode: FLAC and WAV (the native C++ decoder, ``io_native``), WAV in
+pure numpy where asked, and resampling.
 
-The port's copy of ``adfmsl/data/audio.py`` without the native C++ decoder: WAV
-decodes in numpy, and FLAC raises until the decoder's ctypes binding lands
-(ROADMAP slice 9), exactly as adfmsl behaves without its compiled library.
+The port's copy of ``adfmsl/data/audio.py``. The reference leans on librosa
+(libsndfile) to decode ASVspoof FLAC and resample to 16 kHz (maze2.py:265).
+FLAC always goes through the native decoder; WAV through it by default and
+through ``read_wav`` (numpy) with ``prefer_native=False``.
 """
 from __future__ import annotations
 
@@ -62,14 +64,27 @@ def resample(x: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(x, target_sr // g, sr // g).astype(np.float32)
 
 
-def load_audio(path: str, target_sr: int = 16000) -> Tuple[np.ndarray, int]:
-    """Decode WAV to mono float32 at ``target_sr`` (librosa.load analog)."""
+def load_audio(path: str, target_sr: int = 16000,
+               prefer_native: bool = True) -> Tuple[np.ndarray, int]:
+    """Decode FLAC/WAV to mono float32 at ``target_sr`` (librosa.load analog).
+
+    ``prefer_native=False`` keeps WAV decode in pure numpy (DataConfig.use_native_io
+    off); FLAC always goes through the native decoder. A WAV format the
+    native decoder does not read (8-bit PCM) goes to numpy, as in adfmsl; a
+    failed build of the decoder raises.
+    """
+    from adfmsl_torch.io_native import decode_flac, decode_wav_native
+
     ext = os.path.splitext(path)[1].lower()
     if ext == ".flac":
-        raise RuntimeError(
-            f"{path}: FLAC decoding needs the native decoder, which the port "
-            "does not bind yet; convert to WAV")
-    x, sr = read_wav(path)
+        x, sr = decode_flac(path)
+    elif prefer_native:
+        try:
+            x, sr = decode_wav_native(path)
+        except ValueError:
+            x, sr = read_wav(path)
+    else:
+        x, sr = read_wav(path)
     return resample(x, sr, target_sr), target_sr
 
 

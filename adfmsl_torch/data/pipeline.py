@@ -1,15 +1,16 @@
 """Host-side input pipeline: path resolution, decode+pad, fixed-shape batching,
 threaded prefetch (the port's copy of ``adfmsl/data/pipeline.py``, without
-the native-IO branch, adfmsl's fuzzy file discovery and its per-host
-sharding, which no path of the port uses yet).
+adfmsl's fuzzy file discovery and its per-host sharding, which no path of the
+port uses yet).
 
 Replaces the reference's per-model torch ``Dataset``/``DataLoader`` copies
 (maze2.py:244-302 and 13 near-duplicates). Differences by design:
 - fixed static batch shapes always (XLA contract); the final eval batch is padded and
   carries a validity mask so the 71,237-utterance protocol keeps exact count
   (SURVEY.md section 7 risk list);
-- decode runs in a background prefetch thread so the device never waits on the
-  host;
+- decode runs in a background prefetch thread, and with ``use_native_io`` in
+  ``num_workers`` native C++ threads a batch (``io_native.batch_decode_pad``),
+  so the device never waits on the host;
 - missing files produce zero-filled samples with a warning, mirroring the reference's
   failure tolerance (maze2.py:272-273).
 """
@@ -27,6 +28,7 @@ import numpy as np
 from adfmsl_torch.data.audio import load_audio
 from adfmsl_torch.data.pad import pad
 from adfmsl_torch.data.protocol import Protocol
+from adfmsl_torch.io_native import batch_decode_pad
 
 log = logging.getLogger(__name__)
 
@@ -64,12 +66,16 @@ class AsvspoofDataset:
         cut: int = 64600,
         pad_mode: str = "tile",
         sample_rate: int = 16000,
+        use_native_io: bool = True,
+        num_workers: int = 2,
     ):
         self.protocol = protocol
         self.base_dir = base_dir
         self.cut = cut
         self.pad_mode = pad_mode
         self.sample_rate = sample_rate
+        self.use_native_io = use_native_io
+        self.num_workers = max(1, num_workers)
         self._labels = protocol.labels
         self._warned = 0
 
@@ -88,14 +94,27 @@ class AsvspoofDataset:
         path = self._resolve(utt_id)
         if path is None:
             return np.zeros(self.cut, dtype=np.float32), self._labels.get(utt_id, 0)
-        x, _ = load_audio(path, self.sample_rate)
+        x, _ = load_audio(path, self.sample_rate, prefer_native=self.use_native_io)
         return pad(x, self.cut, self.pad_mode).astype(np.float32), self._labels.get(utt_id, 0)
 
     def load_batch(self, ids: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
-        """Decode+pad a whole batch."""
+        """Decode+pad a whole batch. With ``use_native_io`` the C++ thread-pooled
+        loader decodes all files in one call (``num_workers`` native threads,
+        the reference's DataLoader(num_workers=...) analog, maze2.py:473);
+        rows whose source rate differs from ``sample_rate`` are reloaded
+        through the per-file resampling path."""
         labels = np.asarray([self._labels.get(u, 0) for u in ids], dtype=np.int32)
-        audio = np.stack([self.load(u)[0] for u in ids]) if ids else (
-            np.zeros((0, self.cut), dtype=np.float32))
+        if not (self.use_native_io and ids):
+            audio = np.stack([self.load(u)[0] for u in ids]) if ids else (
+                np.zeros((0, self.cut), dtype=np.float32))
+            return audio, labels
+
+        paths = [self._resolve(u) or "" for u in ids]
+        audio, srs, lens = batch_decode_pad(paths, self.cut, self.pad_mode,
+                                            n_threads=self.num_workers)
+        for i, (p, sr, ln) in enumerate(zip(paths, srs, lens)):
+            if p and ln > 0 and sr != self.sample_rate:
+                audio[i], _ = self.load(ids[i])   # rare: resample path
         return audio, labels
 
 

@@ -1,12 +1,14 @@
-"""The maze models: port of ``adfmsl/models/mazes.py`` for the sinc and RawNet
-families.
+"""The maze models: port of ``adfmsl/models/mazes.py`` for the sinc, RawNet
+and (part of the) Wav2Vec2 families.
 
 Ported: ``MazeSpec``, ``MazeModel``'s sinc front end and trunk, the RawNet
-encoder branch (adfmsl :102-115), SpecAugment (:155-163), pooling, the
-classifier with its fc dropout, the FMSL head in the 'refine', 'replace' and
-'integrated' modes, and both scores (adfmsl :95-273); the ``SPECS`` of
-``main``, ``maze4``, ``maze5`` and their ``_fmsl`` twins, all in train and
-eval mode. ``build_model`` also builds adfmsl's extra families (``EXTRAS``:
+encoder branch (adfmsl :102-115), the Wav2Vec2 front end (:116-138, with
+``wav2vec2.freeze`` as a stop-gradient) and the 1x1 ``proj`` conv after it
+(:142-143), SpecAugment (:155-163), pooling, the classifier with its fc
+dropout and maze3's ReLU after fc1 (:209), the FMSL head in the 'refine',
+'replace' and 'integrated' modes, and both scores (adfmsl :95-273); the
+``SPECS`` of ``main``, ``maze4``, ``maze5`` and their ``_fmsl`` twins,
+``maze7`` / ``maze7_fmsl`` and ``maze3``, all in train and eval mode. ``build_model`` also builds adfmsl's extra families (``EXTRAS``:
 ``models/lcnn.py``, ``models/resnet.py``). Other registry names raise and
 name the ROADMAP slice that brings them.
 
@@ -28,11 +30,12 @@ from torch import nn
 from adfmsl_torch.config.base import ModelConfig
 from adfmsl_torch.device import resolve_device
 from adfmsl_torch.heads.fmsl import FMSLHead
-from adfmsl_torch.models.blocks import GRU, ResStack, init_like_flax_
+from adfmsl_torch.models.blocks import GRU, ResStack, conv_nhc, init_like_flax_
 from adfmsl_torch.models.lcnn import LCNN, LCNN1D
 from adfmsl_torch.models.rawnet import RawNetEncoder
 from adfmsl_torch.models.resnet import ResNet18
 from adfmsl_torch.models.sincnet import SincConv
+from adfmsl_torch.models.w2v2 import Wav2Vec2Encoder, arch_for
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
 from adfmsl_torch.ops.specaugment import spec_augment
@@ -41,17 +44,21 @@ from adfmsl_torch.ops.specaugment import spec_augment
 @dataclass(frozen=True)
 class MazeSpec:
     name: str
-    frontend: str                                   # 'sinc' | 'rawnet'
+    frontend: str                                   # 'sinc' | 'w2v2' | 'rawnet'
     ref: str = ""                                   # reference file reproduced
-    first_bn_act: Optional[str] = None              # 'selu' after the front end
+    proj_dim: Optional[int] = None                  # 1x1 conv after the front end
+    first_bn_act: Optional[str] = None              # 'selu' | 'relu' after the front end
     blocks: Tuple[Tuple[int, int, int], ...] = ()   # (cin, cout, stride)
     fc1: Optional[int] = 1024
+    fc1_act: Optional[str] = None                   # 'relu' between fc1 and dropout (maze3)
     score: str = "log_softmax"                      # 'log_softmax' | 'logit'
     fmsl_input_dim: int = 512                       # FMSL input, 'replace'/'integrated'
 
 
 _SINC_BLOCKS = ((128, 128, 1), (128, 128, 2), (128, 128, 2), (128, 128, 2),
                 (128, 256, 2))                       # maze4.py:192-210
+# maze3.py:118-132: three blocks, each with its built-in stride-2 overlap pool
+_W2V2_BLOCKS_MAZE3 = ((128, 128, 2), (128, 128, 2), (128, 256, 2))
 
 _FMSL_REF = " + fmsl_advanced.py:103-359"
 
@@ -76,6 +83,19 @@ SPECS: Dict[str, MazeSpec] = {
                       first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
     "maze5_fmsl": MazeSpec("maze5_fmsl", "sinc", ref="maze5.py:178-264" + _FMSL_REF,
                            first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
+    # classifier Linear(256, 1024) -> ReLU -> Dropout -> Linear, scored raw
+    # (maze3.py:137-143 with the :994 runtime config)
+    "maze3": MazeSpec("maze3", "w2v2", ref="maze3.py:101-164", proj_dim=128,
+                      blocks=_W2V2_BLOCKS_MAZE3, fc1=1024, fc1_act="relu",
+                      score="logit"),
+    "maze7": MazeSpec("maze7", "w2v2", ref="maze7.py:144-217", proj_dim=128,
+                      first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
+    # 'integrated' at the pooled trunk width, scored raw (adfmsl mazes.py:328);
+    # the 'fmsl_adaptive' block variant applies only under 'reference'
+    # semantics, as for maze4_fmsl
+    "maze7_fmsl": MazeSpec("maze7_fmsl", "w2v2", ref="maze7.py:144-217" + _FMSL_REF,
+                           proj_dim=128, first_bn_act="selu", blocks=_SINC_BLOCKS,
+                           fc1=1024, score="logit", fmsl_input_dim=256),
 }
 
 # adfmsl's extra model families (config/standardized.py:EXTRA_MODELS), each
@@ -83,9 +103,9 @@ SPECS: Dict[str, MazeSpec] = {
 EXTRAS = {"lcnn_lfcc": LCNN, "lcnn1d_lfcc": LCNN1D, "resnet18_logmel": ResNet18}
 
 # Registry names of adfmsl that later slices of the port bring (ROADMAP.md).
-LATER_SLICES = {n: "slice 6 (the Wav2Vec2 family)"
-                for b in ("maze2", "maze3", "maze6", "maze7", "maze8")
-                for n in (b, f"{b}_fmsl")}
+LATER_SLICES = {n: "slice 6b (the rest of the Wav2Vec2 family)"
+                for n in ("maze2", "maze2_fmsl", "maze3_fmsl", "maze6", "maze6_fmsl",
+                          "maze8", "maze8_fmsl")}
 
 
 class MazeModel(nn.Module):
@@ -115,12 +135,25 @@ class MazeModel(nn.Module):
                 fused_eval_trunk=bool(cfg.extra.get("fused_eval_trunk", False)),
                 dtype=self.dtype)
             pooled_dim = a.nb_fc_node
-        elif spec.frontend == "sinc":
-            self.sinc = SincConv(a.filts[0], a.first_conv, a.sample_rate,
-                                 formula=a.sinc_formula,
-                                 exact_fp32=cfg.dtype == "float32")
+        elif spec.frontend in ("sinc", "w2v2"):
+            if spec.frontend == "sinc":
+                self.sinc = SincConv(a.filts[0], a.first_conv, a.sample_rate,
+                                     formula=a.sinc_formula,
+                                     exact_fp32=cfg.dtype == "float32")
+                feat_dim = a.filts[0]
+            else:
+                w = cfg.wav2vec2
+                if w.remat_layers or w.remat_extractor:
+                    raise NotImplementedError(
+                        "wav2vec2.remat_layers / remat_extractor (activation "
+                        "checkpointing) come with ROADMAP slice 6c")
+                self.wav2vec2 = Wav2Vec2Encoder(arch_for(w), dtype=self.dtype)
+                feat_dim = self.wav2vec2.arch.hidden_size
+            if spec.proj_dim:
+                self.proj = nn.Conv1d(feat_dim, spec.proj_dim, 1)
+                feat_dim = spec.proj_dim
             if spec.first_bn_act:
-                self.first_bn = batch_norm(a.filts[0])
+                self.first_bn = batch_norm(feat_dim)
             if a.block_semantics != "tpu":
                 raise NotImplementedError(
                     f"block_semantics {a.block_semantics!r}: the port has 'tpu' only "
@@ -176,10 +209,19 @@ class MazeModel(nn.Module):
         if self.spec.frontend == "rawnet":
             pooled = self.encoder(x)                         # (B, D) f32
         else:
-            h = self.sinc(x)                                 # (B, T', C) f32
+            if self.spec.frontend == "sinc":
+                h = self.sinc(x)                             # (B, T', C) f32
+            elif self.cfg.wav2vec2.freeze:                   # a stop-gradient
+                with torch.no_grad():
+                    h = self.wav2vec2(x)                     # (B, T', H)
+            else:
+                h = self.wav2vec2(x)
+            if self.spec.proj_dim:
+                h = conv_nhc(h, self.proj, self.dtype)
             if self.spec.first_bn_act:
                 # front-end glue at trunk width: bf16 in, BN in f32, bf16 out
-                h = F.selu(bn_forward(h.to(self.dtype), self.first_bn, self.dtype, train))
+                act = F.selu if self.spec.first_bn_act == "selu" else F.relu
+                h = act(bn_forward(h.to(self.dtype), self.first_bn, self.dtype, train))
             sa = self.cfg.spec_augment
             if sa.enabled and train:
                 # (B, T, C): C is the frequency / channel axis
@@ -208,7 +250,10 @@ class MazeModel(nn.Module):
         else:
             feats = pooled
             if hasattr(self, "fc1"):
-                feats = dropout(self.fc1(pooled), fc_drop, rngs.get("dropout"), train)
+                feats = self.fc1(pooled)
+                if self.spec.fc1_act == "relu":              # maze3's classifier
+                    feats = torch.relu(feats)
+                feats = dropout(feats, fc_drop, rngs.get("dropout"), train)
             out["features"] = feats
             logits = self.fc2(feats)
         out["logits"] = logits

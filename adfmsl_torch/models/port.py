@@ -5,7 +5,8 @@
 arrays) into a state dict that the port's ``MazeModel`` accepts with
 ``load_state_dict(strict=True)``. Module names follow the flax tree:
 ``sinc``, ``first_bn``, ``trunk.block{i}.{bn1,conv1,bn2,conv2,downsample,se}``,
-``fc1``, ``fc2``, ``fmsl.{proj,proj_bn,prototypes,weight,temperature}``, and
+``fc1``, ``fc2``, ``fmsl.{proj,proj_bn,prototypes,weight,temperature}``, for
+the Wav2Vec2 models ``wav2vec2.*`` (``models/w2v2.py``) and ``proj``, and
 for RawNet ``encoder.{sinc,first_bn,block{i},fc_attention{i},bn_before_gru,
 fc1_gru}`` with the GRU's gates ``encoder.gru.cell.{ir,iz,in,hr,hz,hn}``
 (a stacked GRU's later layers ``cell1``, ``cell2``, ..., as in adfmsl's tree).
@@ -21,7 +22,9 @@ a Dense kernel (in, out), a GRU gate's included, a Linear weight (out, in)
 (adfmsl's GRU keeps flax ``GRUCell``'s gates, so nothing is regrouped as for
 ``nn.GRU``); BatchNorm scale/bias and
 batch_stats mean/var become weight/bias/running_mean/running_var, with
-num_batches_tracked 0.
+num_batches_tracked 0; a LayerNorm's or GroupNorm's scale/bias become
+weight/bias; flax attention's DenseGeneral kernels (H, heads, hd) and
+(heads, hd, H) are flattened to Linear weights (H, H).
 """
 from __future__ import annotations
 
@@ -59,15 +62,17 @@ def _walk(params: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
                 out[f"{key}.bias"] = torch.from_numpy(
                     np.array(node["bias"], dtype=np.float32))
                 n += 1
-        elif "scale" in node:                              # BatchNorm
+        elif "scale" in node:                     # BatchNorm, or Layer/GroupNorm
             out[f"{key}.weight"] = torch.from_numpy(np.array(node["scale"], np.float32))
             out[f"{key}.bias"] = torch.from_numpy(np.array(node["bias"], np.float32))
-            out[f"{key}.running_mean"] = torch.from_numpy(
-                np.array(sub_stats["mean"], np.float32))
-            out[f"{key}.running_var"] = torch.from_numpy(
-                np.array(sub_stats["var"], np.float32))
-            out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
-            n += 4
+            n += 2
+            if "mean" in sub_stats:
+                out[f"{key}.running_mean"] = torch.from_numpy(
+                    np.array(sub_stats["mean"], np.float32))
+                out[f"{key}.running_var"] = torch.from_numpy(
+                    np.array(sub_stats["var"], np.float32))
+                out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+                n += 2
         else:
             n += _walk(node, sub_stats, f"{key}.", out)
     return n
@@ -75,6 +80,40 @@ def _walk(params: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
 
 def _count(tree: Mapping[str, Any]) -> int:
     return sum(_count(v) if isinstance(v, Mapping) else 1 for v in tree.values())
+
+
+def _flat_attention(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    """flax ``MultiHeadDotProductAttention``'s DenseGeneral projections as
+    plain Dense ones: query / key / value kernels (H, heads, hd) -> (H, H)
+    with biases (heads, hd) -> (H,), the out kernel (heads, hd, H) -> (H, H)."""
+    out = {}
+    for name, node in tree.items():
+        if not isinstance(node, Mapping):
+            out[name] = node
+        elif name == "attention" and "query" in node:
+            flat = {}
+            for proj, d in node.items():
+                k = np.asarray(d["kernel"])
+                k = k.reshape(-1, k.shape[-1]) if proj == "out" else k.reshape(k.shape[0], -1)
+                flat[proj] = {"kernel": k, "bias": np.reshape(d["bias"], (-1,))}
+            out[name] = flat
+        else:
+            out[name] = _flat_attention(node)
+    return out
+
+
+def flax_tree_to_state_dict(params: Mapping[str, Any],
+                            batch_stats: Optional[Mapping[str, Any]] = None
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """A flax variable tree (nested dicts of numpy arrays) -> the state dict
+    of the port's module of the same names. Raises if a leaf was not used."""
+    params = _flat_attention(params)
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    used = _walk(params, batch_stats or {}, "", out)
+    total = _count(params) + _count(batch_stats or {})
+    if used != total:
+        raise ValueError(f"converted {used} of {total} flax leaves")
+    return out
 
 
 def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
@@ -86,12 +125,10 @@ def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
     if model_name not in SPECS and model_name not in EXTRAS:
         raise KeyError(f"model {model_name!r} is not ported; ported: "
                        f"{sorted([*SPECS, *EXTRAS])}")
-    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    used = _walk(params, batch_stats or {}, "", out)
-    total = _count(params) + _count(batch_stats or {})
-    if used != total:
-        raise ValueError(f"{model_name}: converted {used} of {total} flax leaves")
-    return out
+    try:
+        return flax_tree_to_state_dict(params, batch_stats)
+    except ValueError as e:
+        raise ValueError(f"{model_name}: {e}") from None
 
 
 def save_checkpoint(path: str, exp: ExperimentConfig, model: torch.nn.Module) -> str:

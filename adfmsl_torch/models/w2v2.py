@@ -1,0 +1,362 @@
+"""Wav2Vec2 encoder (port of ``adfmsl/models/w2v2.py``).
+
+Raw waveform -> per-utterance zero-mean / unit-variance normalisation ->
+conv feature extractor (VALID convs without bias, exact GELU; a GroupNorm on
+layer 0 for 'group', a LayerNorm on every layer for 'layer') -> LayerNorm and
+feature projection -> convolutional positional embedding (kernel 128, 16
+groups, pad 64 a side, the last step trimmed for an even kernel) ->
+transformer layers (post-LN, or pre-LN with ``do_stable_layer_norm``).
+
+Numerics follow flax's rounding points, so the bf16 model matches adfmsl's:
+convs and dense layers run in the model's dtype (input, kernel and bias cast
+to it, the bias added after the product); LayerNorm / GroupNorm compute their
+statistics in f32 (``E[x^2] - E[x]^2``, flax's fast variance) and return f32,
+as flax's norms without ``dtype`` do for a bf16 input and f32 parameters;
+attention is flax's ``MultiHeadDotProductAttention``: the query divided by
+sqrt(head dim) in the compute dtype, the softmax in it, the weights in it.
+Attention is written as explicit products; adfmsl computes it outside any
+Pallas kernel, so these are library products. The extractor runs in (B, C, T),
+the rest in adfmsl's (B, T, C).
+
+Module names follow adfmsl's flax tree (``feature_extractor.conv_layers_{i}.
+{conv,group_norm,layer_norm}``, ``feature_projection_norm``,
+``feature_projection``, ``pos_conv_embed.conv``, ``encoder_layer_norm``,
+``layers_{i}.{attention.{query,key,value,out},layer_norm,intermediate_dense,
+output_dense,final_layer_norm}``), so ``models/port.py:state_dict_from_flax``
+carries adfmsl's variables across. ``port_hf_state_dict`` (numpy only) maps a
+local HF torch checkpoint onto that tree, and ``load_pretrained`` reads one.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclass(frozen=True)
+class W2V2Arch:
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    feat_extract_norm: str = "group"     # 'group' (base) | 'layer' (large-lv60/xlsr)
+    do_stable_layer_norm: bool = False   # True for lv60-style checkpoints
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    layer_norm_eps: float = 1e-5
+
+    @staticmethod
+    def base() -> "W2V2Arch":
+        return W2V2Arch()
+
+    @staticmethod
+    def large_960h() -> "W2V2Arch":
+        return W2V2Arch(hidden_size=1024, num_layers=24, num_heads=16,
+                        intermediate_size=4096)
+
+    @staticmethod
+    def tiny(num_heads: int = 2) -> "W2V2Arch":
+        """For tests: 2 conv layers, 2 transformer layers (``num_heads=4``:
+        adfmsl's 'tiny4')."""
+        return W2V2Arch(hidden_size=64, num_layers=2, num_heads=num_heads,
+                        intermediate_size=128, conv_dim=(32, 32),
+                        conv_kernel=(10, 3), conv_stride=(5, 2))
+
+
+def arch_for(cfg) -> W2V2Arch:
+    """The encoder of a ``Wav2Vec2Config`` (adfmsl ``mazes.py:_w2v2_arch``):
+    'tiny' / 'tiny4' by name, else large from ``output_dim`` 1024, else base."""
+    if cfg.model_name == "tiny":
+        return W2V2Arch.tiny()
+    if cfg.model_name == "tiny4":
+        return W2V2Arch.tiny(num_heads=4)
+    if cfg.output_dim >= 1024:
+        return W2V2Arch.large_960h()
+    return W2V2Arch.base()
+
+
+def flax_norm(x: torch.Tensor, dims, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """flax LayerNorm / GroupNorm numerics: statistics over ``dims`` in f32
+    (variance ``max(0, E[x^2] - E[x]^2)``), then ``(x - mean) * (rsqrt(var +
+    eps) * weight) + bias`` in f32. ``weight`` and ``bias`` come shaped to
+    broadcast against ``x``."""
+    xf = x.float()
+    mean = xf.mean(dims, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dims, keepdim=True) - mean * mean, min=0.0)
+    return (xf - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """flax ``nn.LayerNorm`` over the last axis (f32 out)."""
+    return flax_norm(x, (-1,), ln.weight, ln.bias, ln.eps)
+
+
+def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: the product in ``dtype``, then the bias."""
+    return torch.matmul(x.to(dtype), lin.weight.to(dtype).t()) + lin.bias.to(dtype)
+
+
+class _ConvLayer(nn.Module):
+    def __init__(self, arch: W2V2Arch, index: int):
+        super().__init__()
+        cin = 1 if index == 0 else arch.conv_dim[index - 1]
+        cout = arch.conv_dim[index]
+        self.stride = arch.conv_stride[index]
+        self.eps = arch.layer_norm_eps
+        self.conv = nn.Conv1d(cin, cout, arch.conv_kernel[index], stride=self.stride,
+                              bias=False)
+        if arch.feat_extract_norm == "group" and index == 0:
+            self.group_norm = nn.GroupNorm(cout, cout, eps=self.eps)
+        elif arch.feat_extract_norm == "layer":
+            self.layer_norm = nn.LayerNorm(cout, eps=self.eps)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, Cin, T) -> (B, Cout, T')."""
+        h = F.conv1d(x.to(dtype), self.conv.weight.to(dtype), stride=self.stride)
+        if hasattr(self, "group_norm"):
+            gn = self.group_norm
+            b, c, t = h.shape
+            g = gn.num_groups
+            h = flax_norm(h.reshape(b, g, c // g, t), (2, 3),
+                          gn.weight.reshape(1, g, c // g, 1),
+                          gn.bias.reshape(1, g, c // g, 1), self.eps).reshape(b, c, t)
+        elif hasattr(self, "layer_norm"):
+            ln = self.layer_norm
+            h = flax_norm(h, (1,), ln.weight[:, None], ln.bias[:, None], self.eps)
+        return F.gelu(h)
+
+
+class _FeatureExtractor(nn.Module):
+    def __init__(self, arch: W2V2Arch):
+        super().__init__()
+        self.n = len(arch.conv_dim)
+        for i in range(self.n):
+            self.add_module(f"conv_layers_{i}", _ConvLayer(arch, i))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, T) raw audio -> (B, T', conv_dim[-1])."""
+        h = x[:, None, :]
+        for i in range(self.n):
+            h = getattr(self, f"conv_layers_{i}")(h, dtype)
+        return h.transpose(1, 2)
+
+
+class _PositionalConvEmbedding(nn.Module):
+    def __init__(self, arch: W2V2Arch):
+        super().__init__()
+        k = arch.num_conv_pos_embeddings
+        self.conv = nn.Conv1d(arch.hidden_size, arch.hidden_size, k, padding=k // 2,
+                              groups=arch.num_conv_pos_embedding_groups)
+        self.trim = k % 2 == 0              # HF pads SAME, then drops one step
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        c = self.conv
+        xd, w, b = x.transpose(1, 2).to(dtype), c.weight.to(dtype), c.bias.to(dtype)
+        if x.device.type == "cpu" and dtype == torch.bfloat16:
+            # torch's CPU bf16 grouped conv is wrong at 4 channels a group
+            # (the tiny arch): take the f32 product of the bf16 operands,
+            # rounded once, which is what a bf16 conv accumulating in f32 gives
+            h = F.conv1d(xd.float(), w.float(), b.float(), padding=c.padding,
+                         groups=c.groups).to(dtype)
+        else:
+            h = F.conv1d(xd, w, b, padding=c.padding, groups=c.groups)
+        if self.trim:
+            h = h[:, :, :-1]
+        return F.gelu(h.transpose(1, 2))
+
+
+class _Attention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` (self-attention, no mask, no
+    dropout) with its DenseGeneral projections held as (H, H) linears."""
+
+    def __init__(self, hidden: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        for name in ("query", "key", "value", "out"):
+            self.add_module(name, nn.Linear(hidden, hidden))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        b, t, hid = x.shape
+        hd = hid // self.heads
+        q, k, v = (dense(x, getattr(self, n), dtype).view(b, t, self.heads, hd)
+                   .transpose(1, 2) for n in ("query", "key", "value"))
+        q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype)
+        w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+        o = torch.matmul(w, v).transpose(1, 2).reshape(b, t, hid)
+        return dense(o, self.out, dtype)
+
+
+class _EncoderLayer(nn.Module):
+    def __init__(self, arch: W2V2Arch):
+        super().__init__()
+        h, eps = arch.hidden_size, arch.layer_norm_eps
+        self.pre = arch.do_stable_layer_norm
+        self.attention = _Attention(h, arch.num_heads)
+        self.layer_norm = nn.LayerNorm(h, eps=eps)
+        self.intermediate_dense = nn.Linear(h, arch.intermediate_size)
+        self.output_dense = nn.Linear(arch.intermediate_size, h)
+        self.final_layer_norm = nn.LayerNorm(h, eps=eps)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        h = layer_norm(x, self.layer_norm) if self.pre else x
+        x = x + self.attention(h, dtype)
+        if not self.pre:
+            x = layer_norm(x, self.layer_norm)
+        h = layer_norm(x, self.final_layer_norm) if self.pre else x
+        h = dense(F.gelu(dense(h, self.intermediate_dense, dtype)), self.output_dense, dtype)
+        x = x + h
+        if not self.pre:
+            x = layer_norm(x, self.final_layer_norm)
+        return x
+
+
+class Wav2Vec2Encoder(nn.Module):
+    """Raw waveform (B, T) f32 -> last hidden state (B, T', H), with
+    ``output_hidden_states`` also the list of the embedding's and every
+    layer's output (HF's ``hidden_states``). ``normalize_input`` applies the
+    Wav2Vec2Processor's per-utterance normalisation, var + 1e-7."""
+
+    def __init__(self, arch: W2V2Arch = W2V2Arch(), normalize_input: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.arch, self.normalize_input, self.dtype = arch, normalize_input, dtype
+        h, eps = arch.hidden_size, arch.layer_norm_eps
+        self.feature_extractor = _FeatureExtractor(arch)
+        self.feature_projection_norm = nn.LayerNorm(arch.conv_dim[-1], eps=eps)
+        self.feature_projection = nn.Linear(arch.conv_dim[-1], h)
+        self.pos_conv_embed = _PositionalConvEmbedding(arch)
+        self.encoder_layer_norm = nn.LayerNorm(h, eps=eps)
+        for i in range(arch.num_layers):
+            self.add_module(f"layers_{i}", _EncoderLayer(arch))
+
+    def forward(self, x: torch.Tensor, output_hidden_states: bool = False
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, List[torch.Tensor]]]:
+        a, dt = self.arch, self.dtype
+        if self.normalize_input:
+            mean = x.mean(dim=-1, keepdim=True)
+            var = x.var(dim=-1, unbiased=False, keepdim=True)
+            x = (x - mean) / torch.sqrt(var + 1e-7)
+        h = self.feature_extractor(x, dt)
+        h = dense(layer_norm(h, self.feature_projection_norm), self.feature_projection, dt)
+        h = h + self.pos_conv_embed(h, dt)
+        if not a.do_stable_layer_norm:
+            h = layer_norm(h, self.encoder_layer_norm)
+        hidden_states = [h]
+        for i in range(a.num_layers):
+            h = getattr(self, f"layers_{i}")(h, dt)
+            hidden_states.append(h)
+        if a.do_stable_layer_norm:
+            h = layer_norm(h, self.encoder_layer_norm)
+            hidden_states[-1] = h
+        return (h, hidden_states) if output_hidden_states else h
+
+
+# ---------------------------------------------------------------------------------
+# HF torch checkpoint porting (numpy only: the tree is adfmsl's flax layout)
+# ---------------------------------------------------------------------------------
+
+def _t(x):
+    return np.ascontiguousarray(np.asarray(x))
+
+
+def port_hf_state_dict(sd: dict, arch: W2V2Arch) -> dict:
+    """Map a HF torch Wav2Vec2Model state_dict (numpy values, keys under
+    'feature_extractor'/'feature_projection'/'encoder', optionally prefixed
+    'wav2vec2.') to adfmsl's flax param tree of the encoder, as numpy arrays
+    (adfmsl ``w2v2.py:205``). ``state_dict_from_flax`` turns the tree into
+    the port's state dict."""
+    sd = {(k[len("wav2vec2."):] if k.startswith("wav2vec2.") else k): v
+          for k, v in sd.items()}
+
+    def norm(key):
+        return {"scale": _t(sd[f"{key}.weight"]), "bias": _t(sd[f"{key}.bias"])}
+
+    p: dict = {}
+    fe: dict = {}
+    for i in range(len(arch.conv_dim)):
+        c = f"feature_extractor.conv_layers.{i}"
+        layer: dict = {"conv": {"kernel": _t(sd[f"{c}.conv.weight"]).transpose(2, 1, 0)}}
+        if arch.feat_extract_norm == "group" and i == 0:
+            layer["group_norm"] = norm(f"{c}.layer_norm")
+        elif arch.feat_extract_norm == "layer":
+            layer["layer_norm"] = norm(f"{c}.layer_norm")
+        fe[f"conv_layers_{i}"] = layer
+    p["feature_extractor"] = fe
+    p["feature_projection_norm"] = norm("feature_projection.layer_norm")
+    p["feature_projection"] = {
+        "kernel": _t(sd["feature_projection.projection.weight"]).T,
+        "bias": _t(sd["feature_projection.projection.bias"]),
+    }
+
+    # positional conv: HF stores weight-norm (weight_g, weight_v, or the
+    # parametrizations spelling) or a plain weight
+    base = "encoder.pos_conv_embed.conv"
+    spellings = ((f"{base}.weight_g", f"{base}.weight_v"),
+                 (f"{base}.parametrizations.weight.original0",
+                  f"{base}.parametrizations.weight.original1"))
+    found = [s for s in spellings if s[0] in sd]
+    if found:
+        g, v = _t(sd[found[0][0]]), _t(sd[found[0][1]])   # weight_norm dim=2: g (1,1,K)
+        nrm = np.sqrt((v * v).sum(axis=(0, 1), keepdims=True))
+        w = v * (g.reshape(1, 1, -1) / np.maximum(nrm, 1e-12))
+    else:
+        w = _t(sd[f"{base}.weight"])
+    p["pos_conv_embed"] = {"conv": {"kernel": w.transpose(2, 1, 0),
+                                    "bias": _t(sd[f"{base}.bias"])}}
+    p["encoder_layer_norm"] = norm("encoder.layer_norm")
+
+    H, nH = arch.hidden_size, arch.num_heads
+    hd = H // nH
+    for i in range(arch.num_layers):
+        e = f"encoder.layers.{i}"
+
+        def qkv(name):
+            return {"kernel": _t(sd[f"{e}.attention.{name}.weight"]).T.reshape(H, nH, hd),
+                    "bias": _t(sd[f"{e}.attention.{name}.bias"]).reshape(nH, hd)}
+        p[f"layers_{i}"] = {
+            "attention": {
+                "query": qkv("q_proj"), "key": qkv("k_proj"), "value": qkv("v_proj"),
+                "out": {
+                    "kernel": _t(sd[f"{e}.attention.out_proj.weight"]).T.reshape(nH, hd, H),
+                    "bias": _t(sd[f"{e}.attention.out_proj.bias"]),
+                },
+            },
+            "layer_norm": norm(f"{e}.layer_norm"),
+            "intermediate_dense": {
+                "kernel": _t(sd[f"{e}.feed_forward.intermediate_dense.weight"]).T,
+                "bias": _t(sd[f"{e}.feed_forward.intermediate_dense.bias"]),
+            },
+            "output_dense": {
+                "kernel": _t(sd[f"{e}.feed_forward.output_dense.weight"]).T,
+                "bias": _t(sd[f"{e}.feed_forward.output_dense.bias"]),
+            },
+            "final_layer_norm": norm(f"{e}.final_layer_norm"),
+        }
+    return p
+
+
+def load_pretrained(path: str, arch: W2V2Arch) -> "dict[str, torch.Tensor]":
+    """A local HF checkpoint (.safetensors, torch .bin / .pt) -> the port's
+    state dict of ``Wav2Vec2Encoder`` (adfmsl ``w2v2.py:294``, which returns
+    the flax tree: here it goes on through ``state_dict_from_flax``)."""
+    from adfmsl_torch.models.port import flax_tree_to_state_dict
+
+    if path.endswith(".safetensors"):
+        try:
+            from safetensors.numpy import load_file
+        except ImportError as e:
+            raise ImportError(f"reading {path} needs the 'safetensors' package") from e
+        sd = load_file(path)
+    else:
+        sd = {k: v.numpy() for k, v in torch.load(path, map_location="cpu",
+                                                  weights_only=True).items()}
+    return flax_tree_to_state_dict(port_hf_state_dict(sd, arch))

@@ -1,12 +1,15 @@
-"""Build the port's CUDA kernels with nvcc at first use and load them by ctypes.
+"""Build the port's native libraries at first use and load them by ctypes.
 
-Each library is compiled from ``adfmsl_torch/csrc`` into a plain-C shared
-object for ``sm_90a`` (no PyTorch headers, so a build takes seconds) under
-``adfmsl_torch/_build/``, which git ignores. The directory name carries a hash
-of the sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
-source builds anew and an unchanged one is reused. A diagnostic variant of a
-library (``defines``, passed to nvcc as ``-D``) builds beside it under a key of
-its own. Nothing here runs at import time.
+Each CUDA library is compiled from ``adfmsl_torch/csrc`` with nvcc into a
+plain-C shared object for ``sm_90a`` (no PyTorch headers, so a build takes
+seconds); the host library of the audio decoder (``HOST_LIBRARIES``) is
+compiled with the host's C++ compiler (``$CXX``, else ``g++``). Both land
+under ``adfmsl_torch/_build/``, which git ignores. The directory name carries
+a hash of the sources, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source builds anew and an unchanged one is reused. A diagnostic
+variant of a library (``defines``, passed to the compiler as ``-D``) builds
+beside it under a key of its own. A failed build raises with the compiler's
+log. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -31,6 +34,11 @@ LIBRARIES = {"resblock_eval": ("resblock_eval.cu",),
              "sinc_abs_pool": ("sinc_abs_pool.cu",),
              "sinc_abs_pool_bwd": ("sinc_abs_pool_bwd.cu",),
              "lfcc_fused": ("lfcc_fused.cu",)}
+# Host libraries (built with the C++ compiler, not nvcc): name -> sources.
+# adfmsl's io_native/src/Makefile flags, without -march=native: the cache key
+# does not name the host.
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra"]
+HOST_LIBRARIES = {"adfmsl_torch_io": ("audio_decode.cc",)}
 
 
 def _nvcc() -> str:
@@ -42,15 +50,21 @@ def _nvcc() -> str:
                        "built from adfmsl_torch/csrc at first use")
 
 
+def _cxx() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
 def library_path(name: str, defines: tuple = ()) -> Path:
     """Compile the sources of library ``name`` (with ``-D`` each of
     ``defines``) into lib<name>.so unless an identical build exists; returns
-    its path. The compiler's resource report (-Xptxas -v) is kept beside it as
-    build.log."""
-    sources = LIBRARIES[name]
-    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    its path. The compiler's output (for nvcc its -Xptxas -v resource report)
+    is kept beside it as build.log."""
+    host = name in HOST_LIBRARIES
+    sources = HOST_LIBRARIES[name] if host else LIBRARIES[name]
+    flags = [*(HOST_FLAGS if host else NVCC_FLAGS), *(f"-D{d}" for d in defines)]
     h = hashlib.sha256(" ".join(flags).encode())
-    for s in (*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))):  # headers too
+    headers = () if host else sorted(p.name for p in CSRC.glob("*.cuh"))
+    for s in (*sources, *headers):
         h.update(s.encode())
         h.update((CSRC / s).read_bytes())
     out_dir = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}"
@@ -60,24 +74,32 @@ def library_path(name: str, defines: tuple = ()) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *flags, "-o", tmp, *[str(CSRC / s) for s in sources]]
+    compiler = _cxx() if host else _nvcc()
+    cmd = [compiler, *flags, "-o", tmp, *[str(CSRC / s) for s in sources],
+           *(["-lpthread"] if host else [])]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:                   # the compiler itself is missing
+        os.unlink(tmp)
+        raise RuntimeError(f"cannot run {compiler} to build {name}: {e}") from e
     secs = time.perf_counter() - t0
     (out_dir / "build.log").write_text(
         f"{' '.join(cmd)}\n# {secs:.2f} s, exit {proc.returncode}\n"
         f"{proc.stdout}{proc.stderr}")
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"{Path(compiler).name} failed for {name}:\n"
+                           f"{(proc.stdout + proc.stderr)[-4000:]}")
     os.replace(tmp, lib)                   # atomic: concurrent builds agree
     return lib
 
 
 def build_all() -> dict:
-    """Build every library at once, one nvcc process each; name -> path."""
-    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
-        return dict(zip(LIBRARIES, pool.map(library_path, LIBRARIES)))
+    """Build every library at once, one compiler process each; name -> path."""
+    names = [*LIBRARIES, *HOST_LIBRARIES]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(library_path, names)))
 
 
 @functools.lru_cache(maxsize=None)

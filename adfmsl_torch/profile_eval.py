@@ -9,13 +9,25 @@ with ``--fused_frontend`` at batches of at most 16), runs a few warm forwards
 on random audio, then prints one JSON line per section:
 
 - ``stages``: CUDA-event time of each top-level stage of one forward (the sinc
-  front end, each trunk block, for RawNet models the GRU and fc1_gru, the
-  head), and the rest (front-end BN/SELU, gates, pooling) as glue; for the
+  front end, or the Wav2Vec2 encoder's conv layers, positional conv and
+  transformer layers; each trunk block; for RawNet models the GRU and
+  fc1_gru; the head), and the rest (input normalisation, feature projection
+  and LayerNorms, the 1x1 ``proj`` conv, front-end BN/SELU, gates, pooling)
+  as glue; for the
   LFCC / log-mel models (``lcnn_lfcc``, ``lcnn1d_lfcc``, ``resnet18_logmel``)
   the front end (DSP and CMVN), the trunk (to the pooled features) and the
   head;
+- ``stages_profiler``: the device time of the coarse stages (the front end,
+  the trunk, the head) from ``torch.profiler`` over ``--reps`` forwards: each
+  stage a ``record_function`` range, timed by the union of the intervals of
+  the kernels inside its device-side spans (the profiler emits several,
+  overlapping, for one range, and a span also holds the gaps between its
+  kernels); the forward's device time is the union of its kernels' intervals
+  (cuDNN runs a grouped conv's groups as concurrent kernels, so summing kernel
+  times would count that time twice), with the device busy share of the window;
 - ``kernels``: the device time by kernel name over ``--reps`` forwards from
-  ``torch.profiler`` (top 12), with the device busy share of the window.
+  ``torch.profiler`` (top 12), with the forward's device time (the union of
+  its kernels' intervals) and the device busy share of the window.
 """
 from __future__ import annotations
 
@@ -44,9 +56,40 @@ def stage_names(model) -> list:
         enc = model.encoder
         names = (["encoder.sinc"] + [f"encoder.block{i}" for i in range(enc.n_blocks)]
                  + ["encoder.gru", "encoder.fc1_gru"])
+    elif hasattr(model, "wav2vec2"):
+        enc = model.wav2vec2
+        names = ([f"wav2vec2.feature_extractor.conv_layers_{i}"
+                  for i in range(enc.feature_extractor.n)] + ["wav2vec2.pos_conv_embed"]
+                 + [f"wav2vec2.layers_{i}" for i in range(enc.arch.num_layers)]
+                 + [f"trunk.block{i}" for i in range(model.trunk.n_blocks)])
     else:
         names = ["sinc"] + [f"trunk.block{i}" for i in range(model.trunk.n_blocks)]
-    return names + [n for n in ("fc1", "fmsl", "fc2") if hasattr(model, n)]
+    return names + head_names(model)
+
+
+def head_names(model) -> list:
+    return [n for n in ("fc1", "fmsl", "fc2") if hasattr(model, n)]
+
+
+def coarse_stage_names(model) -> list:
+    """The front end, the trunk and the head, by module name."""
+    if hasattr(model, "encoder"):
+        return ["encoder"] + head_names(model)
+    front = "wav2vec2" if hasattr(model, "wav2vec2") else "sinc"
+    return [front, "trunk"] + head_names(model)
+
+
+def union_ms(intervals) -> float:
+    """Total length (ms) of the union of (start, end) intervals in us."""
+    total, cur = 0.0, None
+    for s, e in sorted(intervals):
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    return (total + (cur[1] - cur[0] if cur else 0.0)) / 1e3
 
 
 def spectral_stage_times(model, x) -> dict:
@@ -97,6 +140,55 @@ def stage_times(model, x) -> dict:
     return out
 
 
+def stage_device_times(model, x, reps: int, names=None) -> dict:
+    """Device ms per forward of each stage (``names``, by default
+    ``coarse_stage_names``) from ``torch.profiler``: each stage a
+    ``record_function`` range entered and left by forward hooks, measured by
+    the union of the kernel intervals inside its device-side spans; the
+    forward's device ms is the union of its kernels' intervals; with the busy
+    share of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    names = names or coarse_stage_names(model)
+    mods = dict(model.named_modules())
+    open_ranges, handles = {}, []
+    for n in names:
+        def pre(_m, _a, n=n):
+            open_ranges[n] = record_function(f"stage.{n}")
+            open_ranges[n].__enter__()
+
+        def post(_m, _a, _o, n=n):
+            open_ranges.pop(n).__exit__(None, None, None)
+        handles += [mods[n].register_forward_pre_hook(pre),
+                    mods[n].register_forward_hook(post)]
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for h in handles:
+            h.remove()
+    # device events: the kernels and copies, and the ranges' device-side spans
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [(e.time_range.start, e.time_range.end) for e in on_device
+               if not e.key.startswith("stage.")]
+    device = union_ms(kernels) / reps
+    out = {}
+    for n in names:
+        spans = [(e.time_range.start, e.time_range.end) for e in on_device
+                 if e.key == f"stage.{n}"]
+        out[n] = union_ms((max(s, a), min(e, b)) for s, e in kernels for a, b in spans
+                          if min(e, b) > max(s, a)) / reps
+    out["device_ms_per_forward"] = device
+    out["rest"] = device - sum(out[n] for n in names)
+    out["device_busy_share"] = device * reps / wall_ms if wall_ms else None
+    return out
+
+
 def kernel_times(model, x, reps: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -113,8 +205,11 @@ def kernel_times(model, x, reps: int) -> dict:
             rows.append((ev.key, ev.self_device_time_total / 1e3 / reps,
                          ev.count // reps))
     rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+    # concurrent kernels (a grouped conv's groups) count once in the union
+    busy = union_ms((e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA) / reps
     return {"wall_ms_per_forward": wall_ms / reps, "device_ms_per_forward": busy,
+            "kernel_ms_sum_per_forward": sum(r[1] for r in rows),
             "device_busy_share": busy * reps / wall_ms if wall_ms else None,
             "top": [{"kernel": k[:90], "ms": ms, "calls": c} for k, ms, c in rows[:12]]}
 
@@ -145,6 +240,8 @@ def main(argv=None) -> int:
             model(x)
         torch.cuda.synchronize()
         print("stages " + json.dumps({**head, **stage_times(model, x)}), flush=True)
+        print("stages_profiler " + json.dumps(
+            {**head, **stage_device_times(model, x, args.reps)}), flush=True)
         print("kernels " + json.dumps({**head, **kernel_times(model, x, args.reps)}),
               flush=True)
     return 0

@@ -6,7 +6,9 @@ random streams from (seed, epoch, step); metrics accumulate on the device and
 reach the host once an epoch; epochs continue across ``fit()`` calls and
 after a restore (so streams, shuffles and checkpoint numbers never repeat);
 a dev set gives accuracy and EER per epoch, which drive the checkpoint
-retention, the plateau scale and early stopping. ``mesh`` (data-parallel
+retention, the plateau scale and early stopping; a Wav2Vec2 model gets its
+pretrained encoder from ``wav2vec2.pretrained_path`` before the optimizer is
+built, and the optimizer labels its parameters ('main', 'backbone', 'frozen'). ``mesh`` (data-parallel
 training) comes with ROADMAP slice 8. adfmsl also writes ``experiment.yaml``
 beside the checkpoints; here every epoch's ``model.pt`` carries the config.
 """
@@ -26,6 +28,7 @@ from adfmsl_torch.data.protocol import Protocol
 from adfmsl_torch.device import resolve_device
 from adfmsl_torch.evaluation.metrics import compute_eer
 from adfmsl_torch.models.mazes import build_model
+from adfmsl_torch.models.pretrained import inject_pretrained_w2v2
 from adfmsl_torch.train.checkpoint import CheckpointManager
 from adfmsl_torch.train.early_stop import EarlyStopper
 from adfmsl_torch.train.optim import Optimizer, PlateauTracker
@@ -61,8 +64,10 @@ class Trainer:
         self.dev_loader = dev_loader
         self.device = resolve_device(device)
         model = build_model(exp.model, device=self.device, seed=exp.train.seed)
-        opt = Optimizer(exp.train.optimizer, model.parameters(),
-                        max(len(train_loader), 1), exp.train.num_epochs)
+        w2v2 = exp.model.wav2vec2
+        if w2v2.pretrained_path or w2v2.require_pretrained:
+            inject_pretrained_w2v2(model, w2v2)
+        opt = Optimizer.for_model(exp, model, max(len(train_loader), 1))
         self.state = TrainState(model, opt, exp.train.seed)
         self.train_step = make_train_step(exp)
         self.eval_step = make_eval_step()
@@ -185,6 +190,8 @@ def make_dataset_and_loader(exp: ExperimentConfig, protocol: Protocol, audio_dir
                             shuffle: bool, batch_size: Optional[int] = None,
                             drop_last: bool = True) -> DataLoader:
     ds = AsvspoofDataset(protocol, audio_dir, cut=exp.data.cut, pad_mode=exp.data.pad_mode,
-                         sample_rate=exp.data.sample_rate)
+                         sample_rate=exp.data.sample_rate,
+                         use_native_io=exp.data.use_native_io,
+                         num_workers=exp.data.num_workers)
     return DataLoader(ds, batch_size or exp.train.batch_size, shuffle=shuffle,
                       drop_last=drop_last, seed=exp.train.seed, prefetch=exp.data.prefetch)

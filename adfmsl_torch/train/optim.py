@@ -20,17 +20,24 @@ The learning rate of an update is ``schedule(count) * plateau_scale``, where
 optax's schedule count lives in the optimizer state). Clipping is optax's
 ``clip_by_global_norm``: ``g * max / |g|`` only when ``|g| >= max``.
 
-adfmsl's 'frozen' and 'backbone' parameter groups exist for the Wav2Vec2
-models (slice 6); a sinc model has only the 'main' group.
+adfmsl labels each parameter (``param_labels`` :132-166): 'frozen' (optax
+``set_to_zero``: no update at all, weight decay included), 'backbone' (the
+Wav2Vec2 encoder, at ``lr * backbone_lr_scale``) or 'main'. ``param_labels``
+here gives the same labels by the port's parameter names; ``Optimizer``
+leaves the 'frozen' parameters out of every ``torch.optim`` group and runs
+'backbone' in a group of its own. The global-norm clip is still taken over
+every gradient, the frozen ones included, as adfmsl clips before it labels.
+A model without an encoder has only 'main'.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Optional
+import re
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
-from adfmsl_torch.config.base import OptimizerConfig
+from adfmsl_torch.config.base import OptimizerConfig, Wav2Vec2Config
 
 Schedule = Callable[[int], float]
 
@@ -87,27 +94,77 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
 
 
+def param_labels(w: Wav2Vec2Config, model: torch.nn.Module) -> Dict[str, str]:
+    """Parameter name -> 'main', 'backbone' or 'frozen' (adfmsl
+    ``_param_label_fn`` :107, ``param_labels`` :143). Outside the
+    ``wav2vec2`` encoder: 'main'. With ``unfreeze_last_n`` > 0 only the last
+    N encoder layers present (and the feature extractor with
+    ``unfreeze_feature_extractor``) are 'backbone', the rest 'frozen';
+    otherwise the whole encoder is 'frozen' with ``freeze``, else 'backbone'."""
+    names = [n for n, _ in model.named_parameters()]
+    layer = re.compile(r"^wav2vec2\.layers_(\d+)\.")
+    present = sorted({int(m.group(1)) for m in map(layer.match, names) if m})
+    unfrozen = set(present[-w.unfreeze_last_n:]) if w.unfreeze_last_n > 0 else set()
+    labels = {}
+    for n in names:
+        if not n.startswith("wav2vec2."):
+            labels[n] = "main"
+        elif w.unfreeze_last_n > 0:
+            m = layer.match(n)
+            train = ((m is not None and int(m.group(1)) in unfrozen)
+                     or (w.unfreeze_feature_extractor
+                         and n.startswith("wav2vec2.feature_extractor.")))
+            labels[n] = "backbone" if train else "frozen"
+        else:
+            labels[n] = "frozen" if w.freeze else "backbone"
+    return labels
+
+
 class Optimizer:
-    """adfmsl's optax chain (``make_optimizer`` :169) over ``params``."""
+    """adfmsl's optax chain (``make_optimizer`` :169) over ``params``.
+    ``labels`` (one of 'main', 'backbone', 'frozen' a parameter, in the order
+    of ``params``; all 'main' when omitted) sets each parameter's group."""
 
     def __init__(self, cfg: OptimizerConfig, params: Iterable[torch.nn.Parameter],
-                 steps_per_epoch: int, num_epochs: int):
+                 steps_per_epoch: int, num_epochs: int,
+                 labels: Optional[Sequence[str]] = None,
+                 backbone_lr_scale: float = 1.0):
         self.cfg = cfg
         self.params: List[torch.nn.Parameter] = list(params)
         self.schedule = make_schedule(cfg, steps_per_epoch, num_epochs)
         self.clip = cfg.grad_clip_norm if cfg.grad_clip_norm and cfg.grad_clip_norm > 0 else 0.0
         self.count = 0
         self.plateau_scale = 1.0
+        labels = list(labels) if labels is not None else ["main"] * len(self.params)
+        if len(labels) != len(self.params) or set(labels) - {"main", "backbone", "frozen"}:
+            raise ValueError(f"bad parameter labels {sorted(set(labels))}")
+        groups = [{"params": [p for p, lb in zip(self.params, labels) if lb == group],
+                   "lr_scale": scale}
+                  for group, scale in (("main", 1.0), ("backbone", backbone_lr_scale))]
+        groups = [g for g in groups if g["params"]]   # 'frozen': in no group
         if cfg.name == "adam":
-            self.opt = torch.optim.Adam(self.params, lr=cfg.lr, weight_decay=cfg.weight_decay)
+            self.opt = torch.optim.Adam(groups, lr=cfg.lr, weight_decay=cfg.weight_decay)
         elif cfg.name == "adamw":
-            self.opt = torch.optim.AdamW(self.params, lr=cfg.lr,
-                                         weight_decay=cfg.weight_decay)
+            self.opt = torch.optim.AdamW(groups, lr=cfg.lr, weight_decay=cfg.weight_decay)
         elif cfg.name == "sgd":
-            self.opt = torch.optim.SGD(self.params, lr=cfg.lr, momentum=cfg.momentum,
+            self.opt = torch.optim.SGD(groups, lr=cfg.lr, momentum=cfg.momentum,
                                        weight_decay=cfg.weight_decay)
         else:
             raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+    @classmethod
+    def for_model(cls, exp, model: torch.nn.Module, steps_per_epoch: int,
+                  num_epochs: Optional[int] = None) -> "Optimizer":
+        """The optimizer of ``exp`` over every parameter of ``model``, labelled
+        by ``param_labels`` (``exp.train.num_epochs`` when ``num_epochs`` is
+        omitted)."""
+        labels = param_labels(exp.model.wav2vec2, model)
+        params = dict(model.named_parameters())
+        ocfg = exp.train.optimizer
+        return cls(ocfg, params.values(), steps_per_epoch,
+                   exp.train.num_epochs if num_epochs is None else num_epochs,
+                   labels=[labels[n] for n in params],
+                   backbone_lr_scale=ocfg.backbone_lr_scale)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -129,7 +186,7 @@ class Optimizer:
         optax updates, and AdamW decays, parameters whose gradient is 0)."""
         lr = self.lr()
         for group in self.opt.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group["lr_scale"]
         self.opt.step()
         self.count += 1
 

@@ -68,6 +68,19 @@ Phases, each printing its own lines:
    none of them for the LFCC / log-mel models, and K4 on no evaluate path
    (the models' front end is the composition, as in adfmsl). Every count is
    set to 0 just before a path and read just after it;
+4a. the Wav2Vec2 models' main path (``w2v2_main_path``): maze7, maze7_fmsl
+   and maze3 at full width (the base encoder, random init from seed 0), bf16,
+   through ``adfmsl_torch.cli.evaluate`` on the same fixture and cut, K1
+   launched 5 times a batch for maze7 and maze7_fmsl and 3 times for maze3
+   (T 201 frames into the trunk);
+4c. native audio IO (``native_io``): the fixture's eval split written again
+   as FLAC (FIXED subframes, ``adfmsl_torch/data/flac.py``), maze5 through
+   the evaluate CLI over the FLAC split and over the WAV one, whose score
+   files must be byte for byte the same; then the loader's host rate: 256
+   utterances of 4 s as FLAC and as 16-bit WAV, decoded and padded a batch of
+   128 at a time by ``AsvspoofDataset.load_batch`` (``batch_decode_pad`` at 1,
+   2, 4 and 8 native threads; the numpy WAV reader), the median of 3 passes
+   over files in the page cache;
 4b. K4 as lcnn1d_lfcc's front end at batch 128, cut 64600: ``model.classify``
    of the kernel's LFCC against ``model(x)``, within 3e-2 * max(1, |logits|),
    with exactly one K4 launch (the count set to 0 just before); then both
@@ -111,6 +124,10 @@ Phases, each printing its own lines:
    and launch counts of the model's main path (K1 5 a batch for maze5, 6 and
    K3 1 a batch for RawNet with ``--fused_frontend``, none for the LFCC /
    log-mel models);
+7a. ``w2v2_train``: the same for maze7 (the encoder frozen, as its config
+   says: every encoder parameter must stay as initialised and every other
+   parameter and BN statistic move), its checkpoint evaluated with K1 5
+   times a batch;
 7b. RawNet's fused training front end, for main and main_fmsl: a ``Trainer``
    built in-process with ``exp.model.extra['fused_train_frontend']`` trains
    one epoch of the fixture at batch 12, cut 64600, with K3 and its backward
@@ -127,19 +144,31 @@ Phases, each printing its own lines:
 9. train throughput (bf16, the configurations' randomness on) of maze5 and
    maze5_fmsl at batch 12 and 32; of main and main_fmsl at batch 12 with the
    composition front end and with K3, and at batch 32 with the composition;
-   of lcnn_lfcc, lcnn1d_lfcc and resnet18_logmel at batch 12 and 32. utt/s
+   of lcnn_lfcc, lcnn1d_lfcc and resnet18_logmel at batch 12 and 32; of
+   maze7 at batch 12 and 32 (the frozen encoder outside autograd). utt/s
    over 5 timed steps after 2 warm ones, ending in a synchronize (the LFCC /
-   log-mel models, host-bound: the median and spread of five windows of
-   about 3 s), with the peak memory; then ``torch.profiler`` over 3 more
-   steps: the device's busy share, the step's device time split by its
+   log-mel models and maze7, host-bound: the median and spread of five
+   windows of about 3 s), with the peak memory; then ``torch.profiler`` over
+   3 more steps: the device's busy share (also from the union of the
+   kernels' intervals), the step's device time split by its
    forward / backward / update labels (``train/steps.py``), and the
    operators and kernels with the most device time and the operators with
    the most host time;
+9b. Wav2Vec2 eval throughput (``throughput_w2v2``): maze7 and maze3 folded
+   vs unfolded trunk at batch 128 (logits held against each other on 4 clips
+   first, and K1's launches a forward counted: 5 and 3), utt/s, the peak
+   memory, the device ms of the encoder, the trunk and the head from a
+   ``torch.profiler`` pass (``profile_eval.stage_device_times``), and each
+   conv layer, the positional conv, each transformer layer and each block by
+   CUDA events (``profile_eval.stage_times``, the median of 3); then
+   a ``host_feed`` line: the loader's host utt/s beside maze5's, main's,
+   maze7's and maze3's card eval utt/s at batch 128;
 10. a ``kernels`` line: every ported kernel with its launches on the main
    paths (K2's on its entry point, K4's as lcnn1d_lfcc's front end, K3's and
    its backward kernel's in the fused train steps too), its max error, its
    time at the main path's shapes beside its plain version's time, its bound
-   and the library call's time (none exists).
+   and the library call's time (none exists); K1's also summed over maze7's
+   and maze3's blocks at batch 128.
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -189,6 +218,13 @@ MAZE5_BLOCKS = [(64350, 128, 128, False, False), (32175, 128, 128, True, False),
 MAIN_BLOCKS = [(21450, 128, 128, False, False), (7150, 128, 128, True, False),
                (2383, 128, 256, True, True), (794, 256, 256, True, False),
                (264, 256, 256, True, False), (88, 256, 256, True, False)]
+# maze7's and maze3's trunks at cut 64600: the base encoder's 320x extractor
+# gives T = 201 frames; each stride-2 block halves it (ceil) before its body
+MAZE7_BLOCKS = [(201, 128, 128, False, False), (101, 128, 128, True, False),
+                (51, 128, 128, True, False), (26, 128, 128, True, False),
+                (13, 128, 256, True, True)]
+MAZE3_BLOCKS = [(101, 128, 128, False, False), (51, 128, 128, True, False),
+                (26, 128, 256, True, True)]
 K1_CASES = [  # name, B, T, Cin, Cout, pre, skip, act, pool
     ("head", 2, 100, 128, 128, False, False, "relu", 1),
     ("ragged", 2, 300, 128, 128, True, False, "relu", 1),
@@ -200,7 +236,10 @@ K1_CASES = [  # name, B, T, Cin, Cout, pre, skip, act, pool
 ] + [(f"maze5_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip,
      "relu", 1) for i, (t, cin, cout, pre, skip) in enumerate(MAZE5_BLOCKS)
 ] + [(f"main_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip,
-     "leaky", 3) for i, (t, cin, cout, pre, skip) in enumerate(MAIN_BLOCKS)]
+     "leaky", 3) for i, (t, cin, cout, pre, skip) in enumerate(MAIN_BLOCKS)
+] + [(f"{m}_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip, "relu", 1)
+     for m, blocks in (("maze7", MAZE7_BLOCKS), ("maze3", MAZE3_BLOCKS))
+     for i, (t, cin, cout, pre, skip) in enumerate(blocks)]
 K3_CASES = [  # name, B, T
     ("jax_case", 2, 8000), ("ragged", 3, 8001),
     (f"b{EVAL_BATCH}_cut{CUT}", EVAL_BATCH, CUT),
@@ -245,8 +284,11 @@ TRAIN_THROUGHPUT = (
                                (f"b{TRAIN_BATCH}_k3", TRAIN_BATCH, K3_TRAIN),
                                ("b32_composition", 32, {}))]
     + [(n, f"b{b}", b, {}) for n in ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")
-       for b in THROUGHPUT_BATCHES])
+       for b in THROUGHPUT_BATCHES]
+    + [("maze7", f"b{b}", b, {}) for b in THROUGHPUT_BATCHES])
 SPECTRAL_MODELS = ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")
+# train steps that the host sets the pace of (busy under 0.35): timed in windows
+HOST_BOUND_TRAIN = SPECTRAL_MODELS + ("maze7",)
 # adfmsl's own bounds for the fused training front end against the
 # composition (tests/test_models.py:327-337)
 FUSED_TRAIN_LOSS_REL, FUSED_TRAIN_GRAD_COS = 5e-2, 0.85
@@ -257,6 +299,12 @@ MAIN_PATHS = [("maze5", [], 5, 0, 0), ("maze5_fmsl", [], 5, 0, 0),
               ("main_fmsl", ["--fused_frontend"], 6, 1, 0),
               ("lcnn_lfcc", [], 0, 0, 0), ("lcnn1d_lfcc", [], 0, 0, 0),
               ("resnet18_logmel", [], 0, 0, 0)]
+# the Wav2Vec2 models' main path (the same fields): K1 on their trunks
+W2V2_PATHS = [("maze7", [], 5, 0, 0), ("maze7_fmsl", [], 5, 0, 0), ("maze3", [], 3, 0, 0)]
+W2V2_K1 = {"maze7": 5, "maze3": 3}            # K1 launches a forward
+# the loader's host rate: utterances of LOADER_SECONDS, decoded and padded a
+# batch of BENCH_BATCH at a time, at each count of native threads
+LOADER_UTTS, LOADER_SECONDS, LOADER_WORKERS, LOADER_PASSES = 256, 4, (1, 2, 4, 8), 3
 # K4 (fused LFCC) at the model's front-end widths (FrontendConfig's defaults)
 SR, N_FFT, HOP, WIN, N_FILTER, N_LFCC = 16000, 512, 160, 400, 70, 60
 N_BINS = N_FFT // 2 + 1
@@ -812,6 +860,78 @@ def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, rf, s
     return rec
 
 
+def phase_native_io(rf, fixture, tmp):
+    """The fixture's eval split as FLAC (FIXED subframes) against its WAV
+    twin through maze5's evaluate CLI (identical score files, K1 5 times a
+    batch), then the loader's host rate (``LOADER_*``); returns the record."""
+    from adfmsl_torch.cli import evaluate
+    from adfmsl_torch.data import AsvspoofDataset, parse_protocol, write_wav
+    from adfmsl_torch.data.flac import flac_twin, write_flac
+    from adfmsl_torch.ops import _build
+
+    ev = fixture["eval"]
+    flac_dir = os.path.join(tmp, "eval_flac")
+    rec = {"decoder": str(_build.library_path("adfmsl_torch_io").relative_to(ROOT)),
+           "flac_files": flac_twin(ev["audio_dir"], flac_dir)}
+    n_batches = -(-EVAL_UTTS // EVAL_BATCH)
+    scores = {}
+    for fmt, d in (("wav", ev["audio_dir"]), ("flac", flac_dir)):
+        out = os.path.join(tmp, f"maze5_{fmt}_scores.txt")
+        rf.resblock_eval.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = evaluate.main(["--model_type", "maze5", "--protocol", ev["protocol"],
+                                "--data_dir", d, "--output", out, "--batch_size",
+                                str(EVAL_BATCH), "--cut", str(CUT), "--device", "cuda",
+                                "--seed", "0"])
+        torch.cuda.synchronize()
+        check(rc == 0, f"maze5 over the {fmt} eval split: evaluate exited {rc}")
+        check(rf.resblock_eval.launches == 5 * n_batches,
+              f"maze5 over {fmt}: K1 launched {rf.resblock_eval.launches} times")
+        with open(out, "rb") as fh:
+            scores[fmt] = fh.read()
+    check(scores["wav"] == scores["flac"],
+          "maze5: the FLAC eval split's score file differs from its WAV twin's")
+    rec["score_files_identical"] = True
+
+    # the loader's host rate: 4 s utterances, a tone and noise, as FLAC and WAV
+    rng = np.random.default_rng(6)
+    n = 16000 * LOADER_SECONDS
+    dirs = {fmt: os.path.join(tmp, f"loader_{fmt}") for fmt in ("flac", "wav")}
+    for d in dirs.values():
+        os.makedirs(d)
+    ids = [f"LA_L_{i:05d}" for i in range(LOADER_UTTS)]
+    for i, u in enumerate(ids):
+        x = 0.3 * np.sin(2 * np.pi * (150 + i) * np.arange(n) / 16000)
+        x = np.clip(x + 0.05 * rng.standard_normal(n), -1.0, 1.0).astype(np.float32)
+        write_flac(os.path.join(dirs["flac"], u + ".flac"), np.round(x * 32767.0))
+        write_wav(os.path.join(dirs["wav"], u + ".wav"), x, 16000)
+    proto_path = os.path.join(tmp, "loader_protocol.txt")
+    with open(proto_path, "w") as fh:
+        fh.write("".join(f"LA_0000 {u} - - bonafide\n" for u in ids))
+    proto = parse_protocol(proto_path)
+    configs = ([(f"flac_native_w{w}", "flac", True, w) for w in LOADER_WORKERS]
+               + [("wav_native_w8", "wav", True, 8), ("wav_numpy", "wav", False, 1)])
+    rates = {}
+    for key, fmt, native, workers in configs:
+        ds = AsvspoofDataset(proto, dirs[fmt], cut=CUT, use_native_io=native,
+                             num_workers=workers)
+        ds.load_batch(ids[:8])                            # page cache, first call
+        secs = []
+        for _ in range(LOADER_PASSES):
+            t0 = time.perf_counter()
+            for b in range(0, LOADER_UTTS, BENCH_BATCH):
+                audio, _ = ds.load_batch(ids[b:b + BENCH_BATCH])
+            secs.append(time.perf_counter() - t0)
+        check(audio.shape == (BENCH_BATCH, CUT) and bool(audio.any()),
+              f"loader {key}: batch {audio.shape}")
+        rates[key] = {"utt_per_s": LOADER_UTTS / float(np.median(secs)),
+                      "passes_s": secs}
+    rec.update(utterances=LOADER_UTTS, seconds_each=LOADER_SECONDS, batch=BENCH_BATCH,
+               cpu_count=os.cpu_count(), loader=rates)
+    print("native_io " + json.dumps(rec), flush=True)
+    return rec
+
+
 def forward_rate(model, x, reps: int = 5) -> tuple:
     """(utt/s, ms per forward) over ``reps`` forwards after 2 warm ones, by
     the host clock around work that ends in a synchronize."""
@@ -876,13 +996,18 @@ def phase_throughput_main(dev, card):
     print("throughput " + json.dumps(rec), flush=True)
     del models, x, xs
     torch.cuda.empty_cache()
+    return rec
 
 
-def phase_throughput(name, dev, card):
+def phase_throughput(name, dev, card, rf=None):
     """Folded (K1) vs unfolded bf16 trunk: logits agreement on 4 clips, then
-    eval utt/s at batch 128 on random audio."""
+    eval utt/s at batch 128 on random audio. With ``rf`` (the Wav2Vec2
+    models): K1's launches a forward checked (``W2V2_K1``), and the device ms
+    of each stage of a forward from a ``torch.profiler`` pass. Returns the
+    record."""
     from adfmsl_torch.config import make_experiment
     from adfmsl_torch.models import build_model
+    from adfmsl_torch.profile_eval import stage_device_times, stage_times
 
     models = {}
     for fused in (True, False):
@@ -903,9 +1028,28 @@ def phase_throughput(name, dev, card):
           f"{name}: folded logits differ from the unfolded trunk by {err} > {tol}")
     for fused, key in ((True, "utt_per_s_k1"), (False, "utt_per_s_unfolded")):
         rec[key], rec[key.replace("utt_per_s", "forward_ms")] = forward_rate(models[fused], x)
+    if rf is not None:
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats(dev)
+            rf.resblock_eval.launches = 0
+            models[True](x)
+            torch.cuda.synchronize()
+            rec["k1_launches_per_forward"] = rf.resblock_eval.launches
+            check(rec["k1_launches_per_forward"] == W2V2_K1[name],
+                  f"{name}: K1 launched {rec['k1_launches_per_forward']} times a forward")
+            rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            st = stage_device_times(models[True], x, 3)
+            check(st["wav2vec2"] > 0 and st["trunk"] > 0
+                  and st["wav2vec2"] + st["trunk"] <= 1.001 * st["device_ms_per_forward"],
+                  f"{name}: the profiler's stage split {st}")
+            rec["stages_profiler_ms"] = st
+            splits = [stage_times(models[True], x) for _ in range(3)]
+            rec["stages_events_ms"] = {k: float(np.median([sp[k] for sp in splits]))
+                                       for k in splits[0]}
     print("throughput " + json.dumps(rec), flush=True)
     del models, x
     torch.cuda.empty_cache()
+    return rec
 
 
 def phase_k4_frontend(lf, dev, card):
@@ -1200,14 +1344,18 @@ def phase_train(name, rf, k2, sf, fixture, tmp, dev):
     # the CLI sets no fused training front end, as adfmsl's: K3 stays idle
     check(k3_train == 0, f"{name}: K3 launched {k3_train} times in cli.train")
     init = build_model(exp.model, device="cpu", seed=exp.train.seed).state_dict()
+    # a frozen Wav2Vec2 encoder stays as initialised; everything else moves
+    frozen = exp.model.wav2vec2.freeze
     for a, b, what in ((init, models[0], "epoch 0"), (models[0], models[1], "epoch 1")):
-        still = [k for k, v in b.items() if not k.endswith("num_batches_tracked")
-                 and torch.equal(v, a[k])]
-        check(not still, f"{name}: unmoved by {what}: {still}")
+        wrong = [k for k, v in b.items() if not k.endswith("num_batches_tracked")
+                 and torch.equal(v, a[k]) != (frozen and k.startswith("wav2vec2."))]
+        check(not wrong, f"{name}: moved or unmoved against its labels by {what}: "
+                         f"{wrong[:8]}")
 
     ev = fixture["eval"]
     out = os.path.join(tmp, f"{name}_trained_scores.txt")
-    _, flags, k1_per_batch, k3_per_batch, _ = next(p for p in MAIN_PATHS if p[0] == name)
+    _, flags, k1_per_batch, k3_per_batch, _ = next(p for p in MAIN_PATHS + W2V2_PATHS
+                                                   if p[0] == name)
     rf.resblock_eval.launches = 0
     sf.sinc_abs_pool_fused.launches = 0
     buf = io.StringIO()
@@ -1379,6 +1527,7 @@ def profile_steps(step, st, batch_args, first, steps=3, tops=False):
     most device time and the operators with the most host time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from adfmsl_torch.profile_eval import union_ms
     from adfmsl_torch.train.steps import STEP_LABELS
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1408,12 +1557,18 @@ def profile_steps(step, st, batch_args, first, steps=3, tops=False):
     # are left out); host events (aten ops) carry the device time of the
     # kernels they launched, counted a second time
     kernels = [e for e in on_device if device_us(e) > 0 and e.key not in STEP_LABELS]
+    # kernels that run at once (cuDNN's grouped conv runs its groups so) count
+    # once in the union of their intervals
+    union = union_ms((e.time_range.start, e.time_range.end) for e in prof.events()
+                     if str(e.device_type).endswith("CUDA") and e.key not in STEP_LABELS)
     ops = [e for e in on_host if device_us(e) > 0 and e.key not in STEP_LABELS]
     device_ms = sum(device_us(e) for e in kernels) / 1e3 / steps
     fwd, bwd, upd = (labels.get(k, 0.0) for k in STEP_LABELS)
     rec = {"profiled_steps": steps, "wall_ms_per_step": wall_ms,
            "device_ms_per_step": device_ms,
            "device_busy_share": device_ms / wall_ms if device_ms else None,
+           "device_union_ms_per_step": union / steps,
+           "device_union_busy_share": union / steps / wall_ms,
            # autograd runs the backward's kernels on its own device thread,
            # outside the backward label's range: the backward is the rest
            "forward_ms": fwd, "update_ms": upd, "backward_ms": device_ms - fwd - upd,
@@ -1448,21 +1603,21 @@ def phase_train_throughput(name, configs, dev, card):
     """Train utt/s of the real step for each (label, batch, model extras) of
     ``configs``, with the peak memory, then a profile of it
     (``profile_steps``). Sinc and RawNet models: 5 timed steps after 2 warm
-    ones. The LFCC / log-mel models, host-bound: the median and spread of
-    ``SPECTRAL_WINDOWS`` windows of about ``SPECTRAL_WINDOW_S`` seconds."""
+    ones. The host-bound steps (``HOST_BOUND_TRAIN``: the LFCC / log-mel
+    models and maze7): the median and spread of ``SPECTRAL_WINDOWS`` windows
+    of about ``SPECTRAL_WINDOW_S`` seconds."""
     from adfmsl_torch.config import make_experiment
     from adfmsl_torch.models import build_model
     from adfmsl_torch.train import Optimizer, TrainState, make_train_step
 
     rec = {"model": name, "card": card, "cut": CUT, "dtype": "bfloat16"}
-    windowed = name in SPECTRAL_MODELS
+    windowed = name in HOST_BOUND_TRAIN
     for label, batch, extra in configs:
         t0 = time.perf_counter()
         exp = make_experiment(name)
         exp.model.extra.update(extra)
         model = build_model(exp.model, device=dev, seed=0)
-        st = TrainState(model, Optimizer(exp.train.optimizer, model.parameters(), 100, 5),
-                        seed=0)
+        st = TrainState(model, Optimizer.for_model(exp, model, 100, 5), seed=0)
         step = make_train_step(exp)
         g = torch.Generator(device=dev).manual_seed(3)
         args = (0.1 * torch.randn((batch, CUT), generator=g, device=dev),
@@ -1619,6 +1774,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "library_note": "no single PyTorch call computes the folded block",
         "shapes": f"the five maze5 trunk blocks at batch {BENCH_BATCH}, cut {CUT}",
         "main_blocks": _summed([r for r in k1 if r["case"].startswith("main_block")]),
+        **{f"{m}_blocks": {**_summed([r for r in k1 if r["case"].startswith(f"{m}_block")]),
+                           "launches_per_forward": W2V2_K1[m],
+                           "shapes": f"batch {BENCH_BATCH}, T 201 frames into the trunk"}
+           for m in W2V2_K1},
         "redesigned_shapes": sorted(_k1_instantiations(k1)),
         "instantiations": _k1_instantiations(k1),
     }, {
@@ -1784,8 +1943,13 @@ def main() -> int:
                                                       n_eval=EVAL_UTTS))
         main_path = phase("main_path", lambda: [
             phase_main_path(*p, rf, sf, lf, fixture, tmp) for p in MAIN_PATHS])
+        main_path += phase("w2v2_main_path", lambda: [
+            phase_main_path(*p, rf, sf, lf, fixture, tmp) for p in W2V2_PATHS])
+        native = phase("native_io", phase_native_io, rf, fixture, tmp)
         train = phase("train", lambda: [phase_train(n, rf, k2, sf, fixture, tmp, dev)
                                         for n in TRAIN_MODELS])
+        train += phase("w2v2_train", lambda: [phase_train("maze7", rf, k2, sf, fixture,
+                                                          tmp, dev)])
         fused_train = phase("fused_train", lambda: [phase_fused_train(n, sf, fixture, dev)
                                                     for n in ("main", "main_fmsl")])
     k4_front = phase("k4_frontend", phase_k4_frontend, lf, dev, smi)
@@ -1794,9 +1958,17 @@ def main() -> int:
     phase("train_throughput", lambda: [
         phase_train_throughput(n, [c[1:] for c in TRAIN_THROUGHPUT if c[0] == n], dev, smi)
         for n in dict.fromkeys(c[0] for c in TRAIN_THROUGHPUT)])
-    phase("throughput", lambda: [phase_throughput(n, dev, smi)
-                                 for n in ("maze5", "maze5_fmsl")])
-    phase("throughput_main", phase_throughput_main, dev, smi)
+    card_rates = phase("throughput", lambda: [phase_throughput(n, dev, smi)
+                                              for n in ("maze5", "maze5_fmsl")])
+    main_rate = phase("throughput_main", phase_throughput_main, dev, smi)
+    card_rates += phase("throughput_w2v2", lambda: [phase_throughput(n, dev, smi, rf)
+                                                    for n in W2V2_K1])
+    feed = {"card": smi, "loader_utt_per_s": {k: v["utt_per_s"]
+                                              for k, v in native["loader"].items()},
+            "card_eval_utt_per_s": {**{r["model"]: r["utt_per_s_k1"] for r in card_rates},
+                                    "main": main_rate[f"utt_per_s_b{BENCH_BATCH}"]},
+            "batch": BENCH_BATCH, "cut": CUT}
+    print("host_feed " + json.dumps(feed), flush=True)
     phase("throughput_spectral", phase_throughput_spectral, dev, smi)
 
     print("phase_seconds " + json.dumps({**phase_s,
