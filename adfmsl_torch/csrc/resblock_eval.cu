@@ -80,6 +80,16 @@
 //    registers a thread, so two CTAs share an SM and one's loads and epilogues
 //    overlap the other's products; the wider blocks take about 200 KB and run
 //    one CTA an SM.
+// 7. The wide stack heads, maze2's 768 -> 128 and maze6's 1024 -> 128 with the
+//    1x1 skip (Cfg::WIDE), take their own tile: a 126-row tile's skewed x alone
+//    would be 130 x 1032 x 2 = 268 KB at Cin 1024. At the stack head h == x (no
+//    bn1; the wrapper refuses `pre` and the pool there), so one x tile serves
+//    conv1 and the skip and y1 gets a tile of its own; the tile is one 64-row
+//    wgmma M (R = 62 output rows, 66 x rows: 136 KB at Cin 1024, 220 KB a CTA
+//    with the ring), and the two warpgroups split N instead of M: each runs
+//    m64n64k16 on its 64 columns of every weight slice (the slice's second half
+//    starts 8 KB in). The x rows arrive by one bulk copy a row straight to the
+//    skewed pitch, so no pass through registers spreads them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,9 +100,6 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int R = 126;              // output rows per tile: 2 x 64 - 2, a multiple of 3
-constexpr int M_ROWS = 128;         // rows each conv computes: two 64-row warpgroup tiles
-constexpr int X_ROWS = M_ROWS + 2;  // x / h / y1 tile rows: global r0-2 .. r0+127
 constexpr int KC = 64;              // k depth of one weight slice
 constexpr int THREADS = 256;        // two warpgroups
 constexpr int SMEM_LIMIT = 232448;  // 227 KB: the most a CTA may take on an H100
@@ -103,7 +110,16 @@ __host__ __device__ constexpr int align128(int v) { return (v + 127) & ~127; }
 template <int CIN, int COUT>
 struct Cfg {
     static constexpr bool SKIP = CIN != COUT;       // 1x1 skip, else identity
+    // The wide stack-head blocks (768 or 1024 -> 128, 1x1 skip, no bn1: h == x):
+    // one x tile serves conv1 and the skip, y1 has a tile of its own, the tile
+    // is one 64-row wgmma M (a 128-row x tile would not fit 227 KB) and the two
+    // warpgroups split N: each computes 64 rows x COUT/2 columns.
+    static constexpr bool WIDE = CIN > 256;
     static constexpr int CIN_ = CIN;
+    static constexpr int M_ROWS = WIDE ? 64 : 128;  // rows each conv computes
+    static constexpr int R = M_ROWS - 2;            // output rows a tile (126: a multiple of 3)
+    static constexpr int X_ROWS = M_ROWS + 2;       // x / h / y1 tile rows: global r0-2 ..
+    static constexpr int NW = WIDE ? COUT / 2 : COUT;   // columns a warpgroup computes
     static constexpr int XP = CIN + 8;              // x / h row pitch, elements (16 B skew)
     static constexpr int YP = COUT + 8;             // y1 row pitch
     static constexpr int SP = COUT + 8;             // f32 stage row pitch
@@ -113,26 +129,31 @@ struct Cfg {
     static constexpr int NSK = SKIP ? CIN / KC : 0; // 1x1 skip slices
     static constexpr int SLICES = N1 + N2 + NSK;
     static constexpr int WEIGHT_BYTES = SLICES * SLICE_BYTES;
-    static constexpr int CTAS = COUT == 128 ? 2 : 1;    // CTAs an SM (launch bounds)
+    static constexpr int CTAS = COUT == 128 && !WIDE ? 2 : 1;   // CTAs an SM (launch bounds)
     static constexpr int STAGES = COUT == 128 ? 4 : (SKIP ? 3 : 4);   // weight ring
     static constexpr int CH = COUT / 8;             // 8-channel chunks of a row
     static constexpr int NRG = THREADS / CH;        // row groups of the last pass
     // byte offsets: barriers, [x tile], h / y1 tile, weight ring; the f32 stage
-    // and the sums' scratch alias everything after the barriers
+    // and the sums' scratch alias everything after the barriers. h lives in
+    // the x tile when WIDE, else in the h / y1 tile.
     static constexpr int BARS = 0;
     static constexpr int XS = 256;
     static constexpr int HY = align128(XS + (SKIP ? X_ROWS * XP * 2 : 0));
-    static constexpr int HY_BYTES = X_ROWS * (XP > YP ? XP : YP) * 2;
+    static constexpr int HY_BYTES = X_ROWS * (XP > YP && !WIDE ? XP : YP) * 2;
+    static constexpr int H = WIDE ? XS : HY;
     static constexpr int RING = align128(HY + HY_BYTES);
     static constexpr int TOTAL = RING + STAGES * SLICE_BYTES;
     // x arrives dense (rows of CIN) at the end of the region its skewed tile
-    // takes, and is spread out to the skewed pitch in registers
+    // takes, and is spread out to the skewed pitch in registers (WIDE: one
+    // bulk copy a row lands it at the pitch)
     static constexpr int XD = (SKIP ? XS + X_ROWS * XP * 2 : HY + HY_BYTES) - X_ROWS * CIN * 2;
     static constexpr int RPT = (R + NRG - 1) / NRG;       // last pass: rows a thread
     static constexpr int WPT = (R / 3 + NRG - 1) / NRG;   // MaxPool3 windows a thread
     static constexpr int STG = XS;
     static constexpr int RED = align128(STG + R * SP * 4);
     static_assert(CIN % KC == 0 && COUT % KC == 0, "channels are whole k-chunks");
+    static_assert(!WIDE || (SKIP && COUT == 128), "a wide block is a 1x1-skip head to 128");
+    static_assert((XP * 2) % 16 == 0, "a row bulk-copied at the pitch lands 16-byte aligned");
     static_assert(2 * STAGES + 1 <= 256 / 8, "barriers fit their slot");
     static_assert(RED + NRG * COUT * 4 <= TOTAL, "the f32 stage fits the dead tiles");
     static_assert(TOTAL <= SMEM_LIMIT, "shared memory of one CTA within 227 KB");
@@ -238,19 +259,21 @@ __device__ __forceinline__ void emit(const float (&v)[8], float (&s)[8], bf16* d
                    pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
 }
 
-// One weight slice (64 k) against this warpgroup's 64 rows: four k16 products.
-// `a_addr` is this lane's ldmatrix row address at the slice's first k.
-template <int COUT>
-__device__ __forceinline__ void slice_products(float (&acc)[COUT / 2], uint32_t a_addr,
-                                               uint32_t slice_addr) {
+// One weight slice (64 k) against this warpgroup's 64 rows and N columns: four
+// k16 products. `a_addr` is this lane's ldmatrix row address at the slice's
+// first k, `b_addr` the slice's address at the warpgroup's first column.
+template <int N>
+__device__ __forceinline__ void slice_products(float (&acc)[N / 2], uint32_t a_addr,
+                                               uint32_t b_addr) {
     uint32_t a[4][4];
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) ldmatrix_x4(a[ks], a_addr + ks * 32);
     wgmma_fence();
-    const uint64_t desc = b_desc(slice_addr, 1024);   // SBO: 8 n of a 64-deep slice
+    const uint64_t desc = b_desc(b_addr, 1024);       // SBO: 8 n of a 64-deep slice
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {        // 16 k = two core matrices = 256 B
-        if constexpr (COUT == 128) wgmma_rs_n128(acc, a[ks], desc + 16 * ks);
+        if constexpr (N == 64) wgmma_rs_n64(acc, a[ks], desc + 16 * ks);
+        else if constexpr (N == 128) wgmma_rs_n128(acc, a[ks], desc + 16 * ks);
         else wgmma_rs_n256(acc, a[ks], desc + 16 * ks);
     }
     wgmma_commit();
@@ -263,17 +286,23 @@ struct Weights {
     const bf16* skw;
 };
 
-// One thread: x rows [r0-2, r0+128) that lie in [0, T), one contiguous run of
-// global memory, in one bulk copy to dense tile rows 0..129 at `xdense`.
+// One thread: x rows [r0-2, r0+M_ROWS) that lie in [0, T), one contiguous run of
+// global memory, in one bulk copy to dense tile rows 0.. at `dst`; WIDE: one
+// bulk copy a row, straight to the skewed pitch of the x tile at `dst`.
 template <class C>
-__device__ __forceinline__ void issue_x(const bf16* x, int b, int T, int r0, uint32_t xdense,
+__device__ __forceinline__ void issue_x(const bf16* x, int b, int T, int r0, uint32_t dst,
                                         uint32_t xbar) {
     constexpr int ROW_BYTES = C::CIN_ * 2;
-    const int g0 = max(r0 - 2, 0), g1 = min(r0 + M_ROWS, T);
+    const int g0 = max(r0 - 2, 0), g1 = min(r0 + C::M_ROWS, T);
     const uint32_t bytes = uint32_t(g1 - g0) * ROW_BYTES;
     mbar_expect_tx(xbar, bytes);
-    bulk_g2s(xdense + uint32_t(g0 - (r0 - 2)) * ROW_BYTES, x + (size_t(b) * T + g0) * C::CIN_,
-             bytes, xbar);
+    const bf16* src = x + (size_t(b) * T + g0) * C::CIN_;
+    if constexpr (C::WIDE) {
+        for (int k = g0 - (r0 - 2); k < g1 - (r0 - 2); ++k, src += C::CIN_)
+            bulk_g2s(dst + uint32_t(k) * C::XP * 2, src, ROW_BYTES, xbar);
+    } else {
+        bulk_g2s(dst + uint32_t(g0 - (r0 - 2)) * ROW_BYTES, src, bytes, xbar);
+    }
 }
 
 // One thread: weight slice i (conv1's, then conv2's, then the 1x1 skip's) into
@@ -291,13 +320,14 @@ __device__ __forceinline__ void issue_slice(int i, const Weights& w, uint32_t ri
 }
 
 // Waits for the next weight slice, runs its products, hands the buffer back.
+// `b_off`: the bytes from a slice's start to this warpgroup's first column.
 template <class C, int N>
 __device__ __forceinline__ void consume(float (&acc)[N], int& slice, uint32_t full0,
                                         uint32_t empty0, uint32_t ring, int tid,
-                                        const Weights& w, uint32_t a_addr) {
+                                        const Weights& w, uint32_t a_addr, uint32_t b_off) {
     const int s = slice % C::STAGES;
     mbar_wait(full0 + 8 * s, (slice / C::STAGES) & 1);
-    slice_products<2 * N>(acc, a_addr, ring + s * C::SLICE_BYTES);
+    slice_products<2 * N>(acc, a_addr, ring + s * C::SLICE_BYTES + b_off);
     __syncwarp();
     if ((tid & 31) == 0) mbar_arrive(empty0 + 8 * s);
     if (tid == 0 && slice + C::STAGES < C::SLICES) {   // refill: thread 0 is the producer
@@ -308,7 +338,8 @@ __device__ __forceinline__ void consume(float (&acc)[N], int& slice, uint32_t fu
 }
 
 // Grid (n_tiles, B), THREADS threads: two warpgroups, rows 0-63 and 64-127 of
-// both convs; thread 0 also issues the bulk copies.
+// both convs (WIDE: rows 0-63 of both, columns 0-63 and 64-127); thread 0 also
+// issues the bulk copies.
 template <int CIN, int COUT>
 __global__ void __launch_bounds__(THREADS, Cfg<CIN, COUT>::CTAS)
 resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
@@ -324,7 +355,7 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
     const uint32_t ring = sbase + C::RING;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int tile = blockIdx.x, n_tiles = gridDim.x, b = blockIdx.y;
-    const int r0 = tile * R;
+    const int r0 = tile * C::R;
 
     if (tid == 0) {
         for (int s = 0; s < C::STAGES; ++s) {
@@ -337,20 +368,31 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
     __syncthreads();
 
     const Weights wts{w1, w2, skw};
-    const uint32_t xdense = sbase + C::XD;
     if (tid == 0) {
-        issue_x<C>(x, b, T, r0, xdense, xbar);
+        issue_x<C>(x, b, T, r0, sbase + (C::WIDE ? C::XS : C::XD), xbar);
         for (int i = 0; i < C::STAGES && i < C::SLICES; ++i)
             issue_slice<C>(i, wts, ring, full0);
     }
     const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
     bf16* hy = reinterpret_cast<bf16*>(smem + C::HY);
-    const uint32_t hy_addr = sbase + C::HY, xs_addr = sbase + C::XS;
+    const uint32_t hy_addr = sbase + C::HY, xs_addr = sbase + C::XS, h_addr = sbase + C::H;
     int slice = 0;                      // running slice index, in the producer's order
 
-    // h = act(x*a1 + c1) (or x), zero outside [0, T), rounded to bf16, written
-    // over the dense x at the skewed pitch; the 1x1 skip also keeps raw x there.
-    {
+    if constexpr (C::WIDE) {
+        // h = x (no bn1 at the stack head): the x tile's rows outside [0, T),
+        // which no copy fills, are zeroed
+        constexpr int CHX = CIN / 8;
+        for (int idx = tid; idx < C::X_ROWS * CHX; idx += THREADS) {
+            const int k = idx / CHX, gr = r0 - 2 + k;
+            if (gr < 0 || gr >= T)
+                *reinterpret_cast<uint4*>(smem + C::XS + (k * C::XP + (idx % CHX) * 8) * 2) =
+                    make_uint4(0u, 0u, 0u, 0u);
+        }
+        mbar_wait(xbar, 0);
+    } else {
+        // h = act(x*a1 + c1) (or x), zero outside [0, T), rounded to bf16, written
+        // over the dense x at the skewed pitch; the 1x1 skip also keeps raw x there.
+        constexpr int X_ROWS = C::X_ROWS;
         constexpr int CHX = CIN / 8, RSTEP = THREADS / CHX;
         constexpr int NJ = (X_ROWS + RSTEP - 1) / RSTEP;
         static_assert(THREADS % CHX == 0, "a thread's chunk is fixed");
@@ -392,26 +434,30 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
     }
     __syncthreads();
 
-    // This lane's ldmatrix row (output row of the warpgroup's 64) and k offset.
-    const int arow = wg * 64 + wi * 16 + (lane & 15);
+    // This warpgroup's first row and column, this lane's ldmatrix row (output
+    // row of the warpgroup's 64) and k offset.
+    constexpr int NW = C::NW;
+    const int row0 = C::WIDE ? 0 : wg * 64, col0 = C::WIDE ? wg * NW : 0;
+    const uint32_t b_off = uint32_t(col0) * KC * 2;    // (col0 / 8) core-matrix rows of 1 KB
+    const int arow = row0 + wi * 16 + (lane & 15);
     const int acol = (lane >> 4) * 8;
-    float acc[COUT / 2];
+    float acc[NW / 2];
 
     // ---- conv1: y1 row j (global r0-1+j) reads h rows j+d, d = 0..2.
 #pragma unroll
-    for (int e = 0; e < COUT / 2; ++e) acc[e] = 0.f;
+    for (int e = 0; e < NW / 2; ++e) acc[e] = 0.f;
     for (int d = 0; d < 3; ++d)
         for (int kc = 0; kc < CIN; kc += KC)
             consume<C>(acc, slice, full0, empty0, ring, tid, wts,
-                       hy_addr + ((arow + d) * C::XP + kc + acol) * 2);
+                       h_addr + ((arow + d) * C::XP + kc + acol) * 2, b_off);
     __syncthreads();                // every warp is done reading h: y1 may overwrite it
 #pragma unroll
-    for (int jj = 0; jj < COUT / 8; ++jj) {
-        const int col = jj * 8 + 2 * t;
+    for (int jj = 0; jj < NW / 8; ++jj) {
+        const int col = col0 + jj * 8 + 2 * t;
         const float c0 = b1[col], c1 = b1[col + 1];
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-            const int j = wg * 64 + wi * 16 + g + 8 * hf;
+            const int j = row0 + wi * 16 + g + 8 * hf;
             const int gr = r0 - 1 + j;
             float v0 = act_fn(__fadd_rn(acc[4 * jj + 2 * hf], c0), act);
             float v1 = act_fn(__fadd_rn(acc[4 * jj + 2 * hf + 1], c1), act);
@@ -419,35 +465,35 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
             *reinterpret_cast<uint32_t*>(hy + j * C::YP + col) = pack_bf16x2(v0, v1);
         }
     }
-    for (int idx = tid; idx < 2 * C::CH; idx += THREADS)     // spare rows 128, 129
-        *reinterpret_cast<uint4*>(hy + (M_ROWS + idx / C::CH) * C::YP + (idx % C::CH) * 8) =
+    for (int idx = tid; idx < 2 * C::CH; idx += THREADS)     // spare rows M_ROWS, +1
+        *reinterpret_cast<uint4*>(hy + (C::M_ROWS + idx / C::CH) * C::YP + (idx % C::CH) * 8) =
             make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
 
     // ---- conv2: out row i (global r0+i) reads y1 rows i+d; the 1x1 skip reads
     // ---- x row i (tile row i+2) into the same accumulators.
 #pragma unroll
-    for (int e = 0; e < COUT / 2; ++e) acc[e] = 0.f;
+    for (int e = 0; e < NW / 2; ++e) acc[e] = 0.f;
     for (int d = 0; d < 3; ++d)
         for (int kc = 0; kc < COUT; kc += KC)
             consume<C>(acc, slice, full0, empty0, ring, tid, wts,
-                       hy_addr + ((arow + d) * C::YP + kc + acol) * 2);
+                       hy_addr + ((arow + d) * C::YP + kc + acol) * 2, b_off);
     if constexpr (C::SKIP)
         for (int kc = 0; kc < CIN; kc += KC)
             consume<C>(acc, slice, full0, empty0, ring, tid, wts,
-                       xs_addr + ((arow + 2) * C::XP + kc + acol) * 2);
+                       xs_addr + ((arow + 2) * C::XP + kc + acol) * 2, b_off);
     __syncthreads();                // the tiles and the ring are dead: stage over them
 
     // acc + bt -> f32 stage, rows 0 .. R-1 (the identity skip is added below)
     float* stg = reinterpret_cast<float*>(smem + C::STG);
 #pragma unroll
-    for (int jj = 0; jj < COUT / 8; ++jj) {
-        const int col = jj * 8 + 2 * t;
+    for (int jj = 0; jj < NW / 8; ++jj) {
+        const int col = col0 + jj * 8 + 2 * t;
         const float c0 = bt[col], c1 = bt[col + 1];
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-            const int i = wg * 64 + wi * 16 + g + 8 * hf;
-            if (i < R)
+            const int i = row0 + wi * 16 + g + 8 * hf;
+            if (i < C::R)
                 *reinterpret_cast<float2*>(stg + i * C::SP + col) =
                     make_float2(__fadd_rn(acc[4 * jj + 2 * hf], c0),
                                 __fadd_rn(acc[4 * jj + 2 * hf + 1], c1));
@@ -467,7 +513,7 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
         for (int j = 0; j < NXR; ++j) {
             const int i = pool == 1 ? rg + j * C::NRG : 3 * (rg + (j / 3) * C::NRG) + j % 3;
             xr[j] = make_uint4(0u, 0u, 0u, 0u);
-            if (i < R && r0 + i < T)
+            if (i < C::R && r0 + i < T)
                 xr[j] = *reinterpret_cast<const uint4*>(xb + size_t(i) * CIN);
         }
     }
@@ -491,7 +537,7 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
 #pragma unroll
         for (int j = 0; j < C::RPT; ++j) {
             const int i = rg + j * C::NRG;
-            if (i < R && r0 + i < T) {
+            if (i < C::R && r0 + i < T) {
                 float v[8];
                 out8(v, i, xr[C::SKIP ? 0 : j]);
                 emit(v, s, yb + size_t(r0 + i) * COUT);
@@ -501,7 +547,7 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
 #pragma unroll
         for (int j = 0; j < C::WPT; ++j) {
             const int p = rg + j * C::NRG;
-            if (p < R / 3 && r0 / 3 + p < t_out) {
+            if (p < C::R / 3 && r0 / 3 + p < t_out) {
                 float v[8], u[8];
                 out8(v, 3 * p, xr[C::SKIP ? 0 : 3 * j]);
                 out8(u, 3 * p + 1, xr[C::SKIP ? 0 : 3 * j + 1]);
@@ -551,7 +597,8 @@ cudaError_t launch(const void* x, const void* pre, const void* w1, const void* b
                    int bsz, int T, int act, int pool, cudaStream_t s) {
     cudaError_t err = set_smem<CIN, COUT>();
     if (err != cudaSuccess) return err;
-    resblock_eval_kernel<CIN, COUT><<<dim3((T + R - 1) / R, bsz), THREADS,
+    resblock_eval_kernel<CIN, COUT><<<dim3((T + Cfg<CIN, COUT>::R - 1) / Cfg<CIN, COUT>::R, bsz),
+                                      THREADS,
                                       Cfg<CIN, COUT>::TOTAL, s>>>(
         static_cast<const bf16*>(x), static_cast<const float*>(pre),
         static_cast<const bf16*>(w1), static_cast<const float*>(b1),
@@ -571,7 +618,7 @@ cudaError_t config(int* info) {
     int ctas = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &ctas, resblock_eval_kernel<CIN, COUT>, THREADS, C::TOTAL);
-    info[0] = R;
+    info[0] = C::R;
     info[1] = C::TOTAL;
     info[2] = THREADS;
     info[3] = ctas;
@@ -580,17 +627,28 @@ cudaError_t config(int* info) {
     return err;
 }
 
-// The three (Cin, Cout, skip) the models use: 0, 1, 2; -1 for anything else.
+// The five (Cin, Cout, skip) the models use: 0 .. 4; -1 for anything else.
+// 3 and 4 are the wide stack heads (maze2's 768 -> 128, maze6's 1024 -> 128).
 int variant(int cin, int cout, bool skip) {
     if (cin == 128 && cout == 128 && !skip) return 0;
     if (cin == 128 && cout == 256 && skip) return 1;
     if (cin == 256 && cout == 256 && !skip) return 2;
+    if (cin == 768 && cout == 128 && skip) return 3;
+    if (cin == 1024 && cout == 128 && skip) return 4;
     return -1;
 }
 
+// Output rows a tile of each variant.
+constexpr int ROWS[5] = {Cfg<128, 128>::R, Cfg<128, 256>::R, Cfg<256, 256>::R,
+                         Cfg<768, 128>::R, Cfg<1024, 128>::R};
+
 }  // namespace
 
-extern "C" int resblock_eval_rows(void) { return R; }
+// Output rows a tile of the (cin, cout, skip) instantiation; -1 if there is none.
+extern "C" int resblock_eval_rows(int cin, int cout, int skip) {
+    const int v = variant(cin, cout, skip != 0);
+    return v < 0 ? -1 : ROWS[v];
+}
 
 // Fills info[0..5] (see config) for the (cin, cout, skip) instantiation on
 // `device`; returns a CUDA error code (cudaErrorInvalidValue for a shape the
@@ -602,6 +660,8 @@ extern "C" int resblock_eval_config(int cin, int cout, int skip, int device, int
         case 0: return int(config<128, 128>(info));
         case 1: return int(config<128, 256>(info));
         case 2: return int(config<256, 256>(info));
+        case 3: return int(config<768, 128>(info));
+        case 4: return int(config<1024, 128>(info));
         default: return int(cudaErrorInvalidValue);
     }
 }
@@ -612,8 +672,9 @@ extern "C" int resblock_eval_config(int cin, int cout, int skip, int device, int
 // (3,Cin,Cout), (3,Cout,Cout) and (Cin,Cout), skw null for the identity skip;
 // b1, bt (Cout) f32; y (B,T/pool,Cout) bf16; partial (B,ceil(T/R),Cout) f32
 // scratch; sums (B,Cout) f32. (Cin, Cout, skip) is (128, 128, identity),
-// (128, 256, 1x1) or (256, 256, identity). act 0 = ReLU, 1 = LeakyReLU(0.3);
-// pool 1 or 3; device = the CUDA device index.
+// (128, 256, 1x1), (256, 256, identity), or a stack head (768 or 1024, 128,
+// 1x1) with pre null and pool 1. act 0 = ReLU, 1 = LeakyReLU(0.3); pool 1 or 3;
+// device = the CUDA device index.
 extern "C" int resblock_eval_launch(const void* x, const void* pre, const void* w1,
                                     const void* b1, const void* w2, const void* bt,
                                     const void* skw, void* y, void* partial, void* sums,
@@ -621,7 +682,7 @@ extern "C" int resblock_eval_launch(const void* x, const void* pre, const void* 
                                     int pool, int device, void* stream) {
     const int v = variant(cin, cout, skw != nullptr);
     if (v < 0 || bsz <= 0 || T < pool || (pool != 1 && pool != 3) ||
-        (act != 0 && act != 1) || bsz > 65535)
+        (act != 0 && act != 1) || bsz > 65535 || (v >= 3 && (pre != nullptr || pool != 1)))
         return int(cudaErrorInvalidValue);
     // this library links its own CUDA runtime: select the caller's device
     cudaError_t err = cudaSetDevice(device);
@@ -631,10 +692,14 @@ extern "C" int resblock_eval_launch(const void* x, const void* pre, const void* 
         err = launch<128, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
     else if (v == 1)
         err = launch<128, 256>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
-    else
+    else if (v == 2)
         err = launch<256, 256>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
+    else if (v == 3)
+        err = launch<768, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
+    else
+        err = launch<1024, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
     if (err != cudaSuccess) return int(err);
-    const int n_tiles = (T + R - 1) / R, n = bsz * cout;
+    const int n_tiles = (T + ROWS[v] - 1) / ROWS[v], n = bsz * cout;
     reduce_partials_kernel<<<(n + 255) / 256, 256, 0, s>>>(
         static_cast<const float*>(partial), static_cast<float*>(sums), bsz, n_tiles, cout);
     return int(cudaGetLastError());

@@ -2,12 +2,18 @@
 
 Ported: ``SEBlock`` (:26), ``ResBlockSE`` in its 'tpu' semantics (:223-269),
 in train and eval mode, with its folded eval body (:310-350), ``ResStack``
-(:353) and the (optionally stacked) ``GRU`` (:548) that returns its last
-hidden state. Public
-functions keep adfmsl's (B, T, C) channels-last layout; a (B, C, T) view
-exists only around ``conv1d`` / ``avg_pool1d`` calls.
+(:353), the Wav2Vec2 models' sequence blocks ``AttentiveStatsPooling`` (:373),
+``TransformerEncoderLayer`` (:395), ``TransformerEncoderStack`` (:420),
+``PlainTransformerEncoder`` (:451) and maze8's ``ConvFMSLLayer`` (:473), and
+the (optionally stacked) ``GRU`` (:548) that returns its last hidden state.
+Public functions keep adfmsl's (B, T, C) channels-last layout; a (B, C, T)
+view exists only around ``conv1d`` / ``avg_pool1d`` calls.
 
-BatchNorm semantics: see ``adfmsl_torch/ops/norm.py``.
+Numerics follow flax's rounding points: a layer with a ``dtype`` casts its
+input, kernel and bias to it and adds the bias after the product; a layer
+without one (the ASP and ConvFMSL Denses and convs, the LayerNorms, the
+BatchNorms of ConvFMSL) computes in the promoted dtype, f32 for a bf16 input,
+and returns f32. BatchNorm semantics: see ``adfmsl_torch/ops/norm.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adfmsl_torch.models.w2v2 import SelfAttention, dense, layer_norm
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
 from adfmsl_torch.ops.resblock_fused import fold_block_params, resblock_eval
@@ -54,6 +61,14 @@ def conv_nhc(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype) -> torch.Tens
     b = conv.bias.to(dtype) if conv.bias is not None else None
     y = F.conv1d(x.transpose(1, 2).to(dtype), w, b, padding=conv.kernel_size[0] // 2)
     return y.transpose(1, 2)
+
+
+class ConvNHC(nn.Conv1d):
+    """An ``nn.Conv1d`` called on (B, T, C) tensors in ``dtype`` (``conv_nhc``),
+    as a module call, so that forward hooks see it (``profile_eval``)."""
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return conv_nhc(x, self, dtype)
 
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -167,7 +182,7 @@ class ResBlockSE(nn.Module):
         h = torch.relu(bn_forward(h, self.bn2, dt, train))
         h = dropout(h, self.dropout_rate, generator, train)
         h = conv_nhc(h, self.conv2, dt)
-        skip = x.to(dt)
+        skip = x              # the raw input: an f32 x promotes the sum, as in flax
         if self.in_channels != self.out_channels:
             skip = conv_nhc(x, self.downsample, dt)
         out = h + skip
@@ -203,6 +218,139 @@ class ResStack(nn.Module):
         for i in range(self.n_blocks):
             x = getattr(self, f"block{i}")(x, generator)
         return x
+
+
+class AttentiveStatsPooling(nn.Module):
+    """Attention-weighted mean || std over time, (B, T, C) -> (B, 2C) f32
+    (adfmsl :373-392). The Denses have no dtype: they compute in f32.
+    ``use_std=False`` is maze6_fmsl's variant: the raw weighted variance (no
+    sqrt, no eps)."""
+
+    def __init__(self, channels: int, hidden: int = 128, use_std: bool = True):
+        super().__init__()
+        self.use_std = use_std
+        self.att1 = nn.Linear(channels, hidden)
+        self.att2 = nn.Linear(hidden, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        w = torch.softmax(self.att2(torch.tanh(self.att1(xf))), dim=1)   # (B, T, 1)
+        mean = (w * xf).sum(dim=1)
+        var = (w * (xf - mean[:, None, :]) ** 2).sum(dim=1)
+        second = torch.sqrt(var + 1e-6) if self.use_std else var
+        return torch.cat([mean, second], dim=-1)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """torch ``nn.TransformerEncoderLayer`` semantics, post-LN with a ReLU FFN
+    (adfmsl :395-417): flax's ``MultiHeadDotProductAttention`` and the two
+    FFN Denses at ``dtype``, the LayerNorms (flax's eps 1e-6) without one, so
+    the output is f32. In train mode the attention weights, the two residual
+    branches and the FFN's hidden take dropout from the generator given to
+    ``forward``."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int = 2048,
+                 dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout_rate, self.dtype = dropout_rate, dtype
+        self.self_attn = SelfAttention(d_model, n_heads)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
+        self.ff1 = nn.Linear(d_model, d_ff)
+        self.ff2 = nn.Linear(d_ff, d_model)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate, train, dt = self.dropout_rate, self.training, self.dtype
+        attn = self.self_attn(x, dt, rate, generator)
+        x = layer_norm(x + dropout(attn, rate, generator, train), self.norm1)
+        ff = dropout(torch.relu(dense(x, self.ff1, dt)), rate, generator, train)
+        ff = dense(ff, self.ff2, dt)
+        return layer_norm(x + dropout(ff, rate, generator, train), self.norm2)
+
+
+class PlainTransformerEncoder(nn.Module):
+    """torch ``nn.TransformerEncoder`` at the trunk width, with no projection
+    and no positional embedding (adfmsl :451-470; maze2, maze6): the layers
+    ``layer{i}``."""
+
+    def __init__(self, d_model: int, n_heads: int = 8, n_layers: int = 6,
+                 d_ff: int = 2048, dropout_rate: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            self.add_module(f"layer{i}", TransformerEncoderLayer(
+                d_model, n_heads, d_ff, dropout_rate, dtype))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"layer{i}")(x, generator)
+        return x
+
+
+class TransformerEncoderStack(PlainTransformerEncoder):
+    """``in_proj`` -> a learned positional embedding (``max_len`` rows, normal
+    0.02 init) -> the layers -> ``out_proj`` (adfmsl :420-448; maze3_fmsl).
+    The projections run at ``dtype``; a sequence longer than ``max_len``
+    raises."""
+
+    def __init__(self, in_dim: int, d_model: int = 256, n_heads: int = 8,
+                 n_layers: int = 6, d_ff: int = 2048, out_dim: Optional[int] = None,
+                 max_len: int = 1000, dropout_rate: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(d_model, n_heads, n_layers, d_ff, dropout_rate, dtype)
+        self.max_len, self.dtype = max_len, dtype
+        self.in_proj = nn.Linear(in_dim, d_model)
+        self.pos_embedding = nn.Parameter(torch.zeros(max_len, d_model))
+        self.out_proj = nn.Linear(d_model, out_dim or in_dim)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            self.pos_embedding.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        t = x.shape[1]
+        if t > self.max_len:
+            raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
+        h = dense(x, self.in_proj, self.dtype) + self.pos_embedding[None, :t]
+        return dense(super().forward(h, generator), self.out_proj, self.dtype)
+
+
+class ConvFMSLLayer(nn.Module):
+    """maze8's conv 'FMSL' layer (adfmsl :473-503): a k7 conv to
+    ``num_filters`` + BN + ReLU + dropout, a k3 conv + BN + ReLU + dropout, a
+    channel attention (mean over time, Dense to num_filters // 4, ReLU, Dense,
+    sigmoid), a 1x1 conv back to ``channels``, plus the input. Its convs,
+    Denses and BatchNorms have no dtype: they compute in f32, and so does the
+    residual sum."""
+
+    def __init__(self, channels: int, num_filters: int = 64, kernel_size: int = 7,
+                 dropout_rate: float = 0.1):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.freq_mod_conv = nn.Conv1d(channels, num_filters, kernel_size,
+                                       padding=kernel_size // 2)
+        self.freq_mod_bn = batch_norm(num_filters)
+        self.spec_enh_conv = nn.Conv1d(num_filters, num_filters, 3, padding=1)
+        self.spec_enh_bn = batch_norm(num_filters)
+        self.att1 = nn.Linear(num_filters, max(num_filters // 4, 1))
+        self.att2 = nn.Linear(max(num_filters // 4, 1), num_filters)
+        self.out_proj = nn.Conv1d(num_filters, channels, 1)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        train, f32, rate = self.training, torch.float32, self.dropout_rate
+        h = conv_nhc(x.float(), self.freq_mod_conv, f32)
+        h = dropout(torch.relu(bn_forward(h, self.freq_mod_bn, f32, train)), rate,
+                    generator, train)
+        h = conv_nhc(h, self.spec_enh_conv, f32)
+        h = dropout(torch.relu(bn_forward(h, self.spec_enh_bn, f32, train)), rate,
+                    generator, train)
+        att = torch.sigmoid(self.att2(torch.relu(self.att1(h.mean(dim=1)))))
+        return x + conv_nhc(h * att[:, None, :], self.out_proj, f32)
 
 
 class _GRUCell(nn.Module):

@@ -1,16 +1,19 @@
-"""The maze models: port of ``adfmsl/models/mazes.py`` for the sinc, RawNet
-and (part of the) Wav2Vec2 families.
+"""The maze models: port of ``adfmsl/models/mazes.py`` for every registry name.
 
-Ported: ``MazeSpec``, ``MazeModel``'s sinc front end and trunk, the RawNet
-encoder branch (adfmsl :102-115), the Wav2Vec2 front end (:116-138, with
-``wav2vec2.freeze`` as a stop-gradient) and the 1x1 ``proj`` conv after it
-(:142-143), SpecAugment (:155-163), pooling, the classifier with its fc
+Ported: ``MazeSpec`` and ``MazeModel`` (adfmsl :95-273), in train and eval
+mode: the sinc front end, the RawNet encoder branch (:102-115), the Wav2Vec2
+front end (:116-138, with ``wav2vec2.freeze`` as a stop-gradient and maze6's
+``fusion_layers`` taps concatenated), the 1x1 ``proj`` conv (:142-143), the
+front-end BN + act, SpecAugment (:155-163), maze8's ``ConvFMSLLayer``
+(:165-166), the SE-ResBlock trunk, the transformer (:178-194: maze2's and
+maze6's plain encoder behind a BatchNorm, maze3_fmsl's projected stack),
+mean or attentive-stats pooling (:196-199), the classifier with its fc
 dropout and maze3's ReLU after fc1 (:209), the FMSL head in the 'refine',
-'replace' and 'integrated' modes, and both scores (adfmsl :95-273); the
-``SPECS`` of ``main``, ``maze4``, ``maze5`` and their ``_fmsl`` twins,
-``maze7`` / ``maze7_fmsl`` and ``maze3``, all in train and eval mode. ``build_model`` also builds adfmsl's extra families (``EXTRAS``:
-``models/lcnn.py``, ``models/resnet.py``). Other registry names raise and
-name the ROADMAP slice that brings them.
+'replace', 'integrated' and 'fallback' modes, and both scores; the ``SPECS``
+of all 16 registry names (:280-386). ``build_model`` also builds adfmsl's
+extra families (``EXTRAS``: ``models/lcnn.py``, ``models/resnet.py``).
+``MazeSpec.block_variant`` is carried, as in adfmsl, for 'reference' block
+semantics, which raise and name ROADMAP slice 9.
 
 Output contract (as adfmsl): dict with 'logits' (B, 2), 'scores' (B,) =
 log-softmax[:, 1] or the raw logit[:, 1] (``MazeSpec.score``), 'features'
@@ -30,7 +33,9 @@ from torch import nn
 from adfmsl_torch.config.base import ModelConfig
 from adfmsl_torch.device import resolve_device
 from adfmsl_torch.heads.fmsl import FMSLHead
-from adfmsl_torch.models.blocks import GRU, ResStack, conv_nhc, init_like_flax_
+from adfmsl_torch.models.blocks import (GRU, AttentiveStatsPooling, ConvFMSLLayer,
+                                       ConvNHC, PlainTransformerEncoder, ResStack,
+                                       TransformerEncoderStack, init_like_flax_)
 from adfmsl_torch.models.lcnn import LCNN, LCNN1D
 from adfmsl_torch.models.rawnet import RawNetEncoder
 from adfmsl_torch.models.resnet import ResNet18
@@ -49,16 +54,35 @@ class MazeSpec:
     proj_dim: Optional[int] = None                  # 1x1 conv after the front end
     first_bn_act: Optional[str] = None              # 'selu' | 'relu' after the front end
     blocks: Tuple[Tuple[int, int, int], ...] = ()   # (cin, cout, stride)
+    transformer: Optional[Tuple[int, int, int, int]] = None   # (d, heads, layers, ff)
+    # True: the torch-style encoder at the trunk width behind a BatchNorm
+    # (maze2 / maze6); False: the in-proj + learned-pos-emb stack (maze3_fmsl)
+    transformer_plain: bool = False
+    conv_fmsl: bool = False                         # maze8's conv FMSL layer
+    pooling: str = "avg"                            # 'avg' | 'asp'
     fc1: Optional[int] = 1024
     fc1_act: Optional[str] = None                   # 'relu' between fc1 and dropout (maze3)
     score: str = "log_softmax"                      # 'log_softmax' | 'logit'
     fmsl_input_dim: int = 512                       # FMSL input, 'replace'/'integrated'
+    fusion_layers: Optional[Tuple[int, ...]] = None     # maze6's encoder taps
+    # the block variant of 'reference' block semantics (ROADMAP slice 9);
+    # carried and unused under 'tpu' semantics, as in adfmsl
+    block_variant: Optional[str] = None
+    use_se: bool = True                             # maze3_fmsl's blocks have no SE
+    asp_std: bool = True                # False: maze6_fmsl's ASP takes the raw variance
 
 
 _SINC_BLOCKS = ((128, 128, 1), (128, 128, 2), (128, 128, 2), (128, 128, 2),
                 (128, 256, 2))                       # maze4.py:192-210
+# maze2.py:143-155: block0 (w2v2_dim -> 128) then five strided blocks ending 256 -> 256
+_W2V2_BLOCKS_MAZE2 = ((768, 128, 1), (128, 128, 2), (128, 128, 2), (128, 128, 2),
+                      (128, 256, 2), (256, 256, 2))
+# maze6.py:213-231: block0 (projected 1024 -> 128) + the maze4-style strided walk
+_W2V2_BLOCKS_MAZE6 = ((1024, 128, 1), (128, 128, 2), (128, 128, 2), (128, 128, 2),
+                      (128, 256, 2))
 # maze3.py:118-132: three blocks, each with its built-in stride-2 overlap pool
 _W2V2_BLOCKS_MAZE3 = ((128, 128, 2), (128, 128, 2), (128, 256, 2))
+_MAZE6_TAPS = (0, 6, 12, 18, 24)
 
 _FMSL_REF = " + fmsl_advanced.py:103-359"
 
@@ -71,41 +95,70 @@ SPECS: Dict[str, MazeSpec] = {
     "main_fmsl": MazeSpec("main_fmsl", "rawnet",
                           ref="01_Baseline_Models/main.py:182" + _FMSL_REF,
                           fc1=None, score="logit", fmsl_input_dim=1024),
-    "maze4": MazeSpec("maze4", "sinc", ref="maze4.py:165-247",
-                      first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
-    # 'integrated' at the pooled trunk width, scored raw (adfmsl mazes.py:328).
-    # adfmsl's 'fmsl_adaptive' block variant applies only under 'reference'
-    # block semantics, which the port does not have yet.
-    "maze4_fmsl": MazeSpec("maze4_fmsl", "sinc", ref="maze4.py:165-247" + _FMSL_REF,
-                           first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024,
-                           score="logit", fmsl_input_dim=256),
-    "maze5": MazeSpec("maze5", "sinc", ref="maze5.py:178-264",
-                      first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
-    "maze5_fmsl": MazeSpec("maze5_fmsl", "sinc", ref="maze5.py:178-264" + _FMSL_REF,
-                           first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
+    "maze2": MazeSpec("maze2", "w2v2", ref="maze2.py:119-193",
+                      blocks=_W2V2_BLOCKS_MAZE2, transformer=(256, 8, 6, 2048),
+                      transformer_plain=True, first_bn_act="selu", fc1=1024,
+                      block_variant="maze2"),
+    # the FMSL file's own smaller trunk, FMSL at the pooled trunk width
+    # (maze2_fmsl_standardized.py:394-487, adfmsl mazes.py:359-371)
+    "maze2_fmsl": MazeSpec("maze2_fmsl", "w2v2", ref="maze2_fmsl_standardized.py:394-487",
+                           proj_dim=128, first_bn_act="selu",
+                           blocks=((128, 128, 1), (128, 128, 2), (128, 256, 1)),
+                           fc1=1024, score="logit", fmsl_input_dim=256,
+                           block_variant="fmsl_se"),
     # classifier Linear(256, 1024) -> ReLU -> Dropout -> Linear, scored raw
     # (maze3.py:137-143 with the :994 runtime config)
     "maze3": MazeSpec("maze3", "w2v2", ref="maze3.py:101-164", proj_dim=128,
                       blocks=_W2V2_BLOCKS_MAZE3, fc1=1024, fc1_act="relu",
-                      score="logit"),
+                      score="logit", block_variant="maze3"),
+    # SE-free blocks and the in-proj / pos-emb stack at d 512 (adfmsl :372-378)
+    "maze3_fmsl": MazeSpec("maze3_fmsl", "w2v2", ref="maze3_fmsl_standardized.py:139-256",
+                           proj_dim=128, blocks=((128, 128, 1), (128, 128, 1), (128, 256, 1)),
+                           transformer=(512, 8, 6, 2048), fc1=256, score="logit",
+                           fmsl_input_dim=256, block_variant="fmsl_plain", use_se=False),
+    "maze4": MazeSpec("maze4", "sinc", ref="maze4.py:165-247",
+                      first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
+    # 'integrated' at the pooled trunk width, scored raw (adfmsl mazes.py:328)
+    "maze4_fmsl": MazeSpec("maze4_fmsl", "sinc", ref="maze4.py:165-247" + _FMSL_REF,
+                           first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024,
+                           score="logit", fmsl_input_dim=256,
+                           block_variant="fmsl_adaptive"),
+    "maze5": MazeSpec("maze5", "sinc", ref="maze5.py:178-264",
+                      first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
+    "maze5_fmsl": MazeSpec("maze5_fmsl", "sinc", ref="maze5.py:178-264" + _FMSL_REF,
+                           first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
+    # wav2vec2-large, five taps fused by the 1x1 proj, ASP, raw logit score
+    "maze6": MazeSpec("maze6", "w2v2", ref="maze6.py:182-267", proj_dim=1024,
+                      first_bn_act="relu", blocks=_W2V2_BLOCKS_MAZE6,
+                      transformer=(256, 8, 4, 2048), transformer_plain=True,
+                      pooling="asp", fc1=1024, score="logit", fusion_layers=_MAZE6_TAPS),
+    # the FMSL file's own trunk; fc1 + ReLU + fc2 is the fallback classifier,
+    # the checkpoint's live head in mode 'fallback' (adfmsl :379-386)
+    "maze6_fmsl": MazeSpec("maze6_fmsl", "w2v2", ref="maze6_fmsl_standardized.py:213-382",
+                           proj_dim=128, first_bn_act="selu",
+                           blocks=((128, 128, 1), (128, 128, 2), (128, 256, 2)),
+                           pooling="asp", fc1=1024, fc1_act="relu", score="logit",
+                           fmsl_input_dim=512, fusion_layers=_MAZE6_TAPS,
+                           block_variant="fmsl_plain", asp_std=False),
     "maze7": MazeSpec("maze7", "w2v2", ref="maze7.py:144-217", proj_dim=128,
                       first_bn_act="selu", blocks=_SINC_BLOCKS, fc1=1024),
-    # 'integrated' at the pooled trunk width, scored raw (adfmsl mazes.py:328);
-    # the 'fmsl_adaptive' block variant applies only under 'reference'
-    # semantics, as for maze4_fmsl
+    # 'integrated' at the pooled trunk width, scored raw (adfmsl mazes.py:328)
     "maze7_fmsl": MazeSpec("maze7_fmsl", "w2v2", ref="maze7.py:144-217" + _FMSL_REF,
                            proj_dim=128, first_bn_act="selu", blocks=_SINC_BLOCKS,
-                           fc1=1024, score="logit", fmsl_input_dim=256),
+                           fc1=1024, score="logit", fmsl_input_dim=256,
+                           block_variant="fmsl_adaptive"),
+    "maze8": MazeSpec("maze8", "w2v2", ref="maze8.py:193-277", proj_dim=128,
+                      first_bn_act="selu", blocks=_SINC_BLOCKS, conv_fmsl=True, fc1=1024),
+    # the derived twin drops the conv FMSL layer; 'replace', scored raw
+    "maze8_fmsl": MazeSpec("maze8_fmsl", "w2v2", ref="maze8.py:193-277" + _FMSL_REF,
+                           proj_dim=128, first_bn_act="selu", blocks=_SINC_BLOCKS,
+                           fc1=1024, score="logit", fmsl_input_dim=256,
+                           block_variant="fmsl_adaptive"),
 }
 
 # adfmsl's extra model families (config/standardized.py:EXTRA_MODELS), each
 # its own module: the LFCC / log-mel models.
 EXTRAS = {"lcnn_lfcc": LCNN, "lcnn1d_lfcc": LCNN1D, "resnet18_logmel": ResNet18}
-
-# Registry names of adfmsl that later slices of the port bring (ROADMAP.md).
-LATER_SLICES = {n: "slice 6b (the rest of the Wav2Vec2 family)"
-                for n in ("maze2", "maze2_fmsl", "maze3_fmsl", "maze6", "maze6_fmsl",
-                          "maze8", "maze8_fmsl")}
 
 
 class MazeModel(nn.Module):
@@ -148,20 +201,39 @@ class MazeModel(nn.Module):
                         "wav2vec2.remat_layers / remat_extractor (activation "
                         "checkpointing) come with ROADMAP slice 6c")
                 self.wav2vec2 = Wav2Vec2Encoder(arch_for(w), dtype=self.dtype)
-                feat_dim = self.wav2vec2.arch.hidden_size
+                feat_dim = self.wav2vec2.arch.hidden_size * len(spec.fusion_layers or (0,))
             if spec.proj_dim:
-                self.proj = nn.Conv1d(feat_dim, spec.proj_dim, 1)
+                self.proj = ConvNHC(feat_dim, spec.proj_dim, 1)
                 feat_dim = spec.proj_dim
             if spec.first_bn_act:
                 self.first_bn = batch_norm(feat_dim)
+            if spec.conv_fmsl:
+                self.conv_fmsl = ConvFMSLLayer(feat_dim)
             if a.block_semantics != "tpu":
                 raise NotImplementedError(
                     f"block_semantics {a.block_semantics!r}: the port has 'tpu' only "
                     "(reference semantics come with ROADMAP slice 9)")
-            self.trunk = ResStack(spec.blocks, a.dropout_rate,
+            # block0 takes the front end's real width, as flax infers it (the
+            # 'tiny' encoder feeds maze2's 768-wide block0 64 channels)
+            blocks = ((feat_dim,) + tuple(spec.blocks[0][1:]),) + tuple(spec.blocks[1:])
+            self.trunk = ResStack(blocks, a.dropout_rate, use_se=spec.use_se,
                                   fused_eval=bool(cfg.extra.get("fused_eval_trunk", False)),
                                   dtype=self.dtype)
-            pooled_dim = spec.blocks[-1][1]
+            trunk_dim = spec.blocks[-1][1]
+            if spec.transformer:
+                d, heads, layers, ff = spec.transformer
+                if spec.transformer_plain:
+                    self.bn_before_transformer = batch_norm(trunk_dim)
+                    self.transformer = PlainTransformerEncoder(
+                        d, heads, layers, ff, a.transformer_dropout, self.dtype)
+                else:
+                    self.transformer = TransformerEncoderStack(
+                        trunk_dim, d, heads, layers, ff, out_dim=trunk_dim,
+                        dropout_rate=a.transformer_dropout, dtype=self.dtype)
+            pooled_dim = trunk_dim
+            if spec.pooling == "asp":
+                self.asp = AttentiveStatsPooling(trunk_dim, use_std=spec.asp_std)
+                pooled_dim = 2 * trunk_dim
         else:
             raise NotImplementedError(f"front end {spec.frontend!r} is not ported")
         fmsl = cfg.fmsl
@@ -174,16 +246,20 @@ class MazeModel(nn.Module):
             self.fc1 = nn.Linear(pooled_dim, fdim)
             self.fmsl = FMSLHead(fmsl, input_dim=fdim)
             self.fc2 = nn.Linear(fdim, a.nb_classes)
-        elif fmsl.mode in ("replace", "integrated"):
-            # the pooled features go straight into the FMSL head, whose logits
-            # are the model's (adfmsl :254-267); the modes differ in training
+        elif fmsl.mode in ("replace", "integrated", "fallback"):
+            # the pooled features go straight into the FMSL head (adfmsl
+            # :230-267); its logits are the model's, except in 'fallback' (the
+            # literal maze6_fmsl path for ported checkpoints), where fc1 /
+            # ReLU / dropout / fc2 on the pooled features give them
             if pooled_dim != spec.fmsl_input_dim:
                 raise ValueError(f"{spec.name}: pooled dim {pooled_dim} != FMSL "
                                  f"input dim {spec.fmsl_input_dim}")
             self.fmsl = FMSLHead(fmsl, input_dim=pooled_dim)
+            if fmsl.mode == "fallback":
+                self.fc1 = nn.Linear(pooled_dim, spec.fc1)
+                self.fc2 = nn.Linear(spec.fc1, a.nb_classes)
         else:
-            raise NotImplementedError(
-                f"FMSL mode {fmsl.mode!r} comes with a later slice (ROADMAP.md)")
+            raise ValueError(f"unknown FMSL mode {fmsl.mode!r}")
         self.reset_parameters(generator)
         self.to(dev)
         self.eval()
@@ -193,7 +269,7 @@ class MazeModel(nn.Module):
         for m in self.modules():
             if isinstance(m, SincConv):
                 m.reset_parameters()
-            elif isinstance(m, (GRU, FMSLHead)):
+            elif isinstance(m, (GRU, FMSLHead, TransformerEncoderStack)):
                 m.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
@@ -209,18 +285,18 @@ class MazeModel(nn.Module):
         if self.spec.frontend == "rawnet":
             pooled = self.encoder(x)                         # (B, D) f32
         else:
-            if self.spec.frontend == "sinc":
+            spec = self.spec
+            if spec.frontend == "sinc":
                 h = self.sinc(x)                             # (B, T', C) f32
-            elif self.cfg.wav2vec2.freeze:                   # a stop-gradient
-                with torch.no_grad():
-                    h = self.wav2vec2(x)                     # (B, T', H)
             else:
-                h = self.wav2vec2(x)
-            if self.spec.proj_dim:
-                h = conv_nhc(h, self.proj, self.dtype)
-            if self.spec.first_bn_act:
+                with torch.set_grad_enabled(torch.is_grad_enabled()
+                                            and not self.cfg.wav2vec2.freeze):
+                    h = self._w2v2_features(x)               # a stop-gradient if frozen
+            if spec.proj_dim:
+                h = self.proj(h, self.dtype)
+            if spec.first_bn_act:
                 # front-end glue at trunk width: bf16 in, BN in f32, bf16 out
-                act = F.selu if self.spec.first_bn_act == "selu" else F.relu
+                act = F.selu if spec.first_bn_act == "selu" else F.relu
                 h = act(bn_forward(h.to(self.dtype), self.first_bn, self.dtype, train))
             sa = self.cfg.spec_augment
             if sa.enabled and train:
@@ -228,26 +304,22 @@ class MazeModel(nn.Module):
                 h = spec_augment(h, rngs["specaugment"], sa.freq_mask_param,
                                  sa.time_mask_param, sa.n_freq_masks, sa.n_time_masks,
                                  sa.semantics, channels_last=True)
+            if spec.conv_fmsl:
+                h = self.conv_fmsl(h, rngs.get("dropout"))   # f32 out
             h = self.trunk(h, rngs.get("dropout"))
-            # mean over time with f32 accumulation, rounded to the trunk dtype
-            pooled = h.float().mean(dim=1).to(h.dtype).float()
+            if spec.transformer:
+                if spec.transformer_plain:                   # its BN has no dtype: f32 out
+                    h = bn_forward(h, self.bn_before_transformer, torch.float32, train)
+                h = self.transformer(h, rngs.get("dropout"))
+            if spec.pooling == "asp":
+                pooled = self.asp(h)                         # f32
+            else:
+                # mean over time with f32 accumulation, rounded to h's dtype
+                pooled = h.float().mean(dim=1).to(h.dtype).float()
         fc_drop = self.cfg.architecture.fc_dropout
         out = {}
-        if hasattr(self, "fmsl"):
-            refine = hasattr(self, "fc1")
-            if refine:
-                h2 = dropout(self.fc1(pooled), fc_drop, rngs.get("dropout"), train)
-                fout = self.fmsl(h2, labels=labels, mask=mask, rngs=rngs)
-                logits = self.fc2(fout["embeddings"])
-            else:
-                fout = self.fmsl(pooled, labels=labels, mask=mask, rngs=rngs)
-                logits = fout["logits"]
-                if labels is not None:
-                    out["loss"] = (fout["loss"] if self.cfg.fmsl.mode == "integrated"
-                                   else fout["ce_loss"])
-            out["features"] = fout["embeddings"]
-            out["prototype_similarity"] = fout["prototype_similarity"]
-        else:
+        mode = self.cfg.fmsl.mode if self.cfg.fmsl is not None else None
+        if mode is None:
             feats = pooled
             if hasattr(self, "fc1"):
                 feats = self.fc1(pooled)
@@ -256,12 +328,40 @@ class MazeModel(nn.Module):
                 feats = dropout(feats, fc_drop, rngs.get("dropout"), train)
             out["features"] = feats
             logits = self.fc2(feats)
+        else:
+            if mode == "refine":
+                h2 = dropout(self.fc1(pooled), fc_drop, rngs.get("dropout"), train)
+                fout = self.fmsl(h2, labels=labels, mask=mask, rngs=rngs)
+                logits = self.fc2(fout["embeddings"])
+            else:
+                fout = self.fmsl(pooled, labels=labels, mask=mask, rngs=rngs)
+                if mode == "fallback":
+                    h2 = dropout(torch.relu(self.fc1(pooled)), fc_drop,
+                                 rngs.get("dropout"), train)
+                    logits = self.fc2(h2)
+                else:
+                    logits = fout["logits"]
+                    if labels is not None:
+                        out["loss"] = (fout["loss"] if mode == "integrated"
+                                       else fout["ce_loss"])
+            out["features"] = fout["embeddings"]
+            out["prototype_similarity"] = fout["prototype_similarity"]
         out["logits"] = logits
         if self.spec.score == "log_softmax":
             out["scores"] = torch.log_softmax(logits, dim=-1)[:, 1]
         else:
             out["scores"] = logits[:, 1]
         return out
+
+
+    def _w2v2_features(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder's last hidden state, or with ``fusion_layers`` its
+        taps (index clamped to the last layer) concatenated on channels."""
+        taps = self.spec.fusion_layers
+        if not taps:
+            return self.wav2vec2(x)
+        _, hs = self.wav2vec2(x, output_hidden_states=True)
+        return torch.cat([hs[min(i, len(hs) - 1)] for i in taps], dim=-1)
 
 
 def build_model(cfg: ModelConfig, device: Optional[Union[str, torch.device]] = None,
@@ -273,10 +373,6 @@ def build_model(cfg: ModelConfig, device: Optional[Union[str, torch.device]] = N
     if cfg.name in EXTRAS:
         return EXTRAS[cfg.name](cfg, device=device, generator=gen)
     if cfg.name not in SPECS:
-        later = LATER_SLICES.get(cfg.name)
-        if later:
-            raise NotImplementedError(f"model {cfg.name!r} is not ported yet: "
-                                      f"it comes with ROADMAP {later}")
         raise KeyError(f"unknown model {cfg.name!r}; ported: "
                        f"{sorted([*SPECS, *EXTRAS])}")
     return MazeModel(SPECS[cfg.name], cfg, device=device, generator=gen)

@@ -6,7 +6,11 @@ arrays) into a state dict that the port's ``MazeModel`` accepts with
 ``load_state_dict(strict=True)``. Module names follow the flax tree:
 ``sinc``, ``first_bn``, ``trunk.block{i}.{bn1,conv1,bn2,conv2,downsample,se}``,
 ``fc1``, ``fc2``, ``fmsl.{proj,proj_bn,prototypes,weight,temperature}``, for
-the Wav2Vec2 models ``wav2vec2.*`` (``models/w2v2.py``) and ``proj``, and
+the Wav2Vec2 models ``wav2vec2.*`` (``models/w2v2.py``), ``proj``,
+``conv_fmsl.{freq_mod_conv,freq_mod_bn,spec_enh_conv,spec_enh_bn,att1,att2,
+out_proj}``, ``bn_before_transformer``, ``transformer.{in_proj,pos_embedding,
+out_proj}`` and ``transformer.layer{i}.{self_attn.{query,key,value,out},norm1,
+ff1,ff2,norm2}``, ``asp.{att1,att2}``, and
 for RawNet ``encoder.{sinc,first_bn,block{i},fc_attention{i},bn_before_gru,
 fc1_gru}`` with the GRU's gates ``encoder.gru.cell.{ir,iz,in,hr,hz,hn}``
 (a stacked GRU's later layers ``cell1``, ``cell2``, ..., as in adfmsl's tree).
@@ -24,7 +28,9 @@ a Dense kernel (in, out), a GRU gate's included, a Linear weight (out, in)
 batch_stats mean/var become weight/bias/running_mean/running_var, with
 num_batches_tracked 0; a LayerNorm's or GroupNorm's scale/bias become
 weight/bias; flax attention's DenseGeneral kernels (H, heads, hd) and
-(heads, hd, H) are flattened to Linear weights (H, H).
+(heads, hd, H) (the encoder's ``attention``, the transformer's ``self_attn``)
+are flattened to Linear weights (H, H); a bare parameter (the positional
+embedding) keeps its shape.
 """
 from __future__ import annotations
 
@@ -90,7 +96,7 @@ def _flat_attention(tree: Mapping[str, Any]) -> Mapping[str, Any]:
     for name, node in tree.items():
         if not isinstance(node, Mapping):
             out[name] = node
-        elif name == "attention" and "query" in node:
+        elif name in ("attention", "self_attn") and "query" in node:
             flat = {}
             for proj, d in node.items():
                 k = np.asarray(d["kernel"])

@@ -30,12 +30,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from adfmsl_torch.ops.dropout import dropout
 
 
 @dataclass(frozen=True)
@@ -174,9 +176,10 @@ class _PositionalConvEmbedding(nn.Module):
         return F.gelu(h.transpose(1, 2))
 
 
-class _Attention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` (self-attention, no mask, no
-    dropout) with its DenseGeneral projections held as (H, H) linears."""
+class SelfAttention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` (self-attention, no mask) with its
+    DenseGeneral projections held as (H, H) linears. In train mode with a
+    ``dropout_rate`` the attention weights take dropout from ``generator``."""
 
     def __init__(self, hidden: int, heads: int):
         super().__init__()
@@ -184,13 +187,15 @@ class _Attention(nn.Module):
         for name in ("query", "key", "value", "out"):
             self.add_module(name, nn.Linear(hidden, hidden))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, hid = x.shape
         hd = hid // self.heads
         q, k, v = (dense(x, getattr(self, n), dtype).view(b, t, self.heads, hd)
                    .transpose(1, 2) for n in ("query", "key", "value"))
         q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype)
         w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+        w = dropout(w, dropout_rate, generator, self.training)
         o = torch.matmul(w, v).transpose(1, 2).reshape(b, t, hid)
         return dense(o, self.out, dtype)
 
@@ -200,7 +205,7 @@ class _EncoderLayer(nn.Module):
         super().__init__()
         h, eps = arch.hidden_size, arch.layer_norm_eps
         self.pre = arch.do_stable_layer_norm
-        self.attention = _Attention(h, arch.num_heads)
+        self.attention = SelfAttention(h, arch.num_heads)
         self.layer_norm = nn.LayerNorm(h, eps=eps)
         self.intermediate_dense = nn.Linear(h, arch.intermediate_size)
         self.output_dense = nn.Linear(arch.intermediate_size, h)

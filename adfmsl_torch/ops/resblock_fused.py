@@ -20,8 +20,10 @@ tensor and the plain PyTorch version (``resblock_eval_plain``, the same math
 with the same rounding points) for a CPU tensor; anything else raises. The
 kernel is built with nvcc at its first call (ops/_build.py). It takes the
 (Cin, Cout, skip) of the models' blocks: (128, 128, identity), (128, 256, 1x1)
-and (256, 256, identity), and its weights in the slice layout that
-``kernel_weight_layout`` makes.
+and (256, 256, identity), and the wide stack heads of maze2 and maze6,
+(768, 128, 1x1) and (1024, 128, 1x1), which it takes without ``pre`` (a stack
+head has no bn1) and without the pool; and its weights in the slice layout
+that ``kernel_weight_layout`` makes.
 """
 from __future__ import annotations
 
@@ -36,7 +38,10 @@ from adfmsl_torch.ops.sinc import max_pool3_nhc
 
 _ACTS = {"relu": 0, "leaky": 1}
 # (Cin, Cout, 1x1 skip) the kernel is instantiated for
-KERNEL_SHAPES = ((128, 128, False), (128, 256, True), (256, 256, False))
+KERNEL_SHAPES = ((128, 128, False), (128, 256, True), (256, 256, False),
+                 (768, 128, True), (1024, 128, True))
+# the wide stack heads among them: pre None and pool 1 only
+HEAD_ONLY_SHAPES = ((768, 128, True), (1024, 128, True))
 SLICE_K = 64                        # k depth of one weight slice
 
 
@@ -132,7 +137,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.resblock_eval_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                          i, i, i, i, i, i, i, p]
     lib.resblock_eval_launch.restype = i
-    lib.resblock_eval_rows.argtypes = []
+    lib.resblock_eval_rows.argtypes = [i, i, i]
     lib.resblock_eval_rows.restype = i
     lib.resblock_eval_config.argtypes = [i, i, i, i, p]
     lib.resblock_eval_config.restype = i
@@ -176,6 +181,9 @@ def _launch(x, pre, w1, b1, w2, bt, skw, act, pool):
                          f"{KERNEL_SHAPES}, got ({cin}, {cout}, {skw is not None})")
     if act not in _ACTS or pool not in (1, 3) or tin < pool or bsz > 65535:
         raise ValueError(f"resblock_eval: act={act!r} pool={pool} T={tin}")
+    if (cin, cout, skw is not None) in HEAD_ONLY_SHAPES and (pre is not None or pool != 1):
+        raise ValueError(f"resblock_eval: the kernel takes ({cin}, {cout}) at the stack "
+                         "head only (pre None, pool 1)")
     dev = x.device
     _check("w1", w1, (3, cin, cout), dev)
     _check("w2", w2, (3, cout, cout), dev)
@@ -195,7 +203,7 @@ def _launch(x, pre, w1, b1, w2, bt, skw, act, pool):
         raise ValueError("resblock_eval: x is not 16-byte aligned")
 
     lib = _kernel_lib()
-    n_tiles = -(-tin // lib.resblock_eval_rows())
+    n_tiles = -(-tin // lib.resblock_eval_rows(cin, cout, int(skw is not None)))
     y = torch.empty((bsz, tin // pool, cout), dtype=torch.bfloat16, device=dev)
     partial = torch.empty((bsz, n_tiles, cout), dtype=torch.float32, device=dev)
     sums = torch.empty((bsz, cout), dtype=torch.float32, device=dev)

@@ -10,15 +10,19 @@ on random audio, then prints one JSON line per section:
 
 - ``stages``: CUDA-event time of each top-level stage of one forward (the sinc
   front end, or the Wav2Vec2 encoder's conv layers, positional conv and
-  transformer layers; each trunk block; for RawNet models the GRU and
-  fc1_gru; the head), and the rest (input normalisation, feature projection
-  and LayerNorms, the 1x1 ``proj`` conv, front-end BN/SELU, gates, pooling)
-  as glue; for the
+  transformer layers, the 1x1 ``proj`` conv (maze6's fusion of five taps) and
+  maze8's conv FMSL layer; each trunk block; the layers of the transformer
+  after the trunk and the attentive-stats pooling; for RawNet models the GRU
+  and fc1_gru; the head), and the rest (input normalisation, feature
+  projection and LayerNorms, the taps' concatenation, front-end BN/SELU,
+  gates, the BN before the transformer, mean pooling) as glue; for the
   LFCC / log-mel models (``lcnn_lfcc``, ``lcnn1d_lfcc``, ``resnet18_logmel``)
   the front end (DSP and CMVN), the trunk (to the pooled features) and the
   head;
 - ``stages_profiler``: the device time of the coarse stages (the front end,
-  the trunk, the head) from ``torch.profiler`` over ``--reps`` forwards: each
+  the ``proj`` conv and conv FMSL layer where the model has them, the trunk,
+  the transformer and the ASP pooling where it has them, the head) from
+  ``torch.profiler`` over ``--reps`` forwards: each
   stage a ``record_function`` range, timed by the union of the intervals of
   the kernels inside its device-side spans (the profiler emits several,
   overlapping, for one range, and a span also holds the gaps between its
@@ -61,22 +65,32 @@ def stage_names(model) -> list:
         names = ([f"wav2vec2.feature_extractor.conv_layers_{i}"
                   for i in range(enc.feature_extractor.n)] + ["wav2vec2.pos_conv_embed"]
                  + [f"wav2vec2.layers_{i}" for i in range(enc.arch.num_layers)]
-                 + [f"trunk.block{i}" for i in range(model.trunk.n_blocks)])
+                 + _present(model, "proj", "conv_fmsl")
+                 + [f"trunk.block{i}" for i in range(model.trunk.n_blocks)]
+                 + [f"transformer.layer{i}" for i in range(
+                     model.transformer.n_layers if hasattr(model, "transformer") else 0)]
+                 + _present(model, "asp"))
     else:
         names = ["sinc"] + [f"trunk.block{i}" for i in range(model.trunk.n_blocks)]
     return names + head_names(model)
 
 
+def _present(model, *names) -> list:
+    return [n for n in names if hasattr(model, n)]
+
+
 def head_names(model) -> list:
-    return [n for n in ("fc1", "fmsl", "fc2") if hasattr(model, n)]
+    return _present(model, "fc1", "fmsl", "fc2")
 
 
 def coarse_stage_names(model) -> list:
     """The front end, the trunk and the head, by module name."""
     if hasattr(model, "encoder"):
         return ["encoder"] + head_names(model)
-    front = "wav2vec2" if hasattr(model, "wav2vec2") else "sinc"
-    return [front, "trunk"] + head_names(model)
+    if hasattr(model, "wav2vec2"):
+        return (["wav2vec2"] + _present(model, "proj", "conv_fmsl") + ["trunk"]
+                + _present(model, "transformer", "asp") + head_names(model))
+    return ["sinc", "trunk"] + head_names(model)
 
 
 def union_ms(intervals) -> float:

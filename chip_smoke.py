@@ -12,8 +12,11 @@ Phases, each printing its own lines:
    (one ``nvcc`` per library, all started together);
 2. kernel K1 (the folded eval residual-block body) against its plain PyTorch
    version on the card: the CPU tests' cases, block0 with ``pre`` and block4
-   at batch 8, the five blocks of maze5 and the six RawNet blocks of main
-   (LeakyReLU, MaxPool3) at batch 128 and cut 64600. Each line gives the max
+   at batch 8, the wide stack heads (768 -> 128 and 1024 -> 128, 1x1 skip, no
+   ``pre``) at T 67, 125 and 1, the five blocks of maze5 and the six RawNet
+   blocks of main (LeakyReLU, MaxPool3) at batch 128 and cut 64600, and the
+   blocks of maze7, maze3, maze2 and maze6 (the heads among them) at batch
+   128 and T 201 into the trunk. Each line gives the max
    abs error beside its tolerance (y: 2e-2 * max|y|, sums: 1e-3 * max|sums|),
    the kernel's and the plain version's times, the time of a cuDNN
    composition of the same function (information only: no single PyTorch
@@ -68,11 +71,15 @@ Phases, each printing its own lines:
    none of them for the LFCC / log-mel models, and K4 on no evaluate path
    (the models' front end is the composition, as in adfmsl). Every count is
    set to 0 just before a path and read just after it;
-4a. the Wav2Vec2 models' main path (``w2v2_main_path``): maze7, maze7_fmsl
-   and maze3 at full width (the base encoder, random init from seed 0), bf16,
-   through ``adfmsl_torch.cli.evaluate`` on the same fixture and cut, K1
-   launched 5 times a batch for maze7 and maze7_fmsl and 3 times for maze3
-   (T 201 frames into the trunk);
+4a. the Wav2Vec2 models' main path (``w2v2_main_path``): all ten of them,
+   maze7, maze7_fmsl, maze3, maze2, maze2_fmsl, maze3_fmsl, maze6,
+   maze6_fmsl, maze8 and maze8_fmsl, at full width (the base encoder, for
+   maze6 / maze6_fmsl the large one with five taps fused; random init from
+   seed 0), bf16, through ``adfmsl_torch.cli.evaluate`` on the same fixture
+   and cut, K1 launched a batch 5 times for maze7, maze7_fmsl, maze6, maze8
+   and maze8_fmsl, 6 for maze2 (its 768 -> 128 stack head included; maze6's
+   is 1024 -> 128) and 3 for maze3, maze2_fmsl, maze3_fmsl and maze6_fmsl
+   (``W2V2_PATHS``; T 201 frames into the trunk);
 4c. native audio IO (``native_io``): the fixture's eval split written again
    as FLAC (FIXED subframes, ``adfmsl_torch/data/flac.py``), maze5 through
    the evaluate CLI over the FLAC split and over the WAV one, whose score
@@ -84,14 +91,14 @@ Phases, each printing its own lines:
 4b. K4 as lcnn1d_lfcc's front end at batch 128, cut 64600: ``model.classify``
    of the kernel's LFCC against ``model(x)``, within 3e-2 * max(1, |logits|),
    with exactly one K4 launch (the count set to 0 just before); then both
-   front ends' times and both forwards' utt/s: the median and spread of six
+   front ends' times and both forwards' utt/s: the median and spread of four
    windows of about 3 s each, taken in turns;
 5. throughput: maze5 and maze5_fmsl folded vs unfolded trunk at batch 128
    (logits held against each other on 4 clips first); main at batch 16 with
    the K3 front end and with the composition (logits held against each other
    first), and at batch 128 (composition front end, K1 trunk); lcnn1d_lfcc at
    batch 128 and 384, lcnn_lfcc and resnet18_logmel at 128 (the median and
-   spread of five windows of about 3 s each), each with the front end / trunk
+   spread of three windows of about 3 s each), each with the front end / trunk
    / head split of a forward (``profile_eval``, the median of 5);
 6. kernel K2 (the BN + ReLU train backward, one cooperative launch) against
    its plain version: the CPU tests' (2, 700, 128) f32 and (3, 1000, 128)
@@ -124,10 +131,15 @@ Phases, each printing its own lines:
    and launch counts of the model's main path (K1 5 a batch for maze5, 6 and
    K3 1 a batch for RawNet with ``--fused_frontend``, none for the LFCC /
    log-mel models);
-7a. ``w2v2_train``: the same for maze7 (the encoder frozen, as its config
-   says: every encoder parameter must stay as initialised and every other
-   parameter and BN statistic move), its checkpoint evaluated with K1 5
-   times a batch;
+7a. ``w2v2_train``: the same for maze7 and maze2 (the encoder frozen, as
+   their configs say) and maze6_fmsl (the large encoder unfrozen with
+   ``unfreeze_last_n`` 2, its plateau scheduler on dev accuracy): every
+   parameter the optimizer labels 'frozen' (``train/optim.py:param_labels``)
+   must stay as initialised, and so must maze6_fmsl's FMSL prototypes and
+   temperature (its 'replace' loss does not reach them, and AdamW's decay of
+   them at lr 1e-5 rounds away in f32), every other parameter and BN
+   statistic move, and exactly maze6_fmsl's last two encoder layers train; each checkpoint
+   evaluated with its ``W2V2_PATHS`` K1 launches a batch;
 7b. RawNet's fused training front end, for main and main_fmsl: a ``Trainer``
    built in-process with ``exp.model.extra['fused_train_frontend']`` trains
    one epoch of the fixture at batch 12, cut 64600, with K3 and its backward
@@ -145,30 +157,36 @@ Phases, each printing its own lines:
    maze5_fmsl at batch 12 and 32; of main and main_fmsl at batch 12 with the
    composition front end and with K3, and at batch 32 with the composition;
    of lcnn_lfcc, lcnn1d_lfcc and resnet18_logmel at batch 12 and 32; of
-   maze7 at batch 12 and 32 (the frozen encoder outside autograd). utt/s
+   maze7 at batch 12 and 32 (the frozen encoder outside autograd); of maze2
+   (frozen encoder, its transformer) and maze6_fmsl (the large encoder in
+   autograd, its last two layers trained) at batch 12. utt/s
    over 5 timed steps after 2 warm ones, ending in a synchronize (the LFCC /
-   log-mel models and maze7, host-bound: the median and spread of five
+   log-mel models and maze7, host-bound: the median and spread of three
    windows of about 3 s), with the peak memory; then ``torch.profiler`` over
    3 more steps: the device's busy share (also from the union of the
    kernels' intervals), the step's device time split by its
    forward / backward / update labels (``train/steps.py``), and the
    operators and kernels with the most device time and the operators with
    the most host time;
-9b. Wav2Vec2 eval throughput (``throughput_w2v2``): maze7 and maze3 folded
-   vs unfolded trunk at batch 128 (logits held against each other on 4 clips
-   first, and K1's launches a forward counted: 5 and 3), utt/s, the peak
-   memory, the device ms of the encoder, the trunk and the head from a
+9b. Wav2Vec2 eval throughput (``throughput_w2v2``): maze7, maze3, maze2 and
+   maze6 folded vs unfolded trunk at batch 128 (logits held against each
+   other on 4 clips first, and K1's launches a forward counted: 5, 3, 6 and
+   5), utt/s, the peak memory, the device ms of the encoder, maze6's fusion
+   ``proj``, the trunk, the transformer, the ASP pooling and the head from a
    ``torch.profiler`` pass (``profile_eval.stage_device_times``), and each
-   conv layer, the positional conv, each transformer layer and each block by
-   CUDA events (``profile_eval.stage_times``, the median of 3); then
-   a ``host_feed`` line: the loader's host utt/s beside maze5's, main's,
-   maze7's and maze3's card eval utt/s at batch 128;
+   conv layer, the positional conv, each encoder layer, each block and each
+   layer of the transformer after the trunk by CUDA events
+   (``profile_eval.stage_times``, the median of 3); then a ``host_feed``
+   line: the loader's host utt/s beside maze5's, main's and those four
+   models' card eval utt/s at batch 128;
 10. a ``kernels`` line: every ported kernel with its launches on the main
    paths (K2's on its entry point, K4's as lcnn1d_lfcc's front end, K3's and
    its backward kernel's in the fused train steps too), its max error, its
    time at the main path's shapes beside its plain version's time, its bound
-   and the library call's time (none exists); K1's also summed over maze7's
-   and maze3's blocks at batch 128.
+   and the library call's time (none exists); K1's also summed over maze7's,
+   maze3's, maze2's and maze6's blocks at batch 128, and its cases at the
+   wide stack heads (768 -> 128 and 1024 -> 128, the 1x1 skip, no ``pre``) at
+   batch 128, T 201 and at ragged small T against the plain version.
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -225,6 +243,12 @@ MAZE7_BLOCKS = [(201, 128, 128, False, False), (101, 128, 128, True, False),
                 (13, 128, 256, True, True)]
 MAZE3_BLOCKS = [(101, 128, 128, False, False), (51, 128, 128, True, False),
                 (26, 128, 256, True, True)]
+# maze2's six blocks (the 768 -> 128 head on the base encoder's output) and
+# maze6's five (the 1024 -> 128 head on the fused taps' 1x1 proj), T 201 in
+MAZE2_BLOCKS = [(201, 768, 128, False, True), (101, 128, 128, True, False),
+                (51, 128, 128, True, False), (26, 128, 128, True, False),
+                (13, 128, 256, True, True), (7, 256, 256, True, False)]
+MAZE6_BLOCKS = [(201, 1024, 128, False, True)] + MAZE7_BLOCKS[1:]
 K1_CASES = [  # name, B, T, Cin, Cout, pre, skip, act, pool
     ("head", 2, 100, 128, 128, False, False, "relu", 1),
     ("ragged", 2, 300, 128, 128, True, False, "relu", 1),
@@ -233,12 +257,16 @@ K1_CASES = [  # name, B, T, Cin, Cout, pre, skip, act, pool
     ("rawnet_256_pre", 2, 151, 256, 256, True, False, "leaky", 3),
     ("block0_pre_b8", 8, 64350, 128, 128, True, False, "relu", 1),
     ("block4_b8", 8, 4022, 128, 256, True, True, "relu", 1),
+    ("head768_ragged", 2, 67, 768, 128, False, True, "relu", 1),
+    ("head1024_ragged", 3, 125, 1024, 128, False, True, "relu", 1),
+    ("head1024_t1", 2, 1, 1024, 128, False, True, "relu", 1),
 ] + [(f"maze5_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip,
      "relu", 1) for i, (t, cin, cout, pre, skip) in enumerate(MAZE5_BLOCKS)
 ] + [(f"main_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip,
      "leaky", 3) for i, (t, cin, cout, pre, skip) in enumerate(MAIN_BLOCKS)
 ] + [(f"{m}_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip, "relu", 1)
-     for m, blocks in (("maze7", MAZE7_BLOCKS), ("maze3", MAZE3_BLOCKS))
+     for m, blocks in (("maze7", MAZE7_BLOCKS), ("maze3", MAZE3_BLOCKS),
+                       ("maze2", MAZE2_BLOCKS), ("maze6", MAZE6_BLOCKS))
      for i, (t, cin, cout, pre, skip) in enumerate(blocks)]
 K3_CASES = [  # name, B, T
     ("jax_case", 2, 8000), ("ragged", 3, 8001),
@@ -285,7 +313,8 @@ TRAIN_THROUGHPUT = (
                                ("b32_composition", 32, {}))]
     + [(n, f"b{b}", b, {}) for n in ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")
        for b in THROUGHPUT_BATCHES]
-    + [("maze7", f"b{b}", b, {}) for b in THROUGHPUT_BATCHES])
+    + [("maze7", f"b{b}", b, {}) for b in THROUGHPUT_BATCHES]
+    + [(n, f"b{TRAIN_BATCH}", TRAIN_BATCH, {}) for n in ("maze2", "maze6_fmsl")])
 SPECTRAL_MODELS = ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")
 # train steps that the host sets the pace of (busy under 0.35): timed in windows
 HOST_BOUND_TRAIN = SPECTRAL_MODELS + ("maze7",)
@@ -299,9 +328,18 @@ MAIN_PATHS = [("maze5", [], 5, 0, 0), ("maze5_fmsl", [], 5, 0, 0),
               ("main_fmsl", ["--fused_frontend"], 6, 1, 0),
               ("lcnn_lfcc", [], 0, 0, 0), ("lcnn1d_lfcc", [], 0, 0, 0),
               ("resnet18_logmel", [], 0, 0, 0)]
-# the Wav2Vec2 models' main path (the same fields): K1 on their trunks
-W2V2_PATHS = [("maze7", [], 5, 0, 0), ("maze7_fmsl", [], 5, 0, 0), ("maze3", [], 3, 0, 0)]
-W2V2_K1 = {"maze7": 5, "maze3": 3}            # K1 launches a forward
+# the Wav2Vec2 models' main path (the same fields): K1 on their trunks, maze2's
+# and maze6's wide stack heads included
+W2V2_PATHS = [("maze7", [], 5, 0, 0), ("maze7_fmsl", [], 5, 0, 0), ("maze3", [], 3, 0, 0),
+              ("maze2", [], 6, 0, 0), ("maze2_fmsl", [], 3, 0, 0),
+              ("maze3_fmsl", [], 3, 0, 0), ("maze6", [], 5, 0, 0),
+              ("maze6_fmsl", [], 3, 0, 0), ("maze8", [], 5, 0, 0),
+              ("maze8_fmsl", [], 5, 0, 0)]
+W2V2_K1 = {"maze7": 5, "maze3": 3, "maze2": 6, "maze6": 5}   # K1 launches a forward
+# trained through cli.train: maze7 (frozen encoder), maze2 (frozen, SpecAugment,
+# the transformer), maze6_fmsl (the large encoder in autograd with its last two
+# layers trained, ASP, the plateau scheduler)
+W2V2_TRAIN = ("maze7", "maze2", "maze6_fmsl")
 # the loader's host rate: utterances of LOADER_SECONDS, decoded and padded a
 # batch of BENCH_BATCH at a time, at each count of native threads
 LOADER_UTTS, LOADER_SECONDS, LOADER_WORKERS, LOADER_PASSES = 256, 4, (1, 2, 4, 8), 3
@@ -320,8 +358,8 @@ SPECTRAL_THROUGHPUT = [("lcnn1d_lfcc", (BENCH_BATCH, 384)), ("lcnn_lfcc", (BENCH
 # their forwards take a few ms and the shared host's launches set much of the
 # pace, which drifts between and within runs: their utt/s is the median of
 # several windows of a few seconds each, reported with its spread
-SPECTRAL_WINDOW_S, SPECTRAL_WINDOWS = 3.0, 5
-K4_FRONTEND_TURNS = ("composition", "k4", "k4", "composition") * 3
+SPECTRAL_WINDOW_S, SPECTRAL_WINDOWS = 3.0, 3
+K4_FRONTEND_TURNS = ("composition", "k4", "k4", "composition") * 2
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1039,8 +1077,11 @@ def phase_throughput(name, dev, card, rf=None):
                   f"{name}: K1 launched {rec['k1_launches_per_forward']} times a forward")
             rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
             st = stage_device_times(models[True], x, 3)
+            named = [k for k in st if k not in ("device_ms_per_forward", "rest",
+                                                 "device_busy_share")]
             check(st["wav2vec2"] > 0 and st["trunk"] > 0
-                  and st["wav2vec2"] + st["trunk"] <= 1.001 * st["device_ms_per_forward"],
+                  and all(st[k] > 0 for k in ("proj", "transformer", "asp") if k in st)
+                  and sum(st[k] for k in named) <= 1.001 * st["device_ms_per_forward"],
                   f"{name}: the profiler's stage split {st}")
             rec["stages_profiler_ms"] = st
             splits = [stage_times(models[True], x) for _ in range(3)]
@@ -1343,14 +1384,37 @@ def phase_train(name, rf, k2, sf, fixture, tmp, dev):
     k3_train = sf.sinc_abs_pool_fused.launches
     # the CLI sets no fused training front end, as adfmsl's: K3 stays idle
     check(k3_train == 0, f"{name}: K3 launched {k3_train} times in cli.train")
-    init = build_model(exp.model, device="cpu", seed=exp.train.seed).state_dict()
-    # a frozen Wav2Vec2 encoder stays as initialised; everything else moves
-    frozen = exp.model.wav2vec2.freeze
+    init_model = build_model(exp.model, device="cpu", seed=exp.train.seed)
+    init = init_model.state_dict()
+    # the optimizer's 'frozen' parameters (a frozen Wav2Vec2 encoder; maze6's
+    # encoder outside its last two layers) stay as initialised; everything
+    # else moves
+    from adfmsl_torch.train import param_labels
+
+    labels = param_labels(exp.model.wav2vec2, init_model)
+    frozen = {k for k, lb in labels.items() if lb == "frozen"}
+    # the FMSL 'replace' loss (the CE of the head's logits) reaches neither the
+    # prototypes nor the temperature: only AdamW's decoupled decay moves them,
+    # by a factor 1 - lr * wd that rounds to 1 in f32 below 2^-24 (maze6_fmsl:
+    # lr 1e-5, wd 1e-4)
+    opt = exp.train.optimizer
+    idle = set()
+    if (exp.model.fmsl is not None and exp.model.fmsl.mode == "replace"
+            and opt.name == "adamw" and opt.lr * opt.weight_decay < 2.0 ** -24):
+        idle = {"fmsl.prototypes", "fmsl.temperature"}
     for a, b, what in ((init, models[0], "epoch 0"), (models[0], models[1], "epoch 1")):
         wrong = [k for k, v in b.items() if not k.endswith("num_batches_tracked")
-                 and torch.equal(v, a[k]) != (frozen and k.startswith("wav2vec2."))]
+                 and torch.equal(v, a[k]) != (k in frozen | idle)]
         check(not wrong, f"{name}: moved or unmoved against its labels by {what}: "
                          f"{wrong[:8]}")
+    trained_layers = sorted({int(k.split(".")[1][len("layers_"):]) for k in labels
+                             if k.startswith("wav2vec2.layers_") and k not in frozen})
+    if exp.model.wav2vec2.unfreeze_last_n:
+        n_layers = sum(1 for k in labels if k.startswith("wav2vec2.layers_")
+                       and k.endswith("final_layer_norm.weight"))
+        check(trained_layers == list(range(n_layers - exp.model.wav2vec2.unfreeze_last_n,
+                                           n_layers)),
+              f"{name}: encoder layers {trained_layers} trained")
 
     ev = fixture["eval"]
     out = os.path.join(tmp, f"{name}_trained_scores.txt")
@@ -1383,7 +1447,9 @@ def phase_train(name, rf, k2, sf, fixture, tmp, dev):
            "retained_epochs": mgr.all_epochs(), "k1_launches_training": k1_train,
            "k2_launches_training": k2_train, "k3_launches_training": k3_train,
            "evaluate_flags": flags, "k1_launches_evaluate": k1_eval,
-           "k3_launches_evaluate": k3_eval, "wall_s": wall_s}
+           "k3_launches_evaluate": k3_eval, "frozen_parameters": len(frozen),
+           "idle_parameters": sorted(idle),
+           "trained_encoder_layers": trained_layers, "wall_s": wall_s}
     print("train " + json.dumps(rec), flush=True)
     return rec
 
@@ -1778,6 +1844,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
                            "launches_per_forward": W2V2_K1[m],
                            "shapes": f"batch {BENCH_BATCH}, T 201 frames into the trunk"}
            for m in W2V2_K1},
+        "stack_heads": {f"{r['cin']}->{r['cout']}": {
+            **_summed([r]), "shapes": f"{r['case']}: batch {r['B']}, T {r['T']}, 1x1 skip"}
+            for r in k1 if r["case"] in ("maze2_block0_b128", "maze6_block0_b128")},
         "redesigned_shapes": sorted(_k1_instantiations(k1)),
         "instantiations": _k1_instantiations(k1),
     }, {
@@ -1948,8 +2017,8 @@ def main() -> int:
         native = phase("native_io", phase_native_io, rf, fixture, tmp)
         train = phase("train", lambda: [phase_train(n, rf, k2, sf, fixture, tmp, dev)
                                         for n in TRAIN_MODELS])
-        train += phase("w2v2_train", lambda: [phase_train("maze7", rf, k2, sf, fixture,
-                                                          tmp, dev)])
+        train += phase("w2v2_train", lambda: [phase_train(n, rf, k2, sf, fixture, tmp, dev)
+                                              for n in W2V2_TRAIN])
         fused_train = phase("fused_train", lambda: [phase_fused_train(n, sf, fixture, dev)
                                                     for n in ("main", "main_fmsl")])
     k4_front = phase("k4_frontend", phase_k4_frontend, lf, dev, smi)

@@ -26,7 +26,6 @@ from adfmsl_torch.config import make_experiment
 from adfmsl_torch.models import (EXTRAS, build_model, load_checkpoint, save_checkpoint,
                                  state_dict_from_flax)
 from adfmsl_torch.models.blocks import same_pads
-from adfmsl_torch.models.mazes import LATER_SLICES
 
 CUT = 15840
 NAMES = ["lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel"]
@@ -119,11 +118,13 @@ def test_forward_is_classify_of_features_and_training_raises(variables, name):
 
 def test_extras_are_built_on_the_card_by_default(monkeypatch):
     for name in NAMES:
-        assert name in EXTRAS and name not in LATER_SLICES
+        assert name in EXTRAS
         m = build_model(make_experiment(name).model, device="cpu", seed=1)
         assert isinstance(m, EXTRAS[name]) and not m.training
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        build_model(make_experiment("maze2").model, device="cpu")
+    exp = make_experiment("maze2")
+    exp.model.wav2vec2.remat_layers = True          # a path still to port (slice 6c)
+    with pytest.raises(NotImplementedError, match="slice 6c"):
+        build_model(exp.model, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(make_experiment("lcnn1d_lfcc").model)
@@ -149,7 +150,7 @@ def test_state_dict_from_flax_maps_2d_kernels_axis_by_axis():
     for co, ci, i, j in ((4, 3, 1, 2), (0, 1, 0, 1), (2, 0, 1, 0)):
         assert w[co, ci, i, j] == k[i, j, ci, co]
     with pytest.raises(KeyError):
-        state_dict_from_flax(params, {}, "maze2")
+        state_dict_from_flax(params, {}, "maze9")      # no such registry model
 
 
 def test_cli_evaluate_lcnn1d_on_cpu_and_checkpoint_round_trip(fixture_dir, tmp_path,

@@ -8,7 +8,10 @@ tolerance (rtol 2e-2, atol 2e-2 * max). The kernel's weight layout
 (``kernel_weight_layout``) is read back on the CPU by the address arithmetic
 the kernel's source note gives. The CUDA kernel is held against the plain
 version on the card (marker ``cuda``), on these cases and on cases that land on
-its 126-row tile's seams, for each of its three (Cin, Cout) instantiations.
+its 126-row tile's seams, for each of its three (Cin, Cout) instantiations, and
+on the 62-row tile's seams of its two wide stack-head instantiations (maze2's
+768 -> 128 and maze6's 1024 -> 128 with the 1x1 skip, no ``pre``), which the
+plain version covers against adfmsl at small T.
 
 JAX is imported inside the tests that compare with adfmsl, so that the card
 tests also run on a machine without JAX:
@@ -27,9 +30,11 @@ CASES = [  # (B, T, Cin, Cout), first, skip, act, pool
     ((2, 151, 128, 128), False, False, "leaky", 3),   # RawNet block, T % 3 != 0
     ((2, 130, 128, 256), False, True, "leaky", 3),    # RawNet block2: 1x1 skip
     ((2, 151, 256, 256), False, False, "leaky", 3),   # RawNet blocks 3-5, ragged T
+    ((2, 23, 768, 128), True, True, "relu", 1),       # maze2's stack head
+    ((1, 17, 1024, 128), True, True, "relu", 1),      # maze6's stack head
 ]
 IDS = ["head", "ragged", "skip1x1", "leaky_pool3", "rawnet_skip1x1_pool3",
-       "rawnet_256_pool3"]
+       "rawnet_256_pool3", "head768_skip1x1", "head1024_skip1x1"]
 # The kernel's tile holds R = 126 output rows (42 MaxPool3 windows).
 SEAM_CASES = [
     ((1, 125, 128, 128), False, False, "relu", 1),    # one row short of a tile
@@ -47,10 +52,18 @@ SEAM_CASES = [
     ((1, 254, 128, 256), False, True, "leaky", 3),
     ((2, 379, 256, 256), False, False, "leaky", 3),   # 256 -> 256 instantiation
     ((1, 127, 256, 256), False, False, "relu", 1),
+    # the wide stack heads' tile holds R = 62 output rows
+    ((1, 61, 768, 128), True, True, "relu", 1),       # one row short of a tile
+    ((2, 62, 768, 128), True, True, "relu", 1),       # exactly one tile
+    ((1, 63, 1024, 128), True, True, "relu", 1),      # one row into the second
+    ((2, 125, 1024, 128), True, True, "relu", 1),     # one row into the third
+    ((3, 201, 1024, 128), True, True, "relu", 1),     # maze6's T 201, four tiles
+    ((2, 1, 768, 128), True, True, "relu", 1),        # one row
 ]
 SEAM_IDS = ["t125", "t126", "t127_head", "t252", "t253", "t379", "pool3_t253",
             "pool3_t254", "pool3_t3", "t1", "b3_t1000", "skip_t379", "skip_pool3_t254",
-            "c256_pool3_t379", "c256_t127"]
+            "c256_pool3_t379", "c256_t127", "c768_t61", "c768_t62", "c1024_t63",
+            "c1024_t125", "c1024_b3_t201", "c768_t1"]
 
 
 def _rand_block(rng, cin, cout, first, skip):
@@ -172,7 +185,8 @@ def _read_kernel_layout(flat, taps, k, n):
 
 
 @pytest.mark.parametrize("cin,cout,skip", rf.KERNEL_SHAPES,
-                         ids=["c128_128", "c128_256_skip", "c256_256"])
+                         ids=["c128_128", "c128_256_skip", "c256_256", "c768_128_skip",
+                              "c1024_128_skip"])
 def test_kernel_weight_layout_reads_back_bit_for_bit(cin, cout, skip):
     rng = np.random.default_rng(13)
     _, w1, _, w2, _, skw = _rand_block(rng, cin, cout, False, skip)
@@ -193,6 +207,12 @@ def test_launch_refuses_shapes_the_kernel_lacks():
         args = [_torch(a) for a in _rand_block(rng, cin, cout, False, skip)]
         with pytest.raises(ValueError, match="the kernel takes"):
             rf._launch(x, *args, act="relu", pool=1)
+    # the wide heads: at the stack head only (no pre, no pool)
+    for cin, first, pool in ((768, False, 1), (1024, False, 1), (1024, True, 3)):
+        x = torch.zeros((1, 12, cin), dtype=torch.bfloat16)
+        args = [_torch(a) for a in _rand_block(rng, cin, 128, first, True)]
+        with pytest.raises(ValueError, match="stack head only"):
+            rf._launch(x, *args, act="relu", pool=pool)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-"""On a card: the maze7 and maze3 folded trunks (K1) against the unfolded
-bf16 trunks, at full width (the base Wav2Vec2 encoder, random init from seed
-0), cut 64600, batch 4. No JAX here, so the file runs on a machine without
+"""On a card: the maze7, maze3, maze2 and maze6 folded trunks (K1, with
+maze2's 768 -> 128 and maze6's 1024 -> 128 stack heads) against the unfolded
+bf16 trunks, at full width (the base Wav2Vec2 encoder, maze6's large one, random
+init from seed 0), cut 64600, batch 4. No JAX here, so the file runs on a machine without
 it: ``python -m pytest --noconftest -q tests/test_torch_w2v2_card.py -m cuda``.
 """
 import pytest
@@ -10,11 +11,14 @@ from adfmsl_torch.config import make_experiment
 from adfmsl_torch.models import build_model
 
 
+K1_LAUNCHES = {"maze7": 5, "maze3": 3, "maze2": 6, "maze6": 5}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["maze7", "maze3"])
+@pytest.mark.parametrize("name", sorted(K1_LAUNCHES))
 def test_folded_trunk_matches_unfolded_on_card(name):
     """Full width (base encoder, random init), cut 64600, batch 4: the folded
-    trunk through K1 (5 launches for maze7, 3 for maze3) within 3e-2 *
+    trunk through K1 (``K1_LAUNCHES`` a forward) within 3e-2 *
     max(1, |logits|) of the unfolded bf16 trunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the K1 kernel has no CPU form")
@@ -34,6 +38,6 @@ def test_folded_trunk_matches_unfolded_on_card(name):
         torch.cuda.synchronize()
         launches = rf.resblock_eval.launches
         lu = models[False](x)["logits"].float()
-    assert launches == {"maze7": 5, "maze3": 3}[name]
+    assert launches == K1_LAUNCHES[name]
     tol = 3e-2 * max(1.0, lu.abs().max().item())
     assert (lf - lu).abs().max().item() <= tol
