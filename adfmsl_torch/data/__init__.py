@@ -7,12 +7,12 @@ from adfmsl_torch.data.pipeline import (
     resolve_audio_path,
 )
 from adfmsl_torch.data.protocol import Protocol, ProtocolEntry, parse_protocol
-from adfmsl_torch.data.synthetic import SyntheticSpec, generate_fixture
+from adfmsl_torch.data.synthetic import SyntheticSpec, generate_fixture, generate_wild_fixture
 
 __all__ = [
     "load_audio", "read_wav", "resample", "write_wav",
     "pad", "tile_pad", "zero_pad",
     "AsvspoofDataset", "Batch", "DataLoader", "resolve_audio_path",
     "Protocol", "ProtocolEntry", "parse_protocol",
-    "SyntheticSpec", "generate_fixture",
+    "SyntheticSpec", "generate_fixture", "generate_wild_fixture",
 ]

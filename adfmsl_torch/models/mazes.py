@@ -2,7 +2,8 @@
 
 Ported: ``MazeSpec`` and ``MazeModel`` (adfmsl :95-273), in train and eval
 mode: the sinc front end, the RawNet encoder branch (:102-115), the Wav2Vec2
-front end (:116-138, with ``wav2vec2.freeze`` as a stop-gradient and maze6's
+front end (:116-138, with ``wav2vec2.freeze`` as a stop-gradient, the
+encoder's ``remat_layers`` / ``remat_extractor`` checkpointing and maze6's
 ``fusion_layers`` taps concatenated), the 1x1 ``proj`` conv (:142-143), the
 front-end BN + act, SpecAugment (:155-163), maze8's ``ConvFMSLLayer``
 (:165-166), the SE-ResBlock trunk, the transformer (:178-194: maze2's and
@@ -196,11 +197,9 @@ class MazeModel(nn.Module):
                 feat_dim = a.filts[0]
             else:
                 w = cfg.wav2vec2
-                if w.remat_layers or w.remat_extractor:
-                    raise NotImplementedError(
-                        "wav2vec2.remat_layers / remat_extractor (activation "
-                        "checkpointing) come with ROADMAP slice 6c")
-                self.wav2vec2 = Wav2Vec2Encoder(arch_for(w), dtype=self.dtype)
+                self.wav2vec2 = Wav2Vec2Encoder(arch_for(w), dtype=self.dtype,
+                                                remat_layers=w.remat_layers,
+                                                remat_extractor=w.remat_extractor)
                 feat_dim = self.wav2vec2.arch.hidden_size * len(spec.fusion_layers or (0,))
             if spec.proj_dim:
                 self.proj = ConvNHC(feat_dim, spec.proj_dim, 1)

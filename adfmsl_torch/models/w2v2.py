@@ -18,6 +18,11 @@ Attention is written as explicit products; adfmsl computes it outside any
 Pallas kernel, so these are library products. The extractor runs in (B, C, T),
 the rest in adfmsl's (B, T, C).
 
+``remat_layers`` checkpoints each transformer layer and ``remat_extractor``
+the conv feature extractor (adfmsl :169-184, ``nn.remat``) through
+``ops/remat.py:checkpoint``, in train mode under autograd; elsewhere they
+change nothing. The parameters are the same with and without them.
+
 Module names follow adfmsl's flax tree (``feature_extractor.conv_layers_{i}.
 {conv,group_norm,layer_norm}``, ``feature_projection_norm``,
 ``feature_projection``, ``pos_conv_embed.conv``, ``encoder_layer_norm``,
@@ -38,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from adfmsl_torch.ops.dropout import dropout
+from adfmsl_torch.ops.remat import checkpoint
 
 
 @dataclass(frozen=True)
@@ -228,12 +234,16 @@ class Wav2Vec2Encoder(nn.Module):
     """Raw waveform (B, T) f32 -> last hidden state (B, T', H), with
     ``output_hidden_states`` also the list of the embedding's and every
     layer's output (HF's ``hidden_states``). ``normalize_input`` applies the
-    Wav2Vec2Processor's per-utterance normalisation, var + 1e-7."""
+    Wav2Vec2Processor's per-utterance normalisation, var + 1e-7.
+    ``remat_layers`` / ``remat_extractor`` checkpoint the transformer layers /
+    the conv feature extractor in training."""
 
     def __init__(self, arch: W2V2Arch = W2V2Arch(), normalize_input: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat_layers: bool = False,
+                 remat_extractor: bool = False):
         super().__init__()
         self.arch, self.normalize_input, self.dtype = arch, normalize_input, dtype
+        self.remat_layers, self.remat_extractor = remat_layers, remat_extractor
         h, eps = arch.hidden_size, arch.layer_norm_eps
         self.feature_extractor = _FeatureExtractor(arch)
         self.feature_projection_norm = nn.LayerNorm(arch.conv_dim[-1], eps=eps)
@@ -250,14 +260,19 @@ class Wav2Vec2Encoder(nn.Module):
             mean = x.mean(dim=-1, keepdim=True)
             var = x.var(dim=-1, unbiased=False, keepdim=True)
             x = (x - mean) / torch.sqrt(var + 1e-7)
-        h = self.feature_extractor(x, dt)
+        if self.remat_extractor and self.training:
+            h = checkpoint(self.feature_extractor, x, dt)
+        else:
+            h = self.feature_extractor(x, dt)
         h = dense(layer_norm(h, self.feature_projection_norm), self.feature_projection, dt)
         h = h + self.pos_conv_embed(h, dt)
         if not a.do_stable_layer_norm:
             h = layer_norm(h, self.encoder_layer_norm)
         hidden_states = [h]
+        remat = self.remat_layers and self.training
         for i in range(a.num_layers):
-            h = getattr(self, f"layers_{i}")(h, dt)
+            layer = getattr(self, f"layers_{i}")
+            h = checkpoint(layer, h, dt) if remat else layer(h, dt)
             hidden_states.append(h)
         if a.do_stable_layer_norm:
             h = layer_norm(h, self.encoder_layer_norm)

@@ -13,12 +13,15 @@ mode in two ways that matter:
   ``proj_bn``).
 
 So ``bn_train`` computes the statistics itself and updates the buffers
-under ``no_grad``.
+under ``no_grad``, except in the recompute of a checkpointed forward
+(``ops/remat.py``), which must leave them as the first forward left them.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from adfmsl_torch.ops.remat import recomputing
 
 MOMENTUM = 0.9          # flax's; torch's momentum is 1 - MOMENTUM
 
@@ -44,14 +47,16 @@ def bn_eval(x: torch.Tensor, bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Te
 def bn_train(x: torch.Tensor, bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Tensor:
     """Train BatchNorm over the last axis: normalise with the batch statistics
     (over every other axis, in f32; gradients flow through them) and move the
-    running statistics towards them as flax does."""
+    running statistics towards them as flax does (once: not again when a
+    checkpointed forward is recomputed)."""
     xf = x.float()
     axes = tuple(range(x.dim() - 1))
     mean = xf.mean(axes)
     var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-    with torch.no_grad():
-        bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1.0 - MOMENTUM) * mean)
-        bn.running_var.copy_(MOMENTUM * bn.running_var + (1.0 - MOMENTUM) * var)
+    if not recomputing():
+        with torch.no_grad():
+            bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1.0 - MOMENTUM) * mean)
+            bn.running_var.copy_(MOMENTUM * bn.running_var + (1.0 - MOMENTUM) * var)
     return _normalize(xf, mean, var, bn, dtype)
 
 

@@ -6,7 +6,7 @@ metrics dict per epoch, retaining the best ``max(keep_best_k, keep_last)``
 epochs by ``best_fn`` (:28-40; no caller sets ``keep_last``, so the port
 keeps ``max(keep_best_k, 1)``): a NaN or missing metric ranks worst, and
 among those the newest epoch wins; ties keep the newest. Restore takes the latest
-retained epoch. The port writes one directory per epoch under ``directory``:
+retained epoch; ``restore_params`` takes the model alone from the best. The port writes one directory per epoch under ``directory``:
 
     epoch_<e>/model.pt        the experiment config and the model's state dict
                               (``models/port.py:save_checkpoint``), which
@@ -104,6 +104,22 @@ class CheckpointManager:
         state.optimizer.load_state_dict(ts["optimizer"])
         state.step = int(ts["step"])
         return state, epoch
+
+    def restore_params(self, model: torch.nn.Module, epoch: Optional[int] = None
+                       ) -> int:
+        """Load only the model's parameters and BN buffers (``model.pt``) of
+        ``epoch``, or of the best retained epoch (``best_epoch``: the newest
+        among equals), into ``model``; the optimizer state is left out
+        (adfmsl :72-92: a trained trunk carried into another training setup,
+        e.g. few-shot meta-training). Returns the epoch."""
+        if epoch is None:
+            epoch = self.best_epoch()
+        if epoch is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        dev = next(model.parameters()).device
+        _, sd = load_checkpoint(self._path(epoch), map_location=dev)
+        model.load_state_dict(sd, strict=True)
+        return epoch
 
     def best_epoch(self) -> Optional[int]:
         ranked = self._ranked()

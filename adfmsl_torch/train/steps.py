@@ -14,6 +14,12 @@ BN buffers in place, so they are snapshotted first (a few KB) and restored on
 a skip, and the update is skipped: that takes one host sync on
 ``isfinite(loss)`` per step. The metrics stay on the device.
 
+With ``train.remat`` the model forward runs through ``ops/remat.py:
+checkpoint`` (adfmsl :51, :82-86): the whole forward is recomputed in the
+backward, the BN running statistics move once and the generators replay their
+draws, so the step's loss, gradients, statistics and generator states are
+those of the plain step. The loss stays outside, as in adfmsl.
+
 The step's three parts run under ``torch.profiler.record_function`` labels
 (``STEP_LABELS``), so a profile of the real step splits its device time into
 forward, backward and update.
@@ -27,6 +33,7 @@ from torch.profiler import record_function
 
 from adfmsl_torch.config.base import ExperimentConfig
 from adfmsl_torch.heads.losses import compute_loss, masked_mean
+from adfmsl_torch.ops.remat import checkpoint
 from adfmsl_torch.train.optim import global_norm
 from adfmsl_torch.train.state import TrainState
 
@@ -38,10 +45,7 @@ def make_train_step(exp: ExperimentConfig) -> Callable[..., Dict[str, torch.Tens
     in place. ``audio`` (B, T) f32, ``labels`` (B,) int, ``mask`` (B,) bool,
     all on the model's device; ``rngs`` from ``state.generators``."""
     lcfg = exp.train.loss
-    if exp.train.remat:
-        raise NotImplementedError(
-            "remat (activation checkpointing) comes with ROADMAP slice 6: "
-            "torch.utils.checkpoint would run every BN running-stat update twice")
+    use_remat = exp.train.remat
 
     def step(state: TrainState, audio: torch.Tensor, labels: torch.Tensor,
              mask: torch.Tensor, rngs: Optional[Mapping[str, torch.Generator]] = None
@@ -50,7 +54,11 @@ def make_train_step(exp: ExperimentConfig) -> Callable[..., Dict[str, torch.Tens
         with record_function(STEP_LABELS[0]):
             model.train()
             buffers = {k: v.clone() for k, v in model.named_buffers()}
-            out = model(audio, labels=labels, mask=mask, rngs=rngs)
+            if use_remat:
+                out = checkpoint(model, audio, labels=labels, mask=mask, rngs=rngs,
+                                 generators=rngs)
+            else:
+                out = model(audio, labels=labels, mask=mask, rngs=rngs)
             if "loss" in out:
                 loss = out["loss"]
             else:

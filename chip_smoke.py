@@ -148,6 +148,29 @@ Phases, each printing its own lines:
    weights and batch with the randomness off, one step against the
    composition front end: loss within 5e-2 relative, global gradient cosine
    >= 0.85 (adfmsl's bounds, tests/test_models.py:327-337);
+7c. activation checkpointing (``remat``): one train step plain and one
+   checkpointed, from the same weights, batch and generators, bf16 with the
+   configuration's randomness on: maze5 at batch 12 and main with K3 in the
+   train forward at batch 12 under ``train.remat`` (the whole forward, as
+   adfmsl), maze6 (the large encoder, random init, its last two layers
+   trained) at batch 4 under ``remat_layers`` and ``remat_extractor``. The
+   generators must end equal, the BN buffers and the loss agree within 1e-3,
+   and the gradients as in phase 8; K1 no launch, K3 twice and its backward
+   kernel once a checkpointed fused step (the recompute runs K3 again), once
+   each a plain one. Then each variant's step ms over 5 steps after 2 warm
+   ones and its peak memory (``max_memory_allocated``) beside the memory the
+   model and optimizer hold;
+7d. few-shot (``fewshot``): ``python -m adfmsl_torch.cli.fewshot --model
+   maze5`` in a subprocess on the card, cut 64600, the CLI's default episodes
+   (2-way, 5-shot, 5 queries, 4 episodes: 80 utterances a meta step), 3 meta
+   steps on a 64-utterance train fixture, adapted to and scoring the
+   40-utterance 'wild' fixture (``generate_wild_fixture``): the score file
+   without the 10 support utterances, the EER, K1 5 times a maze5 eval
+   forward (15: the adaptation and two scoring batches); the scores against
+   the unfolded trunk's from the same trained weights within 3e-2 * max(1,
+   |score|); the meta steps' seconds, the scoring rate and a
+   ``torch.profiler`` pass over two more meta steps (device ms, busy share);
+   then the CLI again with ``--no_fused_trunk`` (K1 no launch);
 8. one f32 train step of maze5 and of main at batch 2, cut 16000, randomness
    off, on the card and on the CPU from the same weights (TF32 off): loss
    within 1e-4 relative, gradients as in tests/test_torch_train_step.py
@@ -186,7 +209,9 @@ Phases, each printing its own lines:
    and the library call's time (none exists); K1's also summed over maze7's,
    maze3's, maze2's and maze6's blocks at batch 128, and its cases at the
    wide stack heads (768 -> 128 and 1024 -> 128, the 1x1 skip, no ``pre``) at
-   batch 128, T 201 and at ragged small T against the plain version.
+   batch 128, T 201 and at ragged small T against the plain version; K1's
+   launches on the few-shot path and K3's and its backward kernel's in the
+   remat phase's fused steps among the launches by path.
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -340,6 +365,19 @@ W2V2_K1 = {"maze7": 5, "maze3": 3, "maze2": 6, "maze6": 5}   # K1 launches a for
 # the transformer), maze6_fmsl (the large encoder in autograd with its last two
 # layers trained, ASP, the plateau scheduler)
 W2V2_TRAIN = ("maze7", "maze2", "maze6_fmsl")
+# activation checkpointing (phase remat): (model, batch, model extras, True for
+# the Wav2Vec2 encoder's remat_layers / remat_extractor, else train.remat);
+# maze6's config trains the large encoder's last two layers (freeze off)
+REMAT_CASES = [("maze5", TRAIN_BATCH, {}, False), ("main", TRAIN_BATCH, K3_TRAIN, False),
+               ("maze6", 4, {}, True)]
+# the few-shot CLI (phase fewshot): its train fixture (spoofs A02 / A04 / A06,
+# at least 10 a class for 5-shot 5-query episodes), the wild adapt fixture, the
+# meta steps, the CLI's default shape (2-way, 5-shot, 5 queries, 4 episodes)
+# and scoring batch, and tests/test_pallas.py's bf16 tolerance (x max(1, |s|))
+FEWSHOT_TRAIN_UTTS, FEWSHOT_WILD_UTTS, FEWSHOT_STEPS = 64, 40, 3
+FEWSHOT_K_SHOT, FEWSHOT_UTTS_A_STEP, FEWSHOT_SCORE_BATCH = 5, 80, 32
+FEWSHOT_SCORE_TOL = 3e-2
+K1_MAZE5 = 5                     # K1 launches a maze5 eval forward
 # the loader's host rate: utterances of LOADER_SECONDS, decoded and padded a
 # batch of BENCH_BATCH at a time, at each count of native threads
 LOADER_UTTS, LOADER_SECONDS, LOADER_WORKERS, LOADER_PASSES = 256, 4, (1, 2, 4, 8), 3
@@ -1535,6 +1573,276 @@ def _grads(state, metrics):
             for n, p in state.model.named_parameters()}
 
 
+def _step_record(st, gens, met, dev):
+    """What one train step left behind: its loss, unclipped gradients, BN
+    buffers and the states of its generators (on the host)."""
+    return {"loss": float(met["loss"]), "grads": _grads(st, met),
+            "buffers": {k: v.detach().float().cpu() for k, v in st.model.named_buffers()},
+            "generators": {k: g.get_state() for k, g in gens.items()}}
+
+
+def _compare_steps(name, a, b):
+    """Remat step ``b`` against the plain step ``a`` from the same weights and
+    generators: the generators' states equal, BN buffers within 1e-3 *
+    max(1, |v|) (the same forward ran once; cuDNN may pick other kernels),
+    loss within 1e-3 relative, per-leaf gradient cosine as in
+    tests/test_torch_train_step.py (0.999, 0.99 under 512 elements; leaves
+    under 3e-5 of the global norm on both sides skipped)."""
+    for k in a["generators"]:
+        check(torch.equal(a["generators"][k], b["generators"][k]),
+              f"remat ({name}): generator '{k}' ends elsewhere than the plain step's")
+    buf_err = 0.0
+    for k, v in a["buffers"].items():
+        err = float((v - b["buffers"][k]).abs().max()) / max(1.0, float(v.abs().max()))
+        buf_err = max(buf_err, err)
+    gnorm = math.sqrt(sum(float(v @ v) for v in a["grads"].values()))
+    worst, checked = 1.0, 0
+    for k, g in a["grads"].items():
+        h = b["grads"][k]
+        na, nb = float(np.linalg.norm(g)), float(np.linalg.norm(h))
+        if na < 3e-5 * gnorm and nb < 3e-5 * gnorm:
+            continue
+        cos = float(g @ h) / (na * nb)
+        check(cos >= (0.999 if g.size >= 512 else 0.99),
+              f"remat ({name}): {k} gradient cosine {cos}")
+        worst, checked = min(worst, cos), checked + 1
+    rel = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+    check(rel <= 1e-3 and buf_err <= 1e-3 and checked >= 20,
+          f"remat ({name}): loss {rel}, buffers {buf_err}, {checked} leaves")
+    return {"loss_plain": a["loss"], "loss_remat": b["loss"], "loss_rel_diff": rel,
+            "worst_grad_cosine": worst, "leaves_checked": checked,
+            "bn_buffer_max_rel_diff": buf_err, "generators_equal": True}
+
+
+def phase_remat(name, batch, extra, encoder, sf, rf, dev, card):
+    """One train step plain and one with activation checkpointing, from the
+    same weights, batch and generators, then their timed steps and peak
+    memory. ``encoder``: the Wav2Vec2 encoder's ``remat_layers`` and
+    ``remat_extractor``; else ``train.remat`` (the whole forward, as adfmsl).
+    The kernels' counts are set to 0 just before each variant's first step
+    and read just after it: K1 never launches in training; K3 and its
+    backward kernel launch once each a plain step of the fused front end, and
+    K3 twice a remat step (the forward, then its recompute)."""
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.models import build_model
+    from adfmsl_torch.train import Optimizer, TrainState, make_train_step
+
+    t0 = time.perf_counter()
+    exp = make_experiment(name)
+    exp.model.extra.update(extra)
+    model = build_model(exp.model, device=dev, seed=0)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(9)
+    args = (0.1 * torch.randn((batch, CUT), generator=g, device=dev),
+            (torch.arange(batch, device=dev) % 2).long(),
+            torch.ones(batch, dtype=torch.bool, device=dev))
+    rec = {"model": name, "card": card, "batch": batch, "cut": CUT, "extra": extra,
+           "checkpointed": ("wav2vec2 remat_layers + remat_extractor" if encoder
+                            else "train.remat (the whole forward)")}
+    steps = {}
+    for variant in ("plain", "remat"):
+        on = variant == "remat"
+        e = make_experiment(name)
+        e.model.extra.update(extra)
+        if encoder:
+            model.wav2vec2.remat_layers = model.wav2vec2.remat_extractor = on
+        else:
+            e.train.remat = on
+        model.load_state_dict(init)
+        st = TrainState(model, Optimizer.for_model(e, model, 100, 5), seed=0)
+        step = make_train_step(e)
+        gens = st.generators(0, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        rf.resblock_eval.launches = 0
+        sf.sinc_abs_pool_fused.launches = sf.sinc_abs_pool_bwd.launches = 0
+        met = step(st, *args, gens)
+        torch.cuda.synchronize()
+        launches = {"k1": rf.resblock_eval.launches, "k3": sf.sinc_abs_pool_fused.launches,
+                    "k3_bwd": sf.sinc_abs_pool_bwd.launches}
+        check(float(met["skipped"]) == 0.0 and math.isfinite(float(met["loss"])),
+              f"remat ({name}, {variant}): step {met}")
+        steps[variant] = _step_record(st, gens, met, dev)
+        fused = bool(extra.get("fused_train_frontend"))
+        want = {"k1": 0, "k3": (2 if on and not encoder else 1) if fused else 0,
+                "k3_bwd": 1 if fused else 0}
+        check(launches == want, f"remat ({name}, {variant}): launches {launches}, "
+                                f"expected {want}")
+        train_rate(step, st, args, 1, WARM_STEPS)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rate, ms = train_rate(step, st, args, 1 + WARM_STEPS, TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        rec[variant] = {"launches_first_step": launches, "utt_per_s": rate, "step_ms": ms,
+                        "peak_mem_gb": peak / 1e9,
+                        "peak_above_resident_gb": (peak - resident) / 1e9}
+        del st, step
+    if encoder:
+        model.wav2vec2.remat_layers = model.wav2vec2.remat_extractor = False
+    rec.update(_compare_steps(name, steps["plain"], steps["remat"]))
+    rec["seconds"] = time.perf_counter() - t0
+    print("remat " + json.dumps(rec), flush=True)
+    del model, init, args
+    torch.cuda.empty_cache()
+    return rec
+
+
+# the few-shot CLI runs in a subprocess: this driver imports the CLI beside
+# chip_smoke.py, counts K1 around the run (the count starts at 0 in the new
+# process and is set to 0 again just before), times the meta steps and the
+# scoring, and then, from the same trained weights, adapts and scores again
+# with the trunk unfolded and profiles two more meta steps
+FEWSHOT_DRIVER = r'''
+import json, sys, time
+root, argv = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, root)
+import torch
+from torch.profiler import ProfilerActivity, profile
+from adfmsl_torch.cli import fewshot
+from adfmsl_torch.ops import resblock_fused as rf
+from adfmsl_torch.profile_eval import union_ms
+from adfmsl_torch.train import fewshot as fs
+
+seen, rec = {}, {}
+init, adapt, score_protocol = (fs.FewshotTrainer.__init__, fs.FewshotTrainer.adapt,
+                               fs.FewshotTrainer.score_protocol)
+
+def traced_init(self, *a, **k):
+    init(self, *a, **k)
+    seen["trainer"] = self
+
+def traced_adapt(self, audio, labels, n_classes=2):
+    seen["support"] = (audio, labels)
+    return adapt(self, audio, labels, n_classes)
+
+def traced_score(self, ds, protos, batch_size=32):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = score_protocol(self, ds, protos, batch_size)
+    torch.cuda.synchronize()
+    seen["dataset"] = ds
+    rec["score_s"], rec["scored"] = time.perf_counter() - t0, len(out)
+    return out
+
+fs.FewshotTrainer.__init__ = traced_init
+fs.FewshotTrainer.adapt = traced_adapt
+fs.FewshotTrainer.score_protocol = traced_score
+rf.resblock_eval.launches = 0
+rec["rc"] = fewshot.main(argv)
+torch.cuda.synchronize()
+rec["k1_launches"] = rf.resblock_eval.launches
+tr = seen["trainer"]
+rec["history"] = tr.history
+rec["fused_trunk"] = any(getattr(m, "fused_eval", False) for m in tr.model.modules())
+for m in tr.model.modules():
+    if hasattr(m, "fused_eval"):
+        m.fused_eval = False
+protos = adapt(tr, *seen["support"])
+rf.resblock_eval.launches = 0
+rec["unfolded_scores"] = score_protocol(tr, seen["dataset"], protos)
+rec["unfolded_k1_launches"] = rf.resblock_eval.launches
+n = 2
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    tr.fit(n)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+events = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+device = union_ms((e.time_range.start, e.time_range.end) for e in events) / n
+rec["profile"] = {"steps": n, "wall_ms_per_step": wall, "device_ms_per_step": device,
+                  "device_busy_share": device / wall,
+                  "kernels_per_step": len(events) / n}
+print("fewshot_driver " + json.dumps(rec), flush=True)
+'''
+
+
+def phase_fewshot(rf, tmp, card):
+    """``python -m adfmsl_torch.cli.fewshot --model maze5`` in a subprocess on
+    the card (``FEWSHOT_DRIVER``), at cut 64600 and the CLI's default episode
+    shape (2-way, 5-shot, 5 queries, 4 episodes: 80 utterances a meta step),
+    3 meta steps on a 64-utterance train fixture (its spoofs are A02 / A04 /
+    A06, at least 10 a class), adapted to and scoring the 40-utterance
+    'wild' fixture; then again with ``--no_fused_trunk``. Checks: the score
+    file holds every wild utterance but the 10 support ones, in protocol
+    order, finite; the EER printed; K1 5 times a maze5 eval forward (the
+    adaptation's and each scoring batch's) with the folded trunk and never
+    without it; the fused run's scores against the unfolded trunk's from the
+    same trained weights within 3e-2 * max(1, |score|) (tests/test_pallas.py's
+    bf16 tolerance). The second run's scores beside the first's are recorded
+    (its meta-training is a second run on the card)."""
+    from adfmsl_torch.data import SyntheticSpec, generate_fixture, generate_wild_fixture
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "fewshot")
+    fx = generate_fixture(root, SyntheticSpec(n_train=FEWSHOT_TRAIN_UTTS, n_dev=2, n_eval=2))
+    wild = generate_wild_fixture(os.path.join(root, "wild"),
+                                 SyntheticSpec(n_eval=FEWSHOT_WILD_UTTS))["eval"]
+    n_support = 2 * FEWSHOT_K_SHOT
+    forwards = 1 + -(-FEWSHOT_WILD_UTTS // FEWSHOT_SCORE_BATCH)
+    rec = {"model": "maze5", "card": card, "cut": CUT, "meta_steps": FEWSHOT_STEPS,
+           "utterances_a_meta_step": FEWSHOT_UTTS_A_STEP, "train_utterances":
+           FEWSHOT_TRAIN_UTTS, "wild_utterances": FEWSHOT_WILD_UTTS}
+    scores = {}
+    for label, flags in (("fused", []), ("unfused", ["--no_fused_trunk"])):
+        out = os.path.join(root, f"{label}_scores.txt")
+        argv = ["--model", "maze5", "--train_protocol", fx["train"]["protocol"],
+                "--train_dir", fx["train"]["audio_dir"], "--adapt_protocol", wild["protocol"],
+                "--adapt_dir", wild["audio_dir"], "--n_steps", str(FEWSHOT_STEPS),
+                "--cut", str(CUT), "--output", out, "--device", "cuda", *flags]
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-c", FEWSHOT_DRIVER, str(ROOT), json.dumps(argv)],
+                           capture_output=True, text=True, timeout=900)
+        wall_s = time.perf_counter() - t0
+        check(p.returncode == 0, f"fewshot ({label}): exited {p.returncode}: "
+                                 f"{p.stderr[-3000:]}")
+        lines = p.stdout.splitlines()
+        drv = json.loads(next(ln for ln in lines if ln.startswith("fewshot_driver "))
+                         .split(" ", 1)[1])
+        metrics = [ast.literal_eval(ln) for ln in lines if ln.startswith("{")]
+        check(drv["rc"] == 0 and bool(metrics) and "eer" in metrics[-1],
+              f"fewshot ({label}): no EER printed: {p.stdout[-2000:]}")
+        check(metrics[-1]["n_support_excluded"] == n_support,
+              f"fewshot ({label}): {metrics[-1]}")
+        hist = drv["history"][:FEWSHOT_STEPS]
+        check(len(hist) == FEWSHOT_STEPS and all(math.isfinite(h["loss"]) for h in hist),
+              f"fewshot ({label}): meta steps {hist}")
+        with open(out) as fh:
+            rows = [ln.split() for ln in fh.read().splitlines()]
+        ids = [r[0] for r in rows]
+        scores[label] = {r[0]: float(r[1]) for r in rows}
+        check(len(ids) == FEWSHOT_WILD_UTTS - n_support
+              and ids == [u for u in wild["utt_ids"] if u in scores[label]],
+              f"fewshot ({label}): score file ids")
+        check(all(math.isfinite(v) for v in scores[label].values()),
+              f"fewshot ({label}): non-finite scores")
+        want_k1 = K1_MAZE5 * forwards if label == "fused" else 0
+        check(drv["k1_launches"] == want_k1 and drv["fused_trunk"] == (label == "fused"),
+              f"fewshot ({label}): K1 launched {drv['k1_launches']} times, expected {want_k1}")
+        run = {"wall_s": wall_s, "k1_launches": drv["k1_launches"],
+               "meta_step_s": [h["seconds"] for h in hist],
+               "meta_step_ms_median_after_first": 1e3 * float(np.median(
+                   [h["seconds"] for h in hist[1:]])),
+               "losses": [h["loss"] for h in hist], "score_s": drv["score_s"],
+               "scored_utterances": drv["scored"],
+               "score_utt_per_s": drv["scored"] / drv["score_s"],
+               "eer": metrics[-1]["eer"], "profile": drv["profile"]}
+        if label == "fused":
+            ref = np.asarray([drv["unfolded_scores"][u] for u in ids])
+            got = np.asarray([scores[label][u] for u in ids])
+            err = float(np.abs(got - ref).max())
+            tol = FEWSHOT_SCORE_TOL * max(1.0, float(np.abs(ref).max()))
+            check(drv["unfolded_k1_launches"] == 0 and err <= tol,
+                  f"fewshot: folded vs unfolded scores {err} > {tol}")
+            run.update(folded_vs_unfolded_max_abs_err=err, folded_vs_unfolded_tol=tol)
+        rec[label] = run
+    both = [u for u in scores["fused"]]
+    rec["cli_runs_max_abs_score_diff"] = float(max(
+        abs(scores["fused"][u] - scores["unfused"][u]) for u in both))
+    rec["seconds"] = time.perf_counter() - t_phase
+    print("fewshot " + json.dumps(rec), flush=True)
+    return rec
+
+
 def phase_train_card_vs_cpu(name, dev):
     """One f32 step of ``name`` on the card and on the CPU from the same init."""
     from adfmsl_torch.config import make_experiment
@@ -1783,7 +2091,7 @@ def _k3_bwd_main(k3b, precision):
 
 
 def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, train,
-                 fused_train):
+                 fused_train, remat, fewshot):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -1799,7 +2107,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     through the composition (information only) and the whole wrapper's
     forward + backward. K4: launches on its path as lcnn1d_lfcc's front end
     (the evaluate paths launch it no time, as adfmsl's ``lfcc`` never calls
-    it), times at batch 128, cut 64600, 'high' (batch 384 beside them)."""
+    it), times at batch 128, cut 64600, 'high' (batch 384 beside them). The
+    few-shot CLI's K1 launches (adaptation and scoring) and the remat phase's
+    K3 / K3-bwd launches (a checkpointed fused step and its plain twin) join
+    the launches by path."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
     k4_main = _k4_main(k4, BENCH_BATCH, "high")
     k4_big = _k4_main(k4, 384, "high")
@@ -1823,15 +2134,23 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
                      for r in train}
     k3_fused = {f"{r['model']} fused training": r["k3_launches"] for r in fused_train}
     k3b_fused = {f"{r['model']} fused training": r["k3_bwd_launches"] for r in fused_train}
+    # the remat steps (the fused front end's plain step beside them) and the
+    # few-shot CLI's adaptation and scoring
+    k3_remat = {f"{r['model']} {v} step": r[v]["launches_first_step"]["k3"]
+                for r in remat if r["extra"] for v in ("plain", "remat")}
+    k3b_remat = {f"{r['model']} {v} step": r[v]["launches_first_step"]["k3_bwd"]
+                 for r in remat if r["extra"] for v in ("plain", "remat")}
+    k1_fewshot = {"maze5 few-shot CLI (adaptation + scoring)": fewshot["fused"]["k1_launches"]}
     k3b_main = {p: _k3_bwd_main(k3b, p) for p in K3_BWD_TOL}
     k3t_main = next(r for r in k3_train if r["B"] == TRAIN_BATCH and r["T"] == CUT)
     return {"kernels": [{
         "id": "K1", "name": "resblock_eval", "route": "cuda",
         "source": "adfmsl_torch/csrc/resblock_eval.cu",
         "replaces": "adfmsl/ops/pallas/resblock_fused.py:141",
-        "launches": sum(r["k1_launches"] for r in main_path) + sum(k1_train.values()),
+        "launches": (sum(r["k1_launches"] for r in main_path) + sum(k1_train.values())
+                     + sum(k1_fewshot.values())),
         "launches_by_path": {**{r["model"]: r["k1_launches"] for r in main_path},
-                             **k1_train},
+                             **k1_train, **k1_fewshot},
         "max_abs_err": max(r["max_abs_err_y"] for r in k1),
         "max_err_over_tol": max(max(r["max_abs_err_y"] / r["tol_y"],
                                     r["max_abs_err_sums"] / r["tol_sums"]) for r in k1),
@@ -1878,9 +2197,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "source": "adfmsl_torch/csrc/sinc_abs_pool.cu",
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:81",
         "launches": (sum(r["k3_launches"] for r in main_path) + sum(k3_eval_train.values())
-                     + sum(k3_fused.values())),
+                     + sum(k3_fused.values()) + sum(k3_remat.values())),
         "launches_by_path": {**{r["model"]: r["k3_launches"] for r in main_path},
-                             **k3_eval_train, **k3_fused},
+                             **k3_eval_train, **k3_fused, **k3_remat},
         "max_abs_err": max(r["max_abs_err"] for r in k3),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3),
         **_summed([k3_main]),
@@ -1896,7 +2215,8 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "source": "adfmsl_torch/csrc/sinc_abs_pool_bwd.cu",
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:152 (_sap_bwd, the custom VJP of "
                     "sinc_abs_pool :138)",
-        "launches": sum(k3b_fused.values()), "launches_by_path": k3b_fused,
+        "launches": sum(k3b_fused.values()) + sum(k3b_remat.values()),
+        "launches_by_path": {**k3b_fused, **k3b_remat},
         "max_abs_err": max(r["max_abs_err"] for r in k3b),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3b),
         **_summed([k3b_main["tf32"]]),
@@ -2021,6 +2341,9 @@ def main() -> int:
                                               for n in W2V2_TRAIN])
         fused_train = phase("fused_train", lambda: [phase_fused_train(n, sf, fixture, dev)
                                                     for n in ("main", "main_fmsl")])
+        remat = phase("remat", lambda: [phase_remat(*c, sf, rf, dev, smi)
+                                        for c in REMAT_CASES])
+        fewshot = phase("fewshot", phase_fewshot, rf, tmp, smi)
     k4_front = phase("k4_frontend", phase_k4_frontend, lf, dev, smi)
     phase("train_card_vs_cpu", lambda: [phase_train_card_vs_cpu(n, dev)
                                         for n in ("maze5", "main")])
@@ -2044,7 +2367,8 @@ def main() -> int:
                                          "total": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front,
-                                  main_path, train, fused_train)), flush=True)
+                                  main_path, train, fused_train, remat, fewshot)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -122,9 +122,16 @@ def test_extras_are_built_on_the_card_by_default(monkeypatch):
         m = build_model(make_experiment(name).model, device="cpu", seed=1)
         assert isinstance(m, EXTRAS[name]) and not m.training
     exp = make_experiment("maze2")
-    exp.model.wav2vec2.remat_layers = True          # a path still to port (slice 6c)
-    with pytest.raises(NotImplementedError, match="slice 6c"):
-        build_model(exp.model, device="cpu")
+    exp.model.wav2vec2.model_name = "tiny"
+    exp.model.wav2vec2.remat_layers = True          # ported in slice 6c
+    m = build_model(exp.model, device="cpu")
+    assert m.wav2vec2.remat_layers and not m.wav2vec2.remat_extractor
+    m.train()
+    out = m(torch.from_numpy(np.random.default_rng(0).standard_normal((2, 4000))
+                             .astype(np.float32)),
+            rngs={k: torch.Generator().manual_seed(i)
+                  for i, k in enumerate(("dropout", "specaugment"))})
+    assert out["logits"].shape == (2, 2) and torch.isfinite(out["logits"]).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(make_experiment("lcnn1d_lfcc").model)

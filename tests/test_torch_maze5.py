@@ -150,14 +150,22 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_models_name_their_slice():
-    """Every registry model is ported; the paths still to port raise and name
-    their ROADMAP slice: 'reference' block semantics (slice 9) and the
-    encoder's activation checkpointing (slice 6c)."""
+    """Every registry model is ported; the path still to port raises and names
+    its ROADMAP slice: 'reference' block semantics (slice 9). The encoder's
+    activation checkpointing (slice 6c) is ported: with the flag set the
+    model builds and its train forward is finite."""
     exp = make_experiment("maze6_fmsl")
     exp.model.architecture.block_semantics = "reference"
     with pytest.raises(NotImplementedError, match="slice 9"):
         build_model(exp.model, device="cpu")
     exp = make_experiment("maze6_fmsl")
+    exp.model.wav2vec2.model_name = "tiny"
     exp.model.wav2vec2.remat_extractor = True
-    with pytest.raises(NotImplementedError, match="slice 6c"):
-        build_model(exp.model, device="cpu")
+    model = build_model(exp.model, device="cpu")
+    assert model.wav2vec2.remat_extractor
+    model.train()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 4000)).astype(np.float32))
+    out = model(x, labels=torch.tensor([0, 1]),
+                rngs={k: torch.Generator().manual_seed(i)
+                      for i, k in enumerate(("dropout", "specaugment", "lsa"))})
+    assert torch.isfinite(out["logits"]).all() and torch.isfinite(out["loss"])

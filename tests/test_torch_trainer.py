@@ -162,8 +162,8 @@ def test_later_flags_name_their_slice(flag, value, slice_):
 
 
 def test_rawnet_training_and_remat_name_their_slice():
-    """RawNet models train (their train-mode forward gives finite logits);
-    remat still names the slice that brings it."""
+    """RawNet models train (their train-mode forward gives finite logits), and
+    a ``train.remat`` step (ported in slice 6c) gives a finite loss."""
     from adfmsl_torch.config import make_experiment
     from adfmsl_torch.models import build_model
     from adfmsl_torch.train import make_train_step
@@ -174,6 +174,13 @@ def test_rawnet_training_and_remat_name_their_slice():
     logits = model(x)["logits"]
     assert logits.shape == (2, 2) and logits.requires_grad and torch.isfinite(logits).all()
     exp = make_experiment("maze5")
+    exp.data.cut = 4000
     exp.train.remat = True
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_train_step(exp)
+    from adfmsl_torch.train import Optimizer, TrainState
+
+    model = build_model(exp.model, device="cpu")
+    st = TrainState(model, Optimizer.for_model(exp, model, 10), seed=0)
+    met = make_train_step(exp)(st, x, torch.tensor([0, 1]), torch.ones(2, dtype=torch.bool),
+                               st.generators(0, 0))
+    assert float(met["skipped"]) == 0.0 and torch.isfinite(met["loss"])
+    assert st.optimizer.count == 1
