@@ -1,17 +1,25 @@
 """Evaluation CLI of the port: protocol -> score file -> EER / min-DCF / min t-DCF.
 
     python -m adfmsl_torch.cli.evaluate --model_type maze5|main|... --protocol P \
-        --data_dir D [--model_path CKPT_DIR] [--fused_frontend] [--device cuda] ...
+        --data_dir D [--model_path CKPT_DIR] [--fused_frontend] [--device cuda] \
+        [--data_parallel N --dist_backend nccl|gloo] ...
 
 Port of ``adfmsl/cli/evaluate.py``: rebuilds the architecture, loads the
 checkpoint (``model.pt`` written by ``adfmsl_torch.models.save_checkpoint``) or
 initialises randomly from ``--seed``, optionally smoke-tests a synthetic
 forward pass, streams the eval protocol, writes the score file and prints the
 metric dict. Runs on the card unless ``--device cpu`` is given.
+
+``--data_parallel N`` (N > 1) scores over N local ranks (``parallel/launch.py``;
+``--dist_backend`` and ``--dist_timeout`` as in ``cli/train.py``): rank 0's
+weights are broadcast, each rank decodes and scores its row block of every
+batch, and rank 0 writes the score file, equal to the one-process file. Each rank prints a
+``rank_summary`` JSON line (its rows scored and kernel launches).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 
@@ -47,6 +55,14 @@ def build_parser():
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random init when no --model_path is given")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="score over N local ranks (0 / 1: one process)")
+    p.add_argument("--dist_backend", default="nccl", choices=["nccl", "gloo"],
+                   help="the ranks' torch.distributed backend (gloo: ranks may "
+                        "share a card or run on the CPU)")
+    p.add_argument("--dist_timeout", type=float, default=1800.0,
+                   help="seconds a collective may wait for the other ranks before "
+                        "its rank fails (the run itself has no time limit)")
     return p
 
 
@@ -81,14 +97,42 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.data_parallel > 1:
+        from adfmsl_torch.parallel import launch
 
+        rcs = launch(_rank_main, args.data_parallel,
+                     (argv if argv is not None else sys.argv[1:],),
+                     backend=args.dist_backend, device=args.device,
+                     collective_timeout=args.dist_timeout)
+        return max(rcs)
+    return run(parser, args, args.device)
+
+
+def _rank_main(device, argv) -> int:
+    """One rank of ``--data_parallel``."""
+    from adfmsl_torch.config import MeshConfig
+    from adfmsl_torch.parallel import kernel_launches, make_mesh
+
+    logging.basicConfig(level=logging.INFO)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    mesh = make_mesh(MeshConfig(data_parallel=args.data_parallel), args.data_parallel)
+    rc = run(parser, args, device, mesh)
+    print("rank_summary " + json.dumps({"rank": mesh.rank, "device": str(device),
+                                        "kernel_launches": kernel_launches()}), flush=True)
+    return rc
+
+
+def run(parser, args, device, mesh=None) -> int:
+    """Score as the parsed ``args`` say on ``device``; under ``mesh`` as this
+    rank."""
     from adfmsl_torch.config import make_experiment
     from adfmsl_torch.data import AsvspoofDataset, DataLoader, parse_protocol
     from adfmsl_torch.device import resolve_device
     from adfmsl_torch.evaluation import evaluate_to_file
     from adfmsl_torch.models import SPECS, build_model, load_checkpoint
 
-    device = resolve_device(args.device)
+    device = resolve_device(device)
     state = None
     if args.model_path:
         # checkpoints carry their full config
@@ -109,19 +153,24 @@ def main(argv=None) -> int:
     model = build_model(exp.model, device=device, seed=args.seed)
     if state is not None:
         model.load_state_dict(state, strict=True)
+    if mesh is not None:
+        from adfmsl_torch.parallel import replicate
+
+        replicate(mesh, model)
     proto = parse_protocol(args.protocol, exp.data.label_polarity)
     ds = AsvspoofDataset(proto, args.data_dir, cut=exp.data.cut,
                          pad_mode=exp.data.pad_mode, sample_rate=exp.data.sample_rate,
                          use_native_io=exp.data.use_native_io,
                          num_workers=exp.data.num_workers)
+    shard = ({"rank": mesh.data_rank, "world": mesh.dp} if mesh is not None else {})
     loader = DataLoader(ds, args.batch_size, shuffle=False, drop_last=False,
-                        prefetch=exp.data.prefetch)
+                        prefetch=exp.data.prefetch, **shard)
     if args.smoke_test and not smoke_test(model, exp.data.cut):
         return 1
     out_path = args.output or f"{args.model_type}_scores.txt"
     res = evaluate_to_file(model, loader, out_path, labels=proto.labels or None,
-                           asv_scores=args.asv_scores)
-    if res.metrics:
+                           asv_scores=args.asv_scores, mesh=mesh)
+    if res.metrics and (mesh is None or mesh.rank == 0):
         print({k: round(v, 6) if isinstance(v, float) else v
                for k, v in res.metrics.items()})
     return 0

@@ -2,7 +2,8 @@
 
     python -m adfmsl_torch.cli.train --model maze5 --train_protocol P \\
         --train_dir D [--dev_protocol P2 --dev_dir D2] --batch_size 12 \\
-        --num_epochs N --checkpoint_dir C [--restore] [--device cuda|cpu]
+        --num_epochs N --checkpoint_dir C [--restore] [--device cuda|cpu] \
+        [--data_parallel N --dist_backend nccl|gloo]
 
 Trains a ported model (maze4, maze5, RawNet ``main`` and their ``_fmsl``
 twins; lcnn_lfcc, lcnn1d_lfcc, resnet18_logmel) from its standardized
@@ -15,10 +16,21 @@ the ``Trainer`` itself.
 epoch. ``--eval`` writes a score file for ``--eval_protocol`` instead of
 training. Runs on the card unless ``--device cpu`` is given. The flags of
 features that later slices bring raise and name the slice.
+
+``--data_parallel N`` (N > 1) trains data-parallel over N local ranks
+(``parallel/launch.py``: one process each, rank r on card r): each rank
+decodes its row block of every global batch, BatchNorm and the loss are
+those of the global batch, rank 0 writes the checkpoints. ``--dist_backend``
+is ``nccl`` (one card a rank; more ranks than cards raises) or ``gloo``
+(ranks may share a card, or run on the CPU with ``--device cpu``). The run
+has no time limit; a collective that waits ``--dist_timeout`` seconds fails
+its rank, and a failed rank fails the run. Each rank prints a
+``rank_summary`` JSON line with its kernel launches.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -27,7 +39,6 @@ import sys
 LATER_FLAGS = {"config": "slice 9 (config/yaml_io.py)",
                "profile_dir": "slice 9 (utils/profiling)",
                "log_dir": "slice 9 (utils/MetricsLogger)",
-               "data_parallel": "slice 8 (multi-device)",
                "train_pack": "slice 9 (data/pack.py)",
                "dev_pack": "slice 9 (data/pack.py)",
                "eval_pack": "slice 9 (data/pack.py)"}
@@ -59,7 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use canonical FMSL params instead of reference drift")
     p.add_argument("--profile_dir", default=None)
     p.add_argument("--log_dir", default=None)
-    p.add_argument("--data_parallel", type=int, default=0)
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="train over N local ranks (0 / 1: one process)")
+    p.add_argument("--dist_backend", default="nccl", choices=["nccl", "gloo"],
+                   help="the ranks' torch.distributed backend (gloo: ranks may "
+                        "share a card or run on the CPU)")
+    p.add_argument("--dist_timeout", type=float, default=1800.0,
+                   help="seconds a collective may wait for the other ranks before "
+                        "its rank fails (the run itself has no time limit)")
     p.add_argument("--train_pack", default=None)
     p.add_argument("--dev_pack", default=None)
     p.add_argument("--eval_pack", default=None)
@@ -79,10 +97,34 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     for flag, slice_ in LATER_FLAGS.items():
-        v = getattr(args, flag)
-        if v and not (flag == "data_parallel" and v <= 1):
+        if getattr(args, flag):
             raise NotImplementedError(f"--{flag} comes with ROADMAP {slice_}")
+    if args.data_parallel > 1:
+        from adfmsl_torch.parallel import launch
 
+        launch(_rank_main, args.data_parallel, (argv if argv is not None else sys.argv[1:],),
+               backend=args.dist_backend, device=args.device,
+               collective_timeout=args.dist_timeout)
+        return 0
+    return run(args, args.device)
+
+
+def _rank_main(device, argv) -> None:
+    """One rank of ``--data_parallel``."""
+    from adfmsl_torch.config import MeshConfig
+    from adfmsl_torch.parallel import kernel_launches, make_mesh
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    args = build_parser().parse_args(argv)
+    mesh = make_mesh(MeshConfig(data_parallel=args.data_parallel), args.data_parallel)
+    run(args, device, mesh)
+    print("rank_summary " + json.dumps({"rank": mesh.rank, "device": str(device),
+                                        "kernel_launches": kernel_launches()}), flush=True)
+
+
+def run(args, device, mesh=None) -> int:
+    """Train (or with ``--eval`` score) as the parsed ``args`` say, on
+    ``device``; under ``mesh`` as this rank."""
     from adfmsl_torch.config import make_experiment
     from adfmsl_torch.data import parse_protocol
     from adfmsl_torch.evaluation import evaluate_to_file
@@ -105,17 +147,19 @@ def main(argv=None) -> int:
     dev_proto_path = args.dev_protocol or _default_paths(exp, "dev", "trl")[0]
     dev_dir = args.dev_dir or _default_paths(exp, "dev", "trl")[1]
 
+    shard = ({"rank": mesh.data_rank, "world": mesh.dp} if mesh is not None else {})
     train_proto = parse_protocol(train_proto_path, exp.data.label_polarity)
-    train_loader = make_dataset_and_loader(exp, train_proto, train_dir, shuffle=True)
+    train_loader = make_dataset_and_loader(exp, train_proto, train_dir, shuffle=True,
+                                           **shard)
     dev_loader = None
     if os.path.exists(dev_proto_path):
         dev_proto = parse_protocol(dev_proto_path, exp.data.label_polarity)
         dev_loader = make_dataset_and_loader(exp, dev_proto, dev_dir, shuffle=False,
                                              batch_size=exp.train.eval_batch_size,
-                                             drop_last=False)
+                                             drop_last=False, **shard)
 
     trainer = Trainer(exp, train_loader, dev_loader, checkpoint_dir=args.checkpoint_dir,
-                      device=args.device)
+                      mesh=mesh, device=device)
     if args.restore and args.checkpoint_dir:
         epoch = trainer.restore()
         logging.info("restored checkpoint epoch %d", epoch)
@@ -126,11 +170,11 @@ def main(argv=None) -> int:
         eval_proto = parse_protocol(eval_proto_path, exp.data.label_polarity)
         loader = make_dataset_and_loader(exp, eval_proto, eval_dir, shuffle=False,
                                          batch_size=exp.train.eval_batch_size,
-                                         drop_last=False)
+                                         drop_last=False, **shard)
         trainer.state.model.eval()
         res = evaluate_to_file(trainer.state.model, loader, args.eval_output,
-                               labels=eval_proto.labels or None)
-        if res.metrics:
+                               labels=eval_proto.labels or None, mesh=mesh)
+        if res.metrics and (mesh is None or mesh.rank == 0):
             print({k: round(v, 6) if isinstance(v, float) else v
                    for k, v in res.metrics.items()})
         return 0

@@ -13,7 +13,6 @@ import struct
 from typing import Tuple
 
 import numpy as np
-from scipy.signal import resample_poly
 
 _PCM_DTYPES = {8: np.uint8, 16: np.int16, 32: np.int32}
 
@@ -61,6 +60,10 @@ def resample(x: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
     if sr == target_sr:
         return x
     g = np.gcd(sr, target_sr)
+    # imported here: scipy.signal takes seconds to import, and every spawned
+    # rank imports this module
+    from scipy.signal import resample_poly
+
     return resample_poly(x, target_sr // g, sr // g).astype(np.float32)
 
 

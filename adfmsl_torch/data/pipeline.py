@@ -1,7 +1,15 @@
 """Host-side input pipeline: path resolution, decode+pad, fixed-shape batching,
 threaded prefetch (the port's copy of ``adfmsl/data/pipeline.py``, without
-adfmsl's fuzzy file discovery and its per-host sharding, which no path of the
-port uses yet).
+adfmsl's fuzzy file discovery).
+
+Two ways to split the data over ranks:
+- ``shard_index`` / ``num_shards``: adfmsl's per-host split of the utterance
+  list into equal shards (the tail beyond an even split is dropped);
+- ``rank`` / ``world``: every rank walks the single-process batch order (the
+  same seeded shuffle) and yields, of each global batch padded to a multiple
+  of ``world`` with masked rows, its contiguous row block, decoding only
+  those rows (``Batch.global_ids`` holds the padded global batch's ids). This
+  is the feed that keeps a data-parallel Trainer equal to the one-process one.
 
 Replaces the reference's per-model torch ``Dataset``/``DataLoader`` copies
 (maze2.py:244-302 and 13 near-duplicates). Differences by design:
@@ -48,12 +56,16 @@ def resolve_audio_path(base_dir: str, utt_id: str) -> Optional[str]:
 
 @dataclass
 class Batch:
-    """One fixed-shape batch. ``mask`` marks real (non-padding) rows."""
+    """One fixed-shape batch. ``mask`` marks real (non-padding) rows. A
+    loader's batch is rank ``rank``'s block of a global batch and carries the
+    global batch's ids (padded with '' to a multiple of ``world``; at a world
+    of one, ``utt_ids``)."""
 
     audio: np.ndarray          # [B, cut] float32
     label: np.ndarray          # [B] int32 (zeros when unlabeled)
     mask: np.ndarray           # [B] bool
     utt_ids: List[str]
+    global_ids: Optional[List[str]] = None
 
 
 class AsvspoofDataset:
@@ -128,8 +140,24 @@ def _make_batch(ds: AsvspoofDataset, ids: Sequence[str], batch_size: int) -> Bat
     return Batch(audio, label, mask, list(ids) + [""] * (batch_size - len(ids)))
 
 
+def _make_block(ds: AsvspoofDataset, ids: Sequence[str], batch_size: int, rank: int,
+                world: int) -> Batch:
+    """Rank ``rank``'s row block of the global batch ``ids`` padded to
+    ``batch_size`` and then to a multiple of ``world``; only its rows decode."""
+    n = -(-batch_size // world) * world
+    global_ids = list(ids) + [""] * (n - len(ids))
+    b = n // world
+    out = _make_batch(ds, [u for u in global_ids[rank * b:(rank + 1) * b] if u], b)
+    out.global_ids = global_ids
+    return out
+
+
 class DataLoader:
-    """Seeded-shuffle, fixed-shape, prefetching batch iterator."""
+    """Seeded-shuffle, fixed-shape, prefetching batch iterator.
+
+    ``shard_index`` / ``num_shards`` split the utterance list across hosts
+    (adfmsl :180-206); ``rank`` / ``world`` yield this rank's row block of
+    each global batch (``batch_size`` stays the global batch)."""
 
     def __init__(
         self,
@@ -139,15 +167,31 @@ class DataLoader:
         drop_last: bool = False,
         seed: int = 1234,
         prefetch: int = 4,
+        shard_index: int = 0,
+        num_shards: int = 1,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch = prefetch
+        self.rank, self.world = rank, world
         self.epoch = 0
-        self.ids = dataset.protocol.utt_ids
+        ids = dataset.protocol.utt_ids
+        if num_shards > 1:
+            # equal shards: a host with one more utterance would run one more
+            # (or fewer) batch than its peers and hang them in a collective
+            n_even = (len(ids) // num_shards) * num_shards
+            if n_even < len(ids):
+                log.info("host sharding drops %d tail utterances for equal shards",
+                         len(ids) - n_even)
+            ids = ids[:n_even]
+        self.ids = ids[shard_index::num_shards]
 
     def _epoch_ids(self) -> List[str]:
         ids = list(self.ids)
@@ -169,9 +213,12 @@ class DataLoader:
             if len(chunk) < self.batch_size and self.drop_last:
                 continue
             chunks.append(chunk)
+        def make(c: Sequence[str]) -> Batch:
+            return _make_block(self.ds, c, self.batch_size, self.rank, self.world)
+
         if self.prefetch <= 0:
             for c in chunks:
-                yield _make_batch(self.ds, c, self.batch_size)
+                yield make(c)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -194,7 +241,7 @@ class DataLoader:
                 for c in chunks:
                     if stop.is_set():
                         return
-                    if not put(_make_batch(self.ds, c, self.batch_size)):
+                    if not put(make(c)):
                         return
             except Exception as e:  # surface decoder errors on the consumer side
                 put(e)

@@ -1,11 +1,18 @@
 """Batched evaluation runner: protocol -> score file (+ metrics).
 
 Port of ``adfmsl/evaluation/runner.py`` (``produce_scores`` :37,
-``evaluate_to_file`` :161) for one device, without adfmsl's mesh sharding
-and OOM half-batch retry. Kept as there: fixed-shape batches whose padding rows
-are dropped by the loader's mask, scores in protocol order, and non-finite
+``evaluate_to_file`` :161). Kept as there: fixed-shape batches whose padding
+rows are dropped by the loader's mask, scores in protocol order, non-finite
 scores replaced by -1e9 and counted (the reference's NaN guard,
-Maze6_Eval.py:474-493).
+Maze6_Eval.py:474-493), and on one device the OOM half-batch retry (:90-115,
+Maze6_Eval.py:509-535): a batch that runs out of device memory is scored in
+two halves, a batch of one re-raises, and more than 100 such errors trip the
+circuit breaker.
+
+With a ``mesh`` (:77-89) each rank scores its row block of every batch,
+padded to the data axis; the scores meet in one ``all_reduce`` of a
+zero-filled global buffer after the loop, and rank 0 writes the score file,
+equal to the one-process file (ids in protocol order, padding rows dropped).
 """
 from __future__ import annotations
 
@@ -15,12 +22,15 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from adfmsl_torch.data.pipeline import DataLoader
 from adfmsl_torch.evaluation.metrics import compute_all_metrics
 from adfmsl_torch.evaluation.scores import write_score_file
 
 log = logging.getLogger(__name__)
+
+MAX_OOM_ERRORS = 100        # the circuit breaker (Maze6_Eval.py:451)
 
 
 @dataclass
@@ -31,41 +41,102 @@ class EvalResult:
     metrics: Optional[Dict[str, float]] = None
 
 
-def produce_scores(model: torch.nn.Module, loader: DataLoader) -> EvalResult:
+def _score_with_retry(model: torch.nn.Module, audio: torch.Tensor,
+                      errors: List[int]) -> torch.Tensor:
+    """``model(audio)["scores"]``; on ``torch.OutOfMemoryError`` the batch is
+    scored in two halves (each of which may split again)."""
+    try:
+        return model(audio)["scores"]
+    except torch.OutOfMemoryError:
+        if len(audio) < 2:
+            raise
+        errors[0] += 1
+        if errors[0] > MAX_OOM_ERRORS:
+            raise
+        log.warning("eval batch of %d out of device memory; retrying in halves",
+                    len(audio))
+        h = len(audio) // 2
+        return torch.cat([_score_with_retry(model, audio[:h], errors),
+                          _score_with_retry(model, audio[h:], errors)])
+
+
+def gather_rows(mesh, blocks: List[torch.Tensor], global_sizes: List[int]) -> np.ndarray:
+    """Every rank's row blocks of each global batch, in batch order, through
+    one ``all_reduce`` of a zero-filled buffer: (sum of global sizes, ...)."""
+    first = blocks[0]
+    buf = torch.zeros((sum(global_sizes), *first.shape[1:]), dtype=torch.float32,
+                      device=first.device)
+    off = 0
+    for blk, n in zip(blocks, global_sizes):
+        b = len(blk)
+        start = off + mesh.data_rank * b
+        buf[start:start + b] = blk.float()
+        off += n
+    dist.all_reduce(buf, group=mesh.data_group)
+    return buf.cpu().numpy()
+
+
+def produce_scores(model: torch.nn.Module, loader: DataLoader, mesh=None) -> EvalResult:
     """Run batched inference on the model's device; returns per-utterance
     scores in protocol order (masked padding rows dropped). Scores stay on
-    the device until the loop ends, so the host never waits on a batch."""
+    the device until the loop ends, so the host never waits on a batch.
+    Under ``mesh`` the loader yields this rank's row blocks
+    (``parallel/mesh.py:check_loader``) and every rank returns the whole
+    result."""
+    if mesh is not None:
+        from adfmsl_torch.parallel.mesh import check_loader
+
+        check_loader(mesh, loader)
     dev = next(model.parameters()).device
     pending = []
+    errors = [0]
     with torch.inference_mode():
         for batch in loader:
+            if mesh is not None:
+                ids, mask = batch.global_ids, [u != "" for u in batch.global_ids]
+            else:
+                ids, mask = batch.utt_ids, batch.mask
             audio = torch.from_numpy(batch.audio).to(dev, non_blocking=True)
-            pending.append((model(audio)["scores"], batch.utt_ids, batch.mask))
+            scores = (model(audio)["scores"] if mesh is not None
+                      else _score_with_retry(model, audio, errors))
+            pending.append((scores, ids, mask))
+    if mesh is not None and pending:
+        gathered = gather_rows(mesh, [p[0] for p in pending], [len(p[1]) for p in pending])
+        host, off = [], 0
+        for _, ids, _ in pending:
+            host.append(gathered[off:off + len(ids)])
+            off += len(ids)
+    else:
+        host = [p[0].float().cpu().numpy() for p in pending]
 
-    ids: List[str] = []
+    ids_out: List[str] = []
     all_scores: List[float] = []
     n_bad = 0
-    for dev_scores, utt_ids, mask in pending:
-        s = dev_scores.float().cpu().numpy()
+    for s, (_, utt_ids, mask) in zip(host, pending):
         bad = ~np.isfinite(s)
         if bad.any():
             n_bad += int(bad.sum())
             s = np.where(bad, -1e9, s)
         for u, sc, m in zip(utt_ids, s, mask):
             if m:
-                ids.append(u)
+                ids_out.append(u)
                 all_scores.append(sc)
     if n_bad:
         log.warning("replaced %d non-finite scores", n_bad)
-    return EvalResult(ids, np.asarray(all_scores, dtype=np.float64), n_bad)
+    return EvalResult(ids_out, np.asarray(all_scores, dtype=np.float64), n_bad)
 
 
 def evaluate_to_file(model: torch.nn.Module, loader: DataLoader, score_path: str,
                      labels: Optional[Dict[str, int]] = None,
-                     asv_scores: Optional[str] = None) -> EvalResult:
-    res = produce_scores(model, loader)
-    n = write_score_file(score_path, res.utt_ids, res.scores)
-    log.info("wrote %d scores to %s", n, score_path)
+                     asv_scores: Optional[str] = None, mesh=None) -> EvalResult:
+    """Score ``loader`` into ``score_path`` (under ``mesh``: written by rank 0
+    only, the other ranks waiting for it) and compute the metrics."""
+    res = produce_scores(model, loader, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        n = write_score_file(score_path, res.utt_ids, res.scores)
+        log.info("wrote %d scores to %s", n, score_path)
+    if mesh is not None:
+        dist.barrier()
     if labels:
         y = np.asarray([labels[u] for u in res.utt_ids if u in labels])
         s = np.asarray([sc for u, sc in zip(res.utt_ids, res.scores) if u in labels])

@@ -28,6 +28,7 @@ from adfmsl_torch.data.protocol import Protocol
 from adfmsl_torch.heads.fmsl import l2_normalize
 
 if TYPE_CHECKING:
+    from adfmsl_torch.parallel.mesh import Mesh
     from adfmsl_torch.train.optim import Optimizer
 
 
@@ -81,15 +82,24 @@ class EpisodeSampler:
 
     ``load_batch_fn(ids) -> (len(ids), T) float32`` routes the whole episode
     batch through one decode call (``AsvspoofDataset.load_batch``, the native
-    thread-pooled loader); ``load_fn`` is the one-utterance fallback."""
+    thread-pooled loader); ``load_fn`` is the one-utterance fallback.
+
+    ``shard=(i, n)`` (a data-parallel rank ``i`` of ``n``) samples every
+    episode, as one process does, and decodes and returns only the
+    contiguous block of episodes [i·E/n, (i+1)·E/n)."""
 
     def __init__(self, protocol: Protocol,
                  load_fn: Optional[Callable[[str], np.ndarray]] = None,
                  n_way: int = 2, k_shot: int = 5, q_queries: int = 5,
                  episodes_per_batch: int = 4, seed: int = 1234,
-                 load_batch_fn: Optional[Callable[[Sequence[str]], np.ndarray]] = None):
+                 load_batch_fn: Optional[Callable[[Sequence[str]], np.ndarray]] = None,
+                 shard: Tuple[int, int] = (0, 1)):
         if load_fn is None and load_batch_fn is None:
             raise ValueError("need load_fn or load_batch_fn")
+        if episodes_per_batch % shard[1]:
+            raise ValueError(f"{episodes_per_batch} episodes a batch do not tile "
+                             f"{shard[1]} data ranks")
+        self.shard = shard
         self.groups = group_by_class(protocol)
         self.load_fn = load_fn
         self.load_batch_fn = load_batch_fn
@@ -107,14 +117,18 @@ class EpisodeSampler:
             sup_ids.append(sup)
             qry_ids.append(qry)
             names.append(classes)
+        i, n = self.shard
+        e = self.e // n
+        sup_ids, qry_ids = sup_ids[i * e:(i + 1) * e], qry_ids[i * e:(i + 1) * e]
+        names = names[i * e:(i + 1) * e]
         if self.load_batch_fn is not None:
             # one decode call for the whole batch (episode-major flat order)
             flat = [u for ep in sup_ids for cls in ep for u in cls] + \
                    [u for ep in qry_ids for cls in ep for u in cls]
             audio = np.asarray(self.load_batch_fn(flat), dtype=np.float32)
-            ns = self.e * self.n_way * self.k_shot
-            sup = audio[:ns].reshape(self.e, self.n_way, self.k_shot, -1)
-            qry = audio[ns:].reshape(self.e, self.n_way, self.q, -1)
+            ns = e * self.n_way * self.k_shot
+            sup = audio[:ns].reshape(e, self.n_way, self.k_shot, -1)
+            qry = audio[ns:].reshape(e, self.n_way, self.q, -1)
         else:
             sup = np.asarray([[[self.load_fn(u) for u in cls] for cls in ep]
                               for ep in sup_ids], dtype=np.float32)
@@ -180,7 +194,8 @@ EmbedTrainFn = Callable[[torch.Tensor, Optional[Mapping[str, torch.Generator]]],
 
 
 def make_episodic_train_step(embed_train_fn: EmbedTrainFn, optimizer: "Optimizer",
-                             temperature: float = 10.0, metric: str = "cosine"):
+                             temperature: float = 10.0, metric: str = "cosine",
+                             mesh: Optional["Mesh"] = None):
     """One episodic meta step, adfmsl's ``make_episodic_train_step`` (:165).
 
     ``embed_train_fn(audio_flat, rngs) -> (B, D)`` runs a trunk in train mode
@@ -191,10 +206,22 @@ def make_episodic_train_step(embed_train_fn: EmbedTrainFn, optimizer: "Optimizer
     backward, zero gradients for parameters the loss does not reach (as JAX
     gives them), the optimizer's global-norm clip and update.
 
+    Under ``mesh`` the episode axis is sharded over the data group (each rank
+    holds a contiguous block of episodes, so its flat rows are a row block of
+    the global flat batch): BatchNorm is global (``data_parallel``), each
+    rank's root is its episodes' loss sum over the global episode count, and
+    the gradients are summed in one flat ``all_reduce``: adfmsl's
+    cross-episode mean under GSPMD.
+
     step(support, query, rngs=None) -> {"loss", "acc"} (device scalars)
     """
     # imported here: adfmsl_torch.train imports this module (train/fewshot.py)
+    import torch.distributed as dist
+
+    from adfmsl_torch.parallel.collectives import all_reduce_flat, data_parallel
     from adfmsl_torch.train.optim import global_norm
+
+    group = mesh.data_group if mesh is not None else None
 
     def step(support: torch.Tensor, query: torch.Tensor,
              rngs: Optional[Mapping[str, torch.Generator]] = None
@@ -203,17 +230,29 @@ def make_episodic_train_step(embed_train_fn: EmbedTrainFn, optimizer: "Optimizer
         q = query.shape[2]
         flat = torch.cat([support.reshape(e, n * k, t), query.reshape(e, n * q, t)],
                          dim=1).reshape(e * n * (k + q), t)
-        emb = l2_normalize(embed_train_fn(flat, rngs))
-        d = emb.shape[-1]
-        per_ep = emb.reshape(e, n * (k + q), d)
-        sup = per_ep[:, : n * k].reshape(e, n, k, d)
-        qry = per_ep[:, n * k:].reshape(e, n, q, d)
-        loss, acc = batched_episode_loss(sup, qry, temperature, metric)
-        optimizer.zero_grad()
-        loss.backward()
+        with data_parallel(group):
+            emb = l2_normalize(embed_train_fn(flat, rngs))
+            d = emb.shape[-1]
+            per_ep = emb.reshape(e, n * (k + q), d)
+            sup = per_ep[:, : n * k].reshape(e, n, k, d)
+            qry = per_ep[:, n * k:].reshape(e, n, q, d)
+            if mesh is None:
+                loss, acc = batched_episode_loss(sup, qry, temperature, metric)
+                root = loss
+            else:
+                losses, accs = _episodes_loss(sup, qry, temperature, metric)
+                sums = torch.stack([losses.detach().sum(), accs.sum()])
+                dist.all_reduce(sums, group=group)
+                e_global = e * mesh.dp
+                loss, acc = sums[0] / e_global, sums[1] / e_global
+                root = losses.sum() / e_global
+            optimizer.zero_grad()
+            root.backward()
         for p in optimizer.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            all_reduce_flat([p.grad for p in optimizer.params], group)
         optimizer.clip_(global_norm(p.grad for p in optimizer.params))
         optimizer.step()
         return {"loss": loss.detach(), "acc": acc.detach()}

@@ -6,7 +6,10 @@ learnable spoof prototypes (fmsl_advanced.py:103-359). In train mode
 (adfmsl heads/fmsl.py:65-114): ``proj_bn`` normalises over the B rows with the
 batch statistics, then projection dropout, latent-space augmentation noise
 when ``enable_lsa``, and the angular margin on the target class. With labels
-the head also returns ``ce_loss``, ``proto_loss`` and ``loss``.
+the head also returns ``ce_loss``, ``proto_loss`` and ``loss``. Both terms
+are ratios of batch sums; in a data-parallel step
+(``parallel/collectives.py``) the sums are those of the global batch, as
+GSPMD computes adfmsl's, so every rank holds the global loss.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from adfmsl_torch.config.base import FMSLConfig
 from adfmsl_torch.heads.losses import cross_entropy, masked_mean
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
+from adfmsl_torch.parallel.collectives import data_group, global_sum
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -94,8 +98,15 @@ class FMSLHead(nn.Module):
             spoof = (labels == 0).to(logits.dtype)
             if mask is not None:
                 spoof = spoof * mask.to(logits.dtype)
-            proto_loss = -(best * spoof).sum() / (spoof.sum() + 1e-8)
-            out["ce_loss"] = masked_mean(ce, mask)
+            if data_group() is None:
+                proto_loss = -(best * spoof).sum() / (spoof.sum() + 1e-8)
+                out["ce_loss"] = masked_mean(ce, mask)
+            else:
+                m = torch.ones_like(ce) if mask is None else mask.to(ce.dtype)
+                s = global_sum(torch.stack([(ce * m).sum(), m.sum(),
+                                            (best * spoof).sum(), spoof.sum()]))
+                proto_loss = -s[2] / (s[3] + 1e-8)
+                out["ce_loss"] = s[0] / torch.clamp(s[1], min=1.0)
             out["proto_loss"] = proto_loss
             out["loss"] = out["ce_loss"] + self.cfg.prototype_loss_weight * proto_loss
         return out

@@ -182,27 +182,51 @@ class _PositionalConvEmbedding(nn.Module):
         return F.gelu(h.transpose(1, 2))
 
 
+def row_parallel_dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype,
+                       group) -> torch.Tensor:
+    """``dense`` of a row-parallel shard (``parallel/tp.py``): the partial
+    products of the ``dtype`` operands summed over the model group in f32,
+    rounded to ``dtype`` once, then the whole bias, added once."""
+    from adfmsl_torch.parallel.collectives import reduce_from_model
+
+    part = torch.matmul(x.to(dtype).float(), lin.weight.to(dtype).float().t())
+    return reduce_from_model(part, group).to(dtype) + lin.bias.to(dtype)
+
+
+def _enter_model_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    from adfmsl_torch.parallel.collectives import copy_to_model
+
+    return x if group is None else copy_to_model(x, group)
+
+
 class SelfAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` (self-attention, no mask) with its
     DenseGeneral projections held as (H, H) linears. In train mode with a
-    ``dropout_rate`` the attention weights take dropout from ``generator``."""
+    ``dropout_rate`` the attention weights take dropout from ``generator``.
+    Split for tensor parallelism (``parallel/tp.py``: ``tp_group`` set) it
+    holds ``heads`` of the heads, and ``out`` is row-parallel."""
 
     def __init__(self, hidden: int, heads: int):
         super().__init__()
         self.heads = heads
+        self.head_dim = hidden // heads
+        self.tp_group = None
         for name in ("query", "key", "value", "out"):
             self.add_module(name, nn.Linear(hidden, hidden))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype, dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        b, t, hid = x.shape
-        hd = hid // self.heads
+        b, t, _ = x.shape
+        hd = self.head_dim
+        x = _enter_model_parallel(x, self.tp_group)
         q, k, v = (dense(x, getattr(self, n), dtype).view(b, t, self.heads, hd)
                    .transpose(1, 2) for n in ("query", "key", "value"))
         q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype)
         w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
         w = dropout(w, dropout_rate, generator, self.training)
-        o = torch.matmul(w, v).transpose(1, 2).reshape(b, t, hid)
+        o = torch.matmul(w, v).transpose(1, 2).reshape(b, t, self.heads * hd)
+        if self.tp_group is not None:
+            return row_parallel_dense(o, self.out, dtype, self.tp_group)
         return dense(o, self.out, dtype)
 
 
@@ -216,6 +240,7 @@ class _EncoderLayer(nn.Module):
         self.intermediate_dense = nn.Linear(h, arch.intermediate_size)
         self.output_dense = nn.Linear(arch.intermediate_size, h)
         self.final_layer_norm = nn.LayerNorm(h, eps=eps)
+        self.tp_group = None        # set by parallel/tp.py: the FFN is split
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         h = layer_norm(x, self.layer_norm) if self.pre else x
@@ -223,7 +248,12 @@ class _EncoderLayer(nn.Module):
         if not self.pre:
             x = layer_norm(x, self.layer_norm)
         h = layer_norm(x, self.final_layer_norm) if self.pre else x
-        h = dense(F.gelu(dense(h, self.intermediate_dense, dtype)), self.output_dense, dtype)
+        h = F.gelu(dense(_enter_model_parallel(h, self.tp_group), self.intermediate_dense,
+                         dtype))
+        if self.tp_group is not None:
+            h = row_parallel_dense(h, self.output_dense, dtype, self.tp_group)
+        else:
+            h = dense(h, self.output_dense, dtype)
         x = x + h
         if not self.pre:
             x = layer_norm(x, self.final_layer_norm)

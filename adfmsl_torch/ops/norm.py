@@ -15,6 +15,15 @@ mode in two ways that matter:
 So ``bn_train`` computes the statistics itself and updates the buffers
 under ``no_grad``, except in the recompute of a checkpointed forward
 (``ops/remat.py``), which must leave them as the first forward left them.
+
+Inside a data-parallel step (``parallel/collectives.py:data_parallel``) the
+statistics are those of the global batch, as GSPMD gives adfmsl's sync-BN:
+the per-channel sums of x and x², and the row count, are summed over the
+data group in f32 before flax's ``max(0, E[x²] - E[x]²)``, and gradients
+flow back through that sum. Every rank then moves its running statistics by
+the same amount. The means are sums over a count on the device in both
+cases, as XLA divides ``jnp.mean``'s sum, so one rank computes what one
+process does, bit for bit.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch
 from torch import nn
 
 from adfmsl_torch.ops.remat import recomputing
+from adfmsl_torch.parallel.collectives import global_sum
 
 MOMENTUM = 0.9          # flax's; torch's momentum is 1 - MOMENTUM
 
@@ -46,13 +56,18 @@ def bn_eval(x: torch.Tensor, bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Te
 
 def bn_train(x: torch.Tensor, bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Tensor:
     """Train BatchNorm over the last axis: normalise with the batch statistics
-    (over every other axis, in f32; gradients flow through them) and move the
-    running statistics towards them as flax does (once: not again when a
-    checkpointed forward is recomputed)."""
+    (over every other axis, in f32, over the global batch in a data-parallel
+    step; gradients flow through them) and move the running statistics
+    towards them as flax does (once: not again when a checkpointed forward is
+    recomputed)."""
     xf = x.float()
     axes = tuple(range(x.dim() - 1))
-    mean = xf.mean(axes)
-    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+    c = xf.shape[-1]
+    count = torch.full((1,), xf.numel() // c, dtype=torch.float32, device=x.device)
+    sums = global_sum(torch.cat([xf.sum(axes), (xf * xf).sum(axes), count]))
+    n = sums[2 * c]
+    mean = sums[:c] / n
+    var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
     if not recomputing():
         with torch.no_grad():
             bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1.0 - MOMENTUM) * mean)

@@ -12,6 +12,12 @@ step, and the 'dropout', 'specaugment' and 'lsa' streams come from
 generators seeded like ``TrainState.generators`` (adfmsl's ``_step_rngs``,
 :34). Adaptation and scoring embed in eval mode with the current statistics
 (through the K1 kernel on the card when ``extra.fused_eval_trunk`` is set).
+
+Under ``mesh`` (adfmsl :65-72, :115-145) rank 0's weights are broadcast and
+the episode axis is sharded over the data group: every rank samples the
+whole episode batch from the same seed and decodes its block of episodes;
+BatchNorm is global and the loss is the global cross-episode mean
+(``heads/episodic.py``). Adaptation and scoring run whole on every rank.
 """
 from __future__ import annotations
 
@@ -61,10 +67,7 @@ class FewshotTrainer:
                  protocol: Protocol, dataset: AsvspoofDataset,
                  checkpoint_dir: Optional[str] = None, mesh=None,
                  device: Optional[Union[str, torch.device]] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh (the episode axis data-parallel) comes with ROADMAP slice 8")
-        self.exp, self.fcfg = exp, fcfg
+        self.exp, self.fcfg, self.mesh = exp, fcfg, mesh
         self.device = resolve_device(device)
         self.model = build_model(exp.model, device=self.device, seed=exp.train.seed)
         self.start_epoch = None
@@ -72,6 +75,10 @@ class FewshotTrainer:
             self.start_epoch = CheckpointManager(checkpoint_dir).restore_params(self.model)
             log.info("warm-started embedder from %s (epoch %s)",
                      checkpoint_dir, self.start_epoch)
+        if mesh is not None:
+            from adfmsl_torch.parallel.mesh import replicate
+
+            replicate(mesh, self.model)
         ocfg = OptimizerConfig(name="adam", lr=fcfg.lr, weight_decay=0.0,
                                grad_clip_norm=1.0)
         self.optimizer = Optimizer(ocfg, self.model.parameters(), 1, 1)
@@ -79,11 +86,12 @@ class FewshotTrainer:
         # seed of adfmsl's step key (:142)
         self.state = TrainState(self.model, self.optimizer, seed=exp.train.seed + 1)
         self.step_fn = make_episodic_train_step(self.embed_train, self.optimizer,
-                                                fcfg.temperature, fcfg.metric)
+                                                fcfg.temperature, fcfg.metric, mesh)
         self.sampler = EpisodeSampler(
             protocol, lambda u: dataset.load(u)[0], fcfg.n_way, fcfg.k_shot,
             fcfg.q_queries, fcfg.episodes_per_batch, exp.train.seed,
-            load_batch_fn=lambda ids: dataset.load_batch(ids)[0])
+            load_batch_fn=lambda ids: dataset.load_batch(ids)[0],
+            shard=(mesh.data_rank, mesh.dp) if mesh is not None else (0, 1))
         self.history: List[Dict[str, float]] = []
 
     def embed(self, audio: torch.Tensor) -> torch.Tensor:
@@ -106,7 +114,8 @@ class FewshotTrainer:
         for i in range(n):
             t0 = time.time()
             b = self.sampler.next_batch()
-            rngs = self.state.generators(0, self.state.step)
+            rngs = self.state.generators(
+                0, self.state.step, self.mesh.data_rank if self.mesh is not None else 0)
             m = self.step_fn(self._tensor(b.support), self._tensor(b.query), rngs)
             self.state.step += 1
             rec = {"step": i, "loss": float(m["loss"]), "acc": float(m["acc"]),

@@ -8,19 +8,31 @@ after a restore (so streams, shuffles and checkpoint numbers never repeat);
 a dev set gives accuracy and EER per epoch, which drive the checkpoint
 retention, the plateau scale and early stopping; a Wav2Vec2 model gets its
 pretrained encoder from ``wav2vec2.pretrained_path`` before the optimizer is
-built, and the optimizer labels its parameters ('main', 'backbone', 'frozen'). ``mesh`` (data-parallel
-training) comes with ROADMAP slice 8. adfmsl also writes ``experiment.yaml``
-beside the checkpoints; here every epoch's ``model.pt`` carries the config.
+built, and the optimizer labels its parameters ('main', 'backbone', 'frozen').
+adfmsl also writes ``experiment.yaml`` beside the checkpoints; here every
+epoch's ``model.pt`` carries the config.
+
+With ``mesh`` (``parallel/mesh.py``; one process a rank) the Trainer trains
+data-parallel as adfmsl's does under GSPMD: rank 0's weights are broadcast,
+each rank takes its row block of every global batch from a loader given
+``rank`` / ``world`` (it decodes only those rows; another loader raises), and
+the step is the global-batch step of ``train/steps.py`` (sync-BN, global loss).
+Dev evaluation scores each rank's rows and gathers the scores into one
+global buffer, so every rank computes the same accuracy and EER; the values
+that decide the plateau scale and early stopping are rank 0's, broadcast, so
+no rank leaves the loop alone and hangs the others in a collective. Rank 0
+writes the checkpoints; the others wait at a barrier.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import time
-from typing import Dict, List, Optional, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from adfmsl_torch.config.base import ExperimentConfig
 from adfmsl_torch.data.pipeline import AsvspoofDataset, Batch, DataLoader
@@ -34,6 +46,9 @@ from adfmsl_torch.train.early_stop import EarlyStopper
 from adfmsl_torch.train.optim import Optimizer, PlateauTracker
 from adfmsl_torch.train.state import TrainState
 from adfmsl_torch.train.steps import make_eval_step, make_train_step
+
+if TYPE_CHECKING:
+    from adfmsl_torch.parallel.mesh import Mesh
 
 log = logging.getLogger(__name__)
 
@@ -51,15 +66,15 @@ class EpochMetrics:
 
 class Trainer:
     """Drives train / dev epochs over host DataLoaders on ``device`` (``None``
-    means ``cuda``; a missing card raises)."""
+    means ``cuda``; a missing card raises); under ``mesh``, this rank's part."""
 
     def __init__(self, exp: ExperimentConfig, train_loader: DataLoader,
                  dev_loader: Optional[DataLoader] = None,
                  checkpoint_dir: Optional[str] = None,
-                 mesh=None, device: Optional[Union[str, torch.device]] = None):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel training comes with ROADMAP slice 8")
+                 mesh: Optional["Mesh"] = None,
+                 device: Optional[Union[str, torch.device]] = None):
         self.exp = exp
+        self.mesh = mesh
         self.train_loader = train_loader
         self.dev_loader = dev_loader
         self.device = resolve_device(device)
@@ -67,9 +82,16 @@ class Trainer:
         w2v2 = exp.model.wav2vec2
         if w2v2.pretrained_path or w2v2.require_pretrained:
             inject_pretrained_w2v2(model, w2v2)
+        if mesh is not None:
+            from adfmsl_torch.parallel.mesh import check_loader, replicate
+
+            for loader in (train_loader, dev_loader):
+                if loader is not None:
+                    check_loader(mesh, loader)
+            replicate(mesh, model)
         opt = Optimizer.for_model(exp, model, max(len(train_loader), 1))
         self.state = TrainState(model, opt, exp.train.seed)
-        self.train_step = make_train_step(exp)
+        self.train_step = make_train_step(exp, mesh)
         self.eval_step = make_eval_step()
         self.ckpt = (CheckpointManager(checkpoint_dir, keep_best_k=exp.train.keep_best_k,
                                        metric=exp.train.early_stop_metric,
@@ -85,6 +107,9 @@ class Trainer:
         return epoch
 
     def _place(self, batch: Batch):
+        """Host batch -> device tensors (under the mesh the loader's batch is
+        this rank's rows of the global batch, padded to the data axis with
+        masked rows)."""
         dev = self.device
         return (torch.from_numpy(batch.audio).to(dev, non_blocking=True),
                 torch.from_numpy(batch.label).to(dev).long(),
@@ -95,8 +120,9 @@ class Trainer:
         i = 0
         for batch in self.train_loader:
             audio, label, mask = self._place(batch)
+            shard = self.mesh.data_rank if self.mesh is not None else 0
             m = self.train_step(self.state, audio, label, mask,
-                                self.state.generators(epoch, i))
+                                self.state.generators(epoch, i, shard))
             if loss_sum is None:
                 loss_sum, acc_sum, skip_sum = m["loss"], m["acc"], m["skipped"]
             else:
@@ -114,12 +140,21 @@ class Trainer:
 
     def evaluate_metrics(self, loader: DataLoader):
         """(accuracy, eer) over a labelled loader; the device results reach
-        the host once, after the loop."""
+        the host once, after the loop (under the mesh, every rank's rows
+        through one ``all_reduce``, so every rank returns the same)."""
         pending = []
         for batch in loader:
             audio, label, mask = self._place(batch)
             out = self.eval_step(self.state, audio, label, mask)
-            pending.append((out["correct"], out["count"], out["scores"], batch))
+            if self.mesh is None:
+                pending.append((out["correct"], out["count"], out["scores"], batch))
+            else:
+                pred = out["logits"].argmax(dim=-1)
+                m = mask.float()
+                pending.append(torch.stack([out["scores"].float(), label.float(), m,
+                                            (pred == label).float() * m], dim=1))
+        if self.mesh is not None:
+            return self._mesh_metrics(pending)
         correct = count = 0.0
         scores, labels = [], []
         for dc, dn, ds, batch in pending:
@@ -128,6 +163,21 @@ class Trainer:
             s = ds.float().cpu().numpy()
             scores += [float(v) for v, m in zip(s, batch.mask) if m]
             labels += [int(y) for y, m in zip(batch.label, batch.mask) if m]
+        return self._metrics(correct, count, scores, labels)
+
+    def _mesh_metrics(self, rows: List[torch.Tensor]):
+        from adfmsl_torch.evaluation.runner import gather_rows
+
+        if not rows:
+            return self._metrics(0.0, 0.0, [], [])
+        g = gather_rows(self.mesh, rows, [len(r) * self.mesh.dp for r in rows])
+        real = g[:, 2] > 0
+        return self._metrics(float(g[:, 3].sum()), float(g[:, 2].sum()),
+                             [float(v) for v in g[real, 0]],
+                             [int(round(v)) for v in g[real, 1]])
+
+    @staticmethod
+    def _metrics(correct: float, count: float, scores: List[float], labels: List[int]):
         acc = correct / max(count, 1.0)
         eer = float("nan")
         if len(set(labels)) == 2:
@@ -137,6 +187,17 @@ class Trainer:
     def fit(self, num_epochs: Optional[int] = None) -> List[EpochMetrics]:
         """``None`` trains up to ``exp.train.num_epochs`` in all (a resumed run
         trains the rest); an explicit count trains that many more."""
+        if self.mesh is not None:
+            # padded zero rows would enter BatchNorm's batch statistics on every
+            # step (the loss is masked, BN is not): refuse instead of padding
+            bs = getattr(self.train_loader, "batch_size", self.exp.train.batch_size)
+            if bs % self.mesh.dp:
+                raise ValueError(f"train batch_size={bs} must be divisible by the "
+                                 f"data-parallel axis size {self.mesh.dp}")
+            if getattr(self.train_loader, "drop_last", True) is False:
+                raise ValueError("mesh training requires drop_last=True on the train "
+                                 "loader: a padded partial final batch would pollute "
+                                 "BatchNorm batch statistics")
         n = (max(0, self.exp.train.num_epochs - self.epochs_run) if num_epochs is None
              else num_epochs)
         tc, ocfg = self.exp.train, self.exp.train.optimizer
@@ -154,6 +215,11 @@ class Trainer:
             dev_acc, dev_eer = (self.evaluate_metrics(self.dev_loader)
                                 if self.dev_loader is not None
                                 else (float("nan"), float("nan")))
+            if self.mesh is not None:
+                from adfmsl_torch.parallel.mesh import broadcast_floats
+
+                tm["loss"], tm["acc"], dev_acc, dev_eer = broadcast_floats(
+                    [tm["loss"], tm["acc"], dev_acc, dev_eer], self.device)
             em = EpochMetrics(epoch, tm["loss"], tm["acc"], dev_acc,
                               time.time() - t0, tm["skipped"], dev_eer)
             self.history.append(em)
@@ -161,10 +227,13 @@ class Trainer:
                      "dev_eer %.3f (%.1fs)", epoch, em.train_loss, em.train_acc,
                      em.dev_acc, em.dev_eer, em.seconds)
             if self.ckpt:
-                self.ckpt.save(epoch, self.exp, self.state,
-                               {"dev_acc": dev_acc, "dev_eer": dev_eer,
-                                "train_loss": tm["loss"], "train_acc": tm["acc"],
-                                "skipped": tm["skipped"]})
+                if self.mesh is None or self.mesh.rank == 0:
+                    self.ckpt.save(epoch, self.exp, self.state,
+                                   {"dev_acc": dev_acc, "dev_eer": dev_eer,
+                                    "train_loss": tm["loss"], "train_acc": tm["acc"],
+                                    "skipped": tm["skipped"]})
+                if self.mesh is not None:
+                    dist.barrier()
             if plateau is not None:
                 # 'min' watches dev EER (train loss without a dev set), 'max'
                 # dev accuracy (train accuracy without one)
@@ -188,10 +257,15 @@ class Trainer:
 
 def make_dataset_and_loader(exp: ExperimentConfig, protocol: Protocol, audio_dir: str,
                             shuffle: bool, batch_size: Optional[int] = None,
-                            drop_last: bool = True) -> DataLoader:
+                            drop_last: bool = True, shard_index: int = 0,
+                            num_shards: int = 1, rank: int = 0,
+                            world: int = 1) -> DataLoader:
+    """The dataset and loader of ``exp`` (``rank`` / ``world``: this data
+    rank's row block of each global batch)."""
     ds = AsvspoofDataset(protocol, audio_dir, cut=exp.data.cut, pad_mode=exp.data.pad_mode,
                          sample_rate=exp.data.sample_rate,
                          use_native_io=exp.data.use_native_io,
                          num_workers=exp.data.num_workers)
     return DataLoader(ds, batch_size or exp.train.batch_size, shuffle=shuffle,
-                      drop_last=drop_last, seed=exp.train.seed, prefetch=exp.data.prefetch)
+                      drop_last=drop_last, seed=exp.train.seed, prefetch=exp.data.prefetch,
+                      shard_index=shard_index, num_shards=num_shards, rank=rank, world=world)

@@ -29,12 +29,17 @@ class TrainState:
     seed: int
     step: int = 0
 
-    def generators(self, epoch: int, index: int) -> Dict[str, torch.Generator]:
-        """The per-stream generators of step ``index`` of ``epoch``."""
+    def generators(self, epoch: int, index: int, shard: int = 0
+                   ) -> Dict[str, torch.Generator]:
+        """The per-stream generators of step ``index`` of ``epoch``; data rank
+        ``shard`` > 0 draws its own streams (adfmsl folds the shard index into
+        each key, ``parallel/shard_map_step.py:52-56``), shard 0 those of one
+        process."""
         dev = next(self.model.parameters()).device
         out = {}
         for name, tag in STREAMS.items():
-            words = np.random.SeedSequence([self.seed, epoch, index, tag]).generate_state(2)
+            entropy = [self.seed, epoch, index, tag] + ([shard] if shard else [])
+            words = np.random.SeedSequence(entropy).generate_state(2)
             g = torch.Generator(device=dev)
             g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
             out[name] = g

@@ -4,6 +4,7 @@
     python3 chip_smoke.py                   # every phase below
     python3 chip_smoke.py --only kernels    # phases 1 and 2-3d only
     python3 chip_smoke.py --only k2         # K2's library and cases only
+    python3 chip_smoke.py --only multidevice   # the build and phase 7e only
 
 Phases, each printing its own lines:
 
@@ -171,6 +172,35 @@ Phases, each printing its own lines:
    |score|); the meta steps' seconds, the scoring rate and a
    ``torch.profiler`` pass over two more meta steps (device ms, busy share);
    then the CLI again with ``--no_fused_trunk`` (K1 no launch);
+7e. multi-device (``multidevice``; ranks started by
+   ``adfmsl_torch.parallel.launch``, every count of kernel launches set to 0
+   in each rank just before its path): (a) a world of one over NCCL: the
+   data-parallel train step of maze5 at batch 12 (bf16, its randomness on)
+   against the plain step from the same weights and generators: the loss
+   equal, the parameters bitwise equal wherever two plain steps agree bitwise
+   (else within Adam's 2.1 * lr), and both steps' ms; (b) ``python -m
+   adfmsl_torch.cli.evaluate --data_parallel 2 --dist_backend gloo`` (two
+   ranks sharing the card) on maze5 at batch 128: the one-process score
+   file's ids and order, scores within 1e-5 * max(1, |s|) (a rank's rows are
+   scored as in one process), K1 5 launches a batch on each rank; (c) two
+   gloo ranks, 3 data-parallel steps of maze5 at a global batch of 12, f32,
+   the randomness off, TF32 off, against the one-process steps on the same
+   batches: each loss within 1e-4 relative,
+   the first step's global gradient cosine >= 0.9999, the global update of
+   the three steps at cosine >= 0.999 (AdamW's early steps are about
+   lr * sign(g), so coordinates whose gradient sits at f32 noise flip: a CPU
+   rehearsal at cut 8000 read 0.99984), the ranks' parameters bitwise equal;
+   (d) two gloo ranks, RawNet main with ``fused_train_frontend`` at a global
+   batch of 12 (6 rows a rank; K3 and its backward kernel are held against
+   their plain versions at that shape in phases 2-3d): K3 and its backward
+   kernel once a step on each rank, the first step against the one-process
+   fused step (bf16) within 1e-2 relative loss and gradient cosine >= 0.95,
+   and as a second witness the same step in f32 with TF32 off (the backward kernel at
+   '3xtf32') within 1e-4 relative loss and gradient cosine >= 0.9999; (e)
+   two gloo ranks, maze7's base encoder split tensor-parallel (12 heads -> 6
+   a rank, FFN 3072 -> 1536) at batch 8 against the replicated forward
+   within 3e-2 * max(1, |logit|). The two-rank times are printed as what
+   they are: two ranks share one card and gloo stages through the host;
 8. one f32 train step of maze5 and of main at batch 2, cut 16000, randomness
    off, on the card and on the CPU from the same weights (TF32 off): loss
    within 1e-4 relative, gradients as in tests/test_torch_train_step.py
@@ -210,8 +240,9 @@ Phases, each printing its own lines:
    maze3's, maze2's and maze6's blocks at batch 128, and its cases at the
    wide stack heads (768 -> 128 and 1024 -> 128, the 1x1 skip, no ``pre``) at
    batch 128, T 201 and at ragged small T against the plain version; K1's
-   launches on the few-shot path and K3's and its backward kernel's in the
-   remat phase's fused steps among the launches by path.
+   launches on the few-shot path, K3's and its backward kernel's in the
+   remat phase's fused steps, and each rank's K1, K3 and K3-backward
+   launches in the multidevice phase among the launches by path.
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -235,6 +266,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -308,15 +340,21 @@ K2_OPS_PER_ELEMENT = 20           # f32 operations of both passes, per element
 K2_MEASURE_ITERS = 10
 TRAIN_UTTS, DEV_UTTS, TRAIN_BATCH = 48, 24, 12
 THROUGHPUT_BATCHES, WARM_STEPS, TIMED_STEPS = (12, 32), 2, 5
+# the multidevice phase's global train batch and a data-parallel rank's rows of
+# it on two ranks (phase 7e (c), (d))
+MD_BATCH = TRAIN_BATCH
+MD_RANK_BATCH = MD_BATCH // 2
 # K3's trainable wrapper (forward K3, d filters the backward kernel, d x the f32
-# composition's VJP)
+# composition's VJP), at the one-process and the two-rank training shapes
 K3_TRAIN_CASES = [("jax_case", 2, 8000), ("ragged", 3, 8001),
-                  (f"b{TRAIN_BATCH}_cut{CUT}", TRAIN_BATCH, CUT)]
+                  (f"b{TRAIN_BATCH}_cut{CUT}", TRAIN_BATCH, CUT),
+                  (f"b{MD_RANK_BATCH}_cut{CUT}_dp_rank", MD_RANK_BATCH, CUT)]
 # the backward kernel (ops/sinc_fused.py:sinc_abs_pool_bwd): name, B, T, C, K; each
 # at both precisions, d filters within K3_BWD_TOL * max of the plain version's once
 # the near-tie triples (sinc_fused.near_tie_mask) are zeroed on both sides
 K3_BWD_CASES = [("jax_case", 2, 8000, SINC_C, SINC_K), ("ragged", 3, 8001, SINC_C, SINC_K),
                 (f"b{TRAIN_BATCH}_cut{CUT}", TRAIN_BATCH, CUT, SINC_C, SINC_K),
+                (f"b{MD_RANK_BATCH}_cut{CUT}_dp_rank", MD_RANK_BATCH, CUT, SINC_C, SINC_K),
                 ("c256_k129", 3, 5000, 256, 129), ("c16_k7", 3, 5000, 16, 7),
                 ("ties", 2, 8000, SINC_C, SINC_K)]
 K3_BWD_TOL = {"tf32": 2e-3, "3xtf32": 1e-4}
@@ -398,6 +436,20 @@ SPECTRAL_THROUGHPUT = [("lcnn1d_lfcc", (BENCH_BATCH, 384)), ("lcnn_lfcc", (BENCH
 # several windows of a few seconds each, reported with its spread
 SPECTRAL_WINDOW_S, SPECTRAL_WINDOWS = 3.0, 3
 K4_FRONTEND_TURNS = ("composition", "k4", "k4", "composition") * 2
+# the multidevice phase: its train steps, the tensor-parallel forward's batch,
+# the bounds of its f32 steps against one process ((c) and (d)'s f32 witness),
+# of its bf16 fused step (d) and of its two-rank scores (b), the limit of each
+# of its launches in seconds, and the note its two-rank times carry
+MD_STEPS, MD_TP_BATCH = 3, 8
+MD_LOSS_REL, MD_GRAD_COS, MD_UPDATE_COS = 1e-4, 0.9999, 0.999
+# (d) in bf16 read loss 6.3e-3 apart and gradient cosine 0.970 on the card in
+# two runs, while the one-process bf16 gradient sits at 0.950 from the
+# one-process f32 one; a rank that kept its own gradient (the all-reduce
+# dropped) reads far below either bound
+MD_BF16_LOSS_REL, MD_BF16_GRAD_COS = 1e-2, 0.95
+MD_SCORE_REL = 1e-5
+MD_LIMIT = 300.0
+MD_SHARED = "two ranks share one card; gloo stages through the host"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1843,6 +1895,361 @@ def phase_fewshot(rf, tmp, card):
     return rec
 
 
+@contextlib.contextmanager
+def exact_f32():
+    """TF32 off in cuDNN and cuBLAS for the block: f32 products stay f32."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def md_experiment(name, deterministic=False, extra=None):
+    """``name``'s configuration; ``deterministic``: f32 with the randomness off."""
+    from adfmsl_torch.config import make_experiment
+
+    exp = make_experiment(name)
+    exp.model.extra.update(extra or {})
+    if deterministic:
+        exp.model.architecture.dropout_rate = exp.model.architecture.fc_dropout = 0.0
+        exp.model.spec_augment.enabled = False
+        if exp.model.fmsl is not None:
+            exp.model.fmsl.proj_dropout, exp.model.fmsl.enable_lsa = 0.0, False
+    return exp
+
+
+def md_state(exp, dev, sd=None, seed=0):
+    from adfmsl_torch.models import build_model
+    from adfmsl_torch.train import Optimizer, TrainState
+
+    model = build_model(exp.model, device=dev, seed=seed)
+    if sd is not None:
+        model.load_state_dict(sd, strict=True)
+    return TrainState(model, Optimizer.for_model(exp, model, 10), seed=0)
+
+
+def md_host_state(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def md_step_ms(step, st, args_fn, n=TIMED_STEPS, warm=WARM_STEPS):
+    """Host-clock ms of ``n`` steps after ``warm`` ones, ending in a sync."""
+    for i in range(warm):
+        step(st, *args_fn(1 + i))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(st, *args_fn(1 + warm + i))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def md_world_one(dev):
+    """(a): a world of one over NCCL. maze5's data-parallel step (its
+    collectives the identity) against two plain steps from the same weights,
+    batch and generators; then each step's ms."""
+    from adfmsl_torch.config import MeshConfig
+    from adfmsl_torch.parallel import make_mesh, replicate
+    from adfmsl_torch.train import make_train_step
+
+    mesh = make_mesh(MeshConfig())
+    exp = md_experiment("maze5")
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = 0.1 * torch.randn((MD_BATCH, CUT), generator=g, device=dev)
+    y = (torch.arange(MD_BATCH, device=dev) % 2).long()
+    m = torch.ones(MD_BATCH, dtype=torch.bool, device=dev)
+    rec, states = {"model": "maze5", "batch": MD_BATCH, "backend": "nccl", "world": 1}, {}
+    for label, step_mesh in (("plain", None), ("plain_again", None), ("dp", mesh)):
+        st = md_state(exp, dev)
+        if step_mesh is not None:
+            replicate(mesh, st.model)
+        step = make_train_step(exp, step_mesh)
+        met = step(st, x, y, m, st.generators(0, 0))
+        states[label] = (float(met["loss"]), md_host_state(st.model))
+        if label != "plain_again":
+            rec[f"{label}_step_ms"] = md_step_ms(step, st,
+                                                 lambda i: (x, y, m, st.generators(0, i)))
+        del st, step
+        torch.cuda.empty_cache()
+    plain, again, dp = (states[k] for k in ("plain", "plain_again", "dp"))
+    rec["loss"] = {"plain": plain[0], "plain_again": again[0], "dp": dp[0]}
+    floats = [k for k, v in plain[1].items() if v.is_floating_point()]
+    rec["plain_steps_bitwise_equal"] = all(torch.equal(plain[1][k], again[1][k])
+                                           for k in floats)
+    diff = [int((plain[1][k] != dp[1][k]).sum()) for k in floats]
+    rec["elements_differing_from_plain"] = sum(diff)
+    lr = exp.train.optimizer.lr
+    rec["max_abs_param_diff"] = max(float((plain[1][k] - dp[1][k]).abs().max())
+                                    for k in floats)
+    rec["bound"] = ("bitwise" if rec["plain_steps_bitwise_equal"]
+                    else f"Adam's first-step flip, 2.1 * lr = {2.1 * lr}")
+    rec["ok"] = (plain[0] == dp[0] and (rec["elements_differing_from_plain"] == 0
+                                        if rec["plain_steps_bitwise_equal"]
+                                        else rec["max_abs_param_diff"] <= 2.1 * lr))
+    return rec
+
+
+def md_two_ranks(dev, sd5, batches, sd_main, xd, yd):
+    """(c), (d) and (e) on two gloo ranks sharing the card."""
+    from adfmsl_torch.config import MeshConfig
+    from adfmsl_torch.parallel import (check_replicated, kernel_launches, make_mesh,
+                                       replicate, reset_kernel_launches, shard_batch)
+    from adfmsl_torch.parallel.tp import shard_params_tp
+    from adfmsl_torch.train import make_train_step
+
+    mesh = make_mesh(MeshConfig())
+    out = {"rank": mesh.rank}
+    # (c) maze5, f32, randomness and TF32 off, 3 steps on 3 global batches
+    with exact_f32():
+        exp = md_experiment("maze5", deterministic=True)
+        exp.model.dtype = "float32"
+        st = md_state(exp, dev, sd5)
+        replicate(mesh, st.model)
+        step = make_train_step(exp, mesh)
+        losses, times = [], []
+        for i, (x, y) in enumerate(batches):
+            xs, ys = shard_batch(mesh, [x.to(dev), y.to(dev)])
+            m = torch.ones(len(xs), dtype=torch.bool, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = step(st, xs, ys, m, st.generators(0, i, mesh.data_rank))
+            losses.append(float(met["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                grads = _grads(st, met)
+        check_replicated(st.model)
+        out["c"] = {"losses": losses, "step_ms": times, "grads": grads,
+                    "state": md_host_state(st.model)}
+        del st, step
+    # (d) RawNet main, K3 in the train forward, 2 steps on one global batch
+    exp = md_experiment("main", deterministic=True, extra=K3_TRAIN)
+    st = md_state(exp, dev, sd_main)
+    replicate(mesh, st.model)
+    step = make_train_step(exp, mesh)
+    xs, ys = shard_batch(mesh, [xd.to(dev), yd.to(dev)])
+    m = torch.ones(len(xs), dtype=torch.bool, device=dev)
+    reset_kernel_launches()
+    losses, times = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(st, xs, ys, m, st.generators(0, i, mesh.data_rank))
+        losses.append(float(met["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads = _grads(st, met)
+    torch.cuda.synchronize()
+    out["d"] = {"losses": losses, "step_ms": times, "grads": grads,
+                "launches": kernel_launches()}
+    del st, step
+    # (d)'s second witness: the same step in f32 with TF32 off (K3's backward
+    # kernel at '3xtf32'), one step
+    with exact_f32():
+        exp = md_experiment("main", deterministic=True, extra=K3_TRAIN)
+        exp.model.dtype = "float32"
+        st = md_state(exp, dev, sd_main)
+        replicate(mesh, st.model)
+        met = make_train_step(exp, mesh)(st, xs, ys, m, st.generators(0, 0, mesh.data_rank))
+        out["d_f32"] = {"loss": float(met["loss"]), "grads": _grads(st, met)}
+        del st
+    torch.cuda.empty_cache()
+    # (e) maze7 (the base encoder, bf16): tensor-parallel against replicated
+    exp = md_experiment("maze7")
+    from adfmsl_torch.models import build_model
+
+    model = build_model(exp.model, device=dev, seed=0).eval()
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = 0.1 * torch.randn((MD_TP_BATCH, CUT), generator=g, device=dev)
+    heads = model.wav2vec2.layers_0.attention.heads
+    ffn = model.wav2vec2.layers_0.intermediate_dense.weight.shape[0]
+    with torch.no_grad():
+        ref = model(x)["logits"].float()
+        ref_ms = cuda_ms(lambda: model(x), reps=3, warm=1, runs=1)
+        shard_params_tp(model, make_mesh(MeshConfig(model_parallel=2)))
+        tp = model(x)["logits"].float()
+        tp_ms = cuda_ms(lambda: model(x), reps=3, warm=1, runs=1)
+    out["e"] = {"heads": [heads, model.wav2vec2.layers_0.attention.heads],
+                "ffn": [ffn, model.wav2vec2.layers_0.intermediate_dense.weight.shape[0]],
+                "max_abs_err": float((tp - ref).abs().max()),
+                "tol": 3e-2 * max(1.0, float(ref.abs().max())),
+                "replicated_ms": ref_ms, "tp_ms": tp_ms}
+    return out
+
+
+def phase_multidevice(fixture, tmp, dev, card):
+    """Phase 7e (see the module docstring): the port's multi-device paths on
+    the one card, (a) a world of one over NCCL, (b)-(e) two gloo ranks."""
+    from adfmsl_torch.cli import evaluate
+    from adfmsl_torch.parallel import launch
+    from adfmsl_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    rec = {"card": card, "note_two_rank_times": MD_SHARED}
+    # (a)
+    (a,) = launch(md_world_one, 1, backend="nccl", timeout=MD_LIMIT)
+    rec["a_world_one_nccl"] = a
+    check(a["ok"], f"multidevice (a): the one-rank step differs from the plain step: {a}")
+    # (b) the evaluate CLI on two ranks against one process
+    ev = fixture["eval"]
+    base = ["--model_type", "maze5", "--protocol", ev["protocol"], "--data_dir",
+            ev["audio_dir"], "--batch_size", str(BENCH_BATCH), "--cut", str(CUT),
+            "--device", dev.type]
+    one, two = os.path.join(tmp, "md_one.txt"), os.path.join(tmp, "md_two.txt")
+    check(evaluate.main(base + ["--output", one]) == 0, "multidevice (b): one-process CLI")
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-m", "adfmsl_torch.cli.evaluate", *base,
+                          "--output", two, "--data_parallel", "2", "--dist_backend", "gloo",
+                          "--dist_timeout", str(MD_LIMIT)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         cwd=str(ROOT), start_new_session=True)
+    try:
+        stdout, stderr = p.communicate(timeout=MD_LIMIT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)      # the CLI and the ranks it spawned
+        p.communicate()
+        raise
+    cli_s = time.perf_counter() - t0
+    check(p.returncode == 0, f"multidevice (b): CLI exited {p.returncode}: {stderr[-3000:]}")
+    ranks = sorted((json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines()
+                    if ln.startswith("rank_summary ")), key=lambda r: r["rank"])
+    rows = {}
+    for label, path in (("one", one), ("two", two)):
+        with open(path) as fh:
+            rows[label] = [ln.split() for ln in fh.read().splitlines()]
+    ids = [r[0] for r in rows["two"]]
+    got = np.asarray([float(r[1]) for r in rows["two"]])
+    ref = np.asarray([float(r[1]) for r in rows["one"]])
+    err = float(np.abs(got - ref).max())
+    tol = MD_SCORE_REL * max(1.0, float(np.abs(ref).max()))
+    batches = -(-len(ev["utt_ids"]) // BENCH_BATCH)
+    k1 = [r["kernel_launches"]["K1"] for r in ranks]
+    rec["b_evaluate_cli_two_gloo_ranks"] = {
+        "model": "maze5", "batch": BENCH_BATCH, "utterances": len(ids),
+        "max_abs_score_diff": err, "tol": tol, "k1_launches_by_rank": k1,
+        "cli_wall_s": cli_s}
+    check(ids == [r[0] for r in rows["one"]] == ev["utt_ids"], "multidevice (b): score ids")
+    check(np.isfinite(got).all() and err <= tol, f"multidevice (b): scores {err} > {tol}")
+    check(len(ranks) == 2 and k1 == [K1_MAZE5 * batches] * 2,
+          f"multidevice (b): K1 launches by rank {k1}, expected {K1_MAZE5 * batches} each")
+    # the one-process references of (c) and (d)
+    g = torch.Generator().manual_seed(31)
+    mk = [(0.1 * torch.randn((MD_BATCH, CUT), generator=g),
+           torch.tensor([0, 0, 0, 1, 0, 1, 1, 1, 0, 1, 1, 1])[torch.randperm(MD_BATCH,
+                                                                            generator=g)])
+          for _ in range(MD_STEPS)]
+    with exact_f32():
+        exp = md_experiment("maze5", deterministic=True)
+        exp.model.dtype = "float32"
+        st = md_state(exp, dev)
+        sd5 = md_host_state(st.model)
+        step = make_train_step(exp)
+        ref_losses = []
+        for i, (x, y) in enumerate(mk):
+            met = step(st, x.to(dev), y.to(dev), torch.ones(MD_BATCH, dtype=torch.bool,
+                                                            device=dev), st.generators(0, i))
+            ref_losses.append(float(met["loss"]))
+            if i == 0:
+                ref_grads5 = _grads(st, met)
+        post5 = md_host_state(st.model)
+        del st, step
+    exp = md_experiment("main", deterministic=True, extra=K3_TRAIN)
+    st = md_state(exp, dev)
+    sd_main = md_host_state(st.model)
+    xd = 0.1 * torch.randn((MD_BATCH, CUT), generator=g)
+    yd = (torch.arange(MD_BATCH) % 2).long()
+    met = make_train_step(exp)(st, xd.to(dev), yd.to(dev),
+                               torch.ones(MD_BATCH, dtype=torch.bool, device=dev),
+                               st.generators(0, 0))
+    ref_main = (float(met["loss"]), _grads(st, met))
+    del st
+    with exact_f32():
+        exp.model.dtype = "float32"
+        st = md_state(exp, dev, sd_main)
+        met = make_train_step(exp)(st, xd.to(dev), yd.to(dev),
+                                   torch.ones(MD_BATCH, dtype=torch.bool, device=dev),
+                                   st.generators(0, 0))
+        ref_main_f32 = (float(met["loss"]), _grads(st, met))
+        del st
+    torch.cuda.empty_cache()
+    # (c), (d), (e) on two ranks
+    t0 = time.perf_counter()
+    out = launch(md_two_ranks, 2, (sd5, mk, sd_main, xd, yd), backend="gloo",
+                 timeout=MD_LIMIT)
+    two_s = time.perf_counter() - t0
+    c = [o["c"] for o in out]
+    floats = [k for k, v in post5.items() if v.is_floating_point()
+              and not k.endswith(("running_mean", "running_var"))]
+    du = torch.cat([(c[0]["state"][k] - sd5[k]).double().flatten() for k in floats])
+    dr = torch.cat([(post5[k] - sd5[k]).double().flatten() for k in floats])
+    cos = float(du @ dr / (du.norm() * dr.norm()))
+    ga = np.concatenate(list(c[0]["grads"].values()))
+    gb = np.concatenate([ref_grads5[k] for k in c[0]["grads"]])
+    gcos5 = float(ga @ gb) / float(np.linalg.norm(ga) * np.linalg.norm(gb))
+    rel = [abs(a - b) / abs(b) for a, b in zip(c[0]["losses"], ref_losses)]
+    ranks_equal = all(torch.equal(c[0]["state"][k], c[1]["state"][k]) for k in c[0]["state"])
+    rec["c_maze5_f32_two_gloo_ranks"] = {
+        "global_batch": MD_BATCH, "steps": MD_STEPS, "losses": c[0]["losses"],
+        "one_process_losses": ref_losses, "loss_rel_diff": rel, "loss_tol": MD_LOSS_REL,
+        "first_step_grad_cosine": gcos5, "grad_cosine_min": MD_GRAD_COS,
+        "update_cosine": cos, "update_cosine_min": MD_UPDATE_COS,
+        "ranks_bitwise_equal": ranks_equal,
+        "step_ms_by_rank": [x["step_ms"] for x in c], "step_ms_note": MD_SHARED}
+    check(c[0]["losses"] == c[1]["losses"] and max(rel) <= MD_LOSS_REL,
+          f"multidevice (c): losses {c[0]['losses']} against {ref_losses}")
+    check(gcos5 >= MD_GRAD_COS and cos >= MD_UPDATE_COS and ranks_equal,
+          f"multidevice (c): first-step gradient cosine {gcos5}, update cosine {cos}, "
+          f"ranks equal {ranks_equal}")
+
+    def cosine(ga, gb):
+        a_ = np.concatenate([ga[k] for k in sorted(ga)])
+        b_ = np.concatenate([gb[k] for k in sorted(ga)])
+        return float(a_ @ b_) / float(np.linalg.norm(a_) * np.linalg.norm(b_))
+
+    d = [o["d"] for o in out]
+    gcos = cosine(d[0]["grads"], ref_main[1])
+    lrel = abs(d[0]["losses"][0] - ref_main[0]) / abs(ref_main[0])
+    d32 = [o["d_f32"] for o in out]
+    gcos32 = cosine(d32[0]["grads"], ref_main_f32[1])
+    lrel32 = abs(d32[0]["loss"] - ref_main_f32[0]) / abs(ref_main_f32[0])
+    k3 = [x["launches"]["K3"] for x in d]
+    k3b = [x["launches"]["K3-bwd"] for x in d]
+    rec["d_main_fused_two_gloo_ranks"] = {
+        "global_batch": MD_BATCH, "steps": 2, "loss": d[0]["losses"][0],
+        "one_process_loss": ref_main[0], "loss_rel_diff": lrel, "loss_tol": MD_BF16_LOSS_REL,
+        "grad_cosine": gcos, "grad_cosine_min": MD_BF16_GRAD_COS,
+        "f32_witness": {"loss": d32[0]["loss"], "one_process_loss": ref_main_f32[0],
+                        "loss_rel_diff": lrel32, "loss_tol": MD_LOSS_REL,
+                        "grad_cosine": gcos32, "grad_cosine_min": MD_GRAD_COS,
+                        "ranks_equal_loss": d32[0]["loss"] == d32[1]["loss"],
+                        "k3_bwd_precision": "3xtf32"},
+        "one_process_bf16_vs_f32_grad_cosine": cosine(ref_main[1], ref_main_f32[1]),
+        "k3_launches_by_rank": k3, "k3_bwd_launches_by_rank": k3b,
+        "step_ms_by_rank": [x["step_ms"] for x in d], "step_ms_note": MD_SHARED}
+    check(k3 == [2, 2] and k3b == [2, 2],
+          f"multidevice (d): K3 {k3}, K3-bwd {k3b} launches by rank in 2 steps")
+    check(lrel <= MD_BF16_LOSS_REL and gcos >= MD_BF16_GRAD_COS,
+          f"multidevice (d): loss {lrel}, gradient cosine {gcos}")
+    check(lrel32 <= MD_LOSS_REL and gcos32 >= MD_GRAD_COS,
+          f"multidevice (d), f32: loss {lrel32}, gradient cosine {gcos32}")
+    e = [o["e"] for o in out]
+    rec["e_maze7_tensor_parallel_two_gloo_ranks"] = {
+        "batch": MD_TP_BATCH, "heads": e[0]["heads"], "ffn": e[0]["ffn"],
+        "max_abs_err": max(x["max_abs_err"] for x in e), "tol": e[0]["tol"],
+        "replicated_forward_ms_by_rank": [x["replicated_ms"] for x in e],
+        "tp_forward_ms_by_rank": [x["tp_ms"] for x in e], "ms_note": MD_SHARED}
+    check(e[0]["heads"] == [12, 6] and e[0]["ffn"] == [3072, 1536],
+          f"multidevice (e): heads {e[0]['heads']}, FFN {e[0]['ffn']}")
+    check(all(x["max_abs_err"] <= x["tol"] for x in e),
+          f"multidevice (e): tensor-parallel logits {[x['max_abs_err'] for x in e]}")
+    rec["two_rank_launch_s"] = two_s
+    rec["seconds"] = time.perf_counter() - t_phase
+    print("multidevice " + json.dumps(rec), flush=True)
+    return rec
+
+
 def phase_train_card_vs_cpu(name, dev):
     """One f32 step of ``name`` on the card and on the CPU from the same init."""
     from adfmsl_torch.config import make_experiment
@@ -2091,7 +2498,7 @@ def _k3_bwd_main(k3b, precision):
 
 
 def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, train,
-                 fused_train, remat, fewshot):
+                 fused_train, remat, fewshot, md):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -2110,7 +2517,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     it), times at batch 128, cut 64600, 'high' (batch 384 beside them). The
     few-shot CLI's K1 launches (adaptation and scoring) and the remat phase's
     K3 / K3-bwd launches (a checkpointed fused step and its plain twin) join
-    the launches by path."""
+    the launches by path, and so do each rank's K1 launches on the evaluate
+    CLI's two-rank path and K3's and its backward kernel's in the two-rank
+    fused steps (multidevice phase)."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
     k4_main = _k4_main(k4, BENCH_BATCH, "high")
     k4_big = _k4_main(k4, 384, "high")
@@ -2141,6 +2550,14 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     k3b_remat = {f"{r['model']} {v} step": r[v]["launches_first_step"]["k3_bwd"]
                  for r in remat if r["extra"] for v in ("plain", "remat")}
     k1_fewshot = {"maze5 few-shot CLI (adaptation + scoring)": fewshot["fused"]["k1_launches"]}
+    # the multidevice phase's paths, counted in each rank's process
+    k1_md = {f"maze5 evaluate CLI --data_parallel 2, rank {r}": n for r, n in
+             enumerate(md["b_evaluate_cli_two_gloo_ranks"]["k1_launches_by_rank"])}
+    d_md = md["d_main_fused_two_gloo_ranks"]
+    k3_md = {f"main fused data-parallel steps x2, rank {r}": n
+             for r, n in enumerate(d_md["k3_launches_by_rank"])}
+    k3b_md = {f"main fused data-parallel steps x2, rank {r}": n
+              for r, n in enumerate(d_md["k3_bwd_launches_by_rank"])}
     k3b_main = {p: _k3_bwd_main(k3b, p) for p in K3_BWD_TOL}
     k3t_main = next(r for r in k3_train if r["B"] == TRAIN_BATCH and r["T"] == CUT)
     return {"kernels": [{
@@ -2148,9 +2565,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "source": "adfmsl_torch/csrc/resblock_eval.cu",
         "replaces": "adfmsl/ops/pallas/resblock_fused.py:141",
         "launches": (sum(r["k1_launches"] for r in main_path) + sum(k1_train.values())
-                     + sum(k1_fewshot.values())),
+                     + sum(k1_fewshot.values()) + sum(k1_md.values())),
         "launches_by_path": {**{r["model"]: r["k1_launches"] for r in main_path},
-                             **k1_train, **k1_fewshot},
+                             **k1_train, **k1_fewshot, **k1_md},
         "max_abs_err": max(r["max_abs_err_y"] for r in k1),
         "max_err_over_tol": max(max(r["max_abs_err_y"] / r["tol_y"],
                                     r["max_abs_err_sums"] / r["tol_sums"]) for r in k1),
@@ -2197,9 +2614,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "source": "adfmsl_torch/csrc/sinc_abs_pool.cu",
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:81",
         "launches": (sum(r["k3_launches"] for r in main_path) + sum(k3_eval_train.values())
-                     + sum(k3_fused.values()) + sum(k3_remat.values())),
+                     + sum(k3_fused.values()) + sum(k3_remat.values())
+                     + sum(k3_md.values())),
         "launches_by_path": {**{r["model"]: r["k3_launches"] for r in main_path},
-                             **k3_eval_train, **k3_fused, **k3_remat},
+                             **k3_eval_train, **k3_fused, **k3_remat, **k3_md},
         "max_abs_err": max(r["max_abs_err"] for r in k3),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3),
         **_summed([k3_main]),
@@ -2215,8 +2633,8 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "source": "adfmsl_torch/csrc/sinc_abs_pool_bwd.cu",
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:152 (_sap_bwd, the custom VJP of "
                     "sinc_abs_pool :138)",
-        "launches": sum(k3b_fused.values()) + sum(k3b_remat.values()),
-        "launches_by_path": {**k3b_fused, **k3b_remat},
+        "launches": sum(k3b_fused.values()) + sum(k3b_remat.values()) + sum(k3b_md.values()),
+        "launches_by_path": {**k3b_fused, **k3b_remat, **k3b_md},
         "max_abs_err": max(r["max_abs_err"] for r in k3b),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3b),
         **_summed([k3b_main["tf32"]]),
@@ -2263,9 +2681,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "k2"], default=None,
+    ap.add_argument("--only", choices=["kernels", "k2", "multidevice"], default=None,
                     help="kernels: only the build and the kernels phase; k2: only "
-                         "K2's library and cases (no main path, no {\"ok\": ...} line)")
+                         "K2's library and cases; multidevice: only the build and the "
+                         "multidevice phase (none of them ends in an {\"ok\": ...} line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2318,6 +2737,15 @@ def main() -> int:
               "build_s": phase_s["build"], "libraries": sorted(libs)}
     print("device " + json.dumps(device), flush=True)
 
+    if args.only == "multidevice":
+        with tempfile.TemporaryDirectory() as tmp:
+            fixture = generate_fixture(tmp, SyntheticSpec(n_train=2, n_dev=2,
+                                                          n_eval=EVAL_UTTS))
+            phase("multidevice", phase_multidevice, fixture, tmp, dev, smi)
+        print("phase_seconds " + json.dumps({**phase_s,
+                                             "total": time.perf_counter() - t_start}))
+        print(smi, flush=True)
+        return 0
     k1, k3, k3b, k4, figs = phase("kernels", phase_kernels, rf, sf, lf, dev)
     if args.only == "kernels":
         print("phase_seconds " + json.dumps({**phase_s,
@@ -2344,6 +2772,7 @@ def main() -> int:
         remat = phase("remat", lambda: [phase_remat(*c, sf, rf, dev, smi)
                                         for c in REMAT_CASES])
         fewshot = phase("fewshot", phase_fewshot, rf, tmp, smi)
+        md = phase("multidevice", phase_multidevice, fixture, tmp, dev, smi)
     k4_front = phase("k4_frontend", phase_k4_frontend, lf, dev, smi)
     phase("train_card_vs_cpu", lambda: [phase_train_card_vs_cpu(n, dev)
                                         for n in ("maze5", "main")])
@@ -2367,7 +2796,7 @@ def main() -> int:
                                          "total": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front,
-                                  main_path, train, fused_train, remat, fewshot)),
+                                  main_path, train, fused_train, remat, fewshot, md)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

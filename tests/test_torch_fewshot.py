@@ -19,7 +19,8 @@ adfmsl_torch.cli.fewshot`` and the 'wild' fixture, against adfmsl.
   lines, and the printed metrics; without a card and without ``--device
   cpu`` it raises.
 - ``generate_wild_fixture``: the protocol and every WAV byte equal adfmsl's.
-- ``mesh=`` raises and names ROADMAP slice 8.
+- ``mesh=`` (ROADMAP slice 8) trains the episode axis data-parallel over two
+  ranks as adfmsl's mesh does.
 """
 import ast
 import filecmp
@@ -205,9 +206,37 @@ def test_wild_fixture_matches_adfmsl(tmp_path, n_eval, seed):
 
 
 def test_mesh_names_slice_8(fixture_dir):
+    """ROADMAP slice 8's mesh: ``FewshotTrainer(mesh=...)`` on 2 spawned gloo
+    ranks (one episode each; CPU, 300 s limit) against adfmsl's
+    ``FewshotTrainer(mesh=...)`` on a 2-device mesh, from the same weights:
+    each meta step's loss within 1e-3 and its accuracy equal, as one process
+    is held above; the ranks end with equal parameters."""
+    from adfmsl.config import MeshConfig as JaxMeshConfig
+    from adfmsl.config import make_experiment as jax_experiment
+    from adfmsl.data import AsvspoofDataset as JaxDataset
+    from adfmsl.data import parse_protocol as jax_parse_protocol
+    from adfmsl.parallel import make_mesh
+    from adfmsl.train import FewshotConfig as JaxFewshotConfig
+    from adfmsl.train import FewshotTrainer as JaxFewshotTrainer
+
+    from adfmsl_torch.parallel import launch
+    import torch_rank_workers as W
+
     tr = fixture_dir["train"]
-    proto = parse_protocol(tr["protocol"])
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        FewshotTrainer(_exp(), FewshotConfig(), proto,
-                       AsvspoofDataset(proto, tr["audio_dir"], cut=CUT), mesh=object(),
-                       device="cpu")
+    jexp = deterministic(jax_experiment("maze5"), "float32")
+    jexp.data.cut = CUT
+    jproto = jax_parse_protocol(tr["protocol"])
+    jtrainer = JaxFewshotTrainer(jexp, JaxFewshotConfig(**FCFG), jproto,
+                                 JaxDataset(jproto, tr["audio_dir"], cut=CUT),
+                                 mesh=make_mesh(JaxMeshConfig(), devices=jax.devices()[:2]))
+    sd = state_dict_from_flax(jax.tree.map(np.asarray, jtrainer.params),
+                              jax.tree.map(np.asarray, jtrainer.batch_stats), "maze5")
+    jhist = jtrainer.fit()
+    out = launch(W.fewshot_fit, 2, ({"protocol": tr["protocol"],
+                                     "audio_dir": tr["audio_dir"]}, sd, FCFG, CUT),
+                 backend="gloo", device="cpu", timeout=W.LIMIT)
+    assert out[0]["history"] == out[1]["history"]
+    assert len(out[0]["history"]) == len(jhist) == FCFG["n_steps"]
+    for (loss, acc), j in zip(out[0]["history"], jhist):
+        np.testing.assert_allclose(loss, j["loss"], rtol=0, atol=1e-3)
+        assert acc == j["acc"]

@@ -95,6 +95,9 @@ def test_remat_step_equals_plain_step(name, dtype, extra):
         return build_model(exp.model, device="cpu", seed=0)
 
     x, y, m = _batch(1)
+    # a step first, not compared: a process's first oneDNN calls on a loaded
+    # host do not always round as its later ones do
+    _step_once(make_experiment(name), build, False, x, y, m)
     plain = _step_once(make_experiment(name), build, False, x, y, m)
     rem = _step_once(make_experiment(name), build, True, x, y, m)
     _assert_equal_steps(plain, rem)

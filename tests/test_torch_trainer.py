@@ -155,8 +155,17 @@ def test_restore_continues_and_evaluate_reads_the_checkpoint(runs, monkeypatch, 
                                                ("--train_pack", "p", "slice 9"),
                                                ("--log_dir", "d", "slice 9")])
 def test_later_flags_name_their_slice(flag, value, slice_):
+    """Slice 9's flags raise and name their slice. Slice 8's ``--data_parallel``
+    is ported (tests/test_torch_dp_trainer.py trains with it): asked for
+    ``nccl`` ranks on the CPU, it reaches the launcher, which refuses and names
+    ``gloo`` instead of switching backends."""
     from adfmsl_torch.cli import train as cli_train
 
+    if slice_ == "slice 8":
+        with pytest.raises(ValueError, match="gloo"):
+            cli_train.main(["--model", "maze5", flag, value, "--dist_backend", "nccl",
+                            "--device", "cpu"])
+        return
     with pytest.raises(NotImplementedError, match=slice_):
         cli_train.main(["--model", "maze5", flag, value, "--device", "cpu"])
 
