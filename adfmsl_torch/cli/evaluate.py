@@ -5,10 +5,12 @@
         [--data_parallel N --dist_backend nccl|gloo] ...
 
 Port of ``adfmsl/cli/evaluate.py``: rebuilds the architecture, loads the
-checkpoint (``model.pt`` written by ``adfmsl_torch.models.save_checkpoint``) or
-initialises randomly from ``--seed``, optionally smoke-tests a synthetic
-forward pass, streams the eval protocol, writes the score file and prints the
-metric dict. Runs on the card unless ``--device cpu`` is given.
+checkpoint (``model.pt`` written by ``adfmsl_torch.models.save_checkpoint``;
+its config from ``experiment.yaml`` beside it where there is one, as adfmsl's
+CLI reads it, else from ``model.pt``) or initialises randomly from
+``--seed``, optionally smoke-tests a synthetic forward pass, streams the eval
+protocol, writes the score file and prints the metric dict. Runs on the card
+unless ``--device cpu`` is given.
 
 ``--data_parallel N`` (N > 1) scores over N local ranks (``parallel/launch.py``;
 ``--dist_backend`` and ``--dist_timeout`` as in ``cli/train.py``): rank 0's
@@ -21,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 
 import numpy as np
@@ -126,7 +129,7 @@ def _rank_main(device, argv) -> int:
 def run(parser, args, device, mesh=None) -> int:
     """Score as the parsed ``args`` say on ``device``; under ``mesh`` as this
     rank."""
-    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.config import load_yaml, make_experiment
     from adfmsl_torch.data import AsvspoofDataset, DataLoader, parse_protocol
     from adfmsl_torch.device import resolve_device
     from adfmsl_torch.evaluation import evaluate_to_file
@@ -135,12 +138,18 @@ def run(parser, args, device, mesh=None) -> int:
     device = resolve_device(device)
     state = None
     if args.model_path:
-        # checkpoints carry their full config
+        # the config beside the checkpoints first (adfmsl's Trainer and the
+        # port's write it), else the one each model.pt carries
         exp, state = load_checkpoint(args.model_path)
+        source = os.path.join(args.model_path, "experiment.yaml")
+        if os.path.exists(source):
+            exp = load_yaml(source)
+        else:
+            source = args.model_path
         if exp.model.name != args.model_type:
             parser.error(f"--model_type {args.model_type} but the checkpoint "
                          f"holds {exp.model.name}")
-        logging.info("loaded checkpoint config from %s", args.model_path)
+        logging.info("loaded experiment config from %s", source)
     else:
         exp = make_experiment(args.model_type, drift=not args.no_drift)
     if args.cut:

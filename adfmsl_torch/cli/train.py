@@ -1,21 +1,29 @@
 """Training CLI of the port (port of ``adfmsl/cli/train.py``, :13-190).
 
-    python -m adfmsl_torch.cli.train --model maze5 --train_protocol P \\
-        --train_dir D [--dev_protocol P2 --dev_dir D2] --batch_size 12 \\
-        --num_epochs N --checkpoint_dir C [--restore] [--device cuda|cpu] \
+    python -m adfmsl_torch.cli.train --model maze5 | --config Y.yaml \\
+        --train_protocol P --train_dir D [--dev_protocol P2 --dev_dir D2] \\
+        --batch_size 12 --num_epochs N --checkpoint_dir C [--restore] \\
+        [--log_dir L] [--profile_dir T] [--device cuda|cpu] \\
         [--data_parallel N --dist_backend nccl|gloo]
 
-Trains a ported model (maze4, maze5, RawNet ``main`` and their ``_fmsl``
-twins; lcnn_lfcc, lcnn1d_lfcc, resnet18_logmel) from its standardized
-configuration, one checkpoint per epoch under ``C`` (best-k
-retention); ``--restore`` continues from the latest one. As adfmsl's CLI, it
-has no flag for RawNet's fused training front end (kernel K3 in the train
-forward): a caller sets ``exp.model.extra["fused_train_frontend"]`` and builds
-the ``Trainer`` itself.
+Trains a registry model from its standardized configuration, or from the
+``ExperimentConfig`` YAML of ``--config`` (``config/yaml_io.py``; the
+``--batch_size`` / ``--lr`` / ``--num_epochs`` / ``--seed`` and path flags
+override it, and a path left unset keeps the YAML's), one checkpoint per
+epoch under ``C`` (best-k retention) with the config beside them as
+``C/experiment.yaml``; ``--restore`` continues from the latest one. As
+adfmsl's CLI, it has no flag for the fused kernels: a YAML's ``model.extra``
+sets them (``fused_train_frontend``: kernel K3 and its backward in RawNet's
+train forward; ``fused_eval_trunk``: K1 under ``--eval``).
 ``python -m adfmsl_torch.cli.evaluate --model_path C`` scores with the latest
 epoch. ``--eval`` writes a score file for ``--eval_protocol`` instead of
-training. Runs on the card unless ``--device cpu`` is given. The flags of
-features that later slices bring raise and name the slice.
+training, and leaves ``C/experiment.yaml`` as it was. ``--log_dir`` writes
+each epoch's ``train/loss``, ``train/acc`` and ``dev/acc`` at step = epoch
+to ``L/metrics.jsonl`` (``utils/metrics_log.py``); ``--profile_dir`` traces
+the first epoch with ``torch.profiler`` into ``T`` and trains the rest
+untraced; every training run ends by logging the Trainer's step timer. Runs
+on the card unless ``--device cpu`` is given. The pack flags (ROADMAP slice
+9) raise and name the slice.
 
 ``--data_parallel N`` (N > 1) trains data-parallel over N local ranks
 (``parallel/launch.py``: one process each, rank r on card r): each rank
@@ -25,21 +33,21 @@ is ``nccl`` (one card a rank; more ranks than cards raises) or ``gloo``
 (ranks may share a card, or run on the CPU with ``--device cpu``). The run
 has no time limit; a collective that waits ``--dist_timeout`` seconds fails
 its rank, and a failed rank fails the run. Each rank prints a
-``rank_summary`` JSON line with its kernel launches.
+``rank_summary`` JSON line with its kernel launches. Rank 0 alone writes
+``experiment.yaml`` and ``metrics.jsonl``; with ``--profile_dir`` every rank
+writes its own trace (named by host and process id).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
 import sys
 
 # flag -> the ROADMAP slice that brings it
-LATER_FLAGS = {"config": "slice 9 (config/yaml_io.py)",
-               "profile_dir": "slice 9 (utils/profiling)",
-               "log_dir": "slice 9 (utils/MetricsLogger)",
-               "train_pack": "slice 9 (data/pack.py)",
+LATER_FLAGS = {"train_pack": "slice 9 (data/pack.py)",
                "dev_pack": "slice 9 (data/pack.py)",
                "eval_pack": "slice 9 (data/pack.py)"}
 
@@ -68,8 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from the latest checkpoint in --checkpoint_dir")
     p.add_argument("--no_drift", action="store_true",
                    help="use canonical FMSL params instead of reference drift")
-    p.add_argument("--profile_dir", default=None)
-    p.add_argument("--log_dir", default=None)
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the first epoch here")
+    p.add_argument("--log_dir", default=None,
+                   help="JSONL scalar metrics directory (tensorboardX analog)")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="train over N local ranks (0 / 1: one process)")
     p.add_argument("--dist_backend", default="nccl", choices=["nccl", "gloo"],
@@ -125,12 +135,15 @@ def _rank_main(device, argv) -> None:
 def run(args, device, mesh=None) -> int:
     """Train (or with ``--eval`` score) as the parsed ``args`` say, on
     ``device``; under ``mesh`` as this rank."""
-    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.config import load_yaml, make_experiment
     from adfmsl_torch.data import parse_protocol
     from adfmsl_torch.evaluation import evaluate_to_file
     from adfmsl_torch.train import Trainer, make_dataset_and_loader
 
-    exp = make_experiment(args.model, drift=not args.no_drift)
+    if args.config:
+        exp = load_yaml(args.config)
+    else:
+        exp = make_experiment(args.model, drift=not args.no_drift)
     for flag, obj, field in [("batch_size", exp.train, "batch_size"),
                              ("lr", exp.train.optimizer, "lr"),
                              ("num_epochs", exp.train, "num_epochs"),
@@ -158,28 +171,48 @@ def run(args, device, mesh=None) -> int:
                                              batch_size=exp.train.eval_batch_size,
                                              drop_last=False, **shard)
 
-    trainer = Trainer(exp, train_loader, dev_loader, checkpoint_dir=args.checkpoint_dir,
-                      mesh=mesh, device=device)
-    if args.restore and args.checkpoint_dir:
-        epoch = trainer.restore()
-        logging.info("restored checkpoint epoch %d", epoch)
+    with contextlib.ExitStack() as stack:
+        metric_hook = None
+        if args.log_dir and (mesh is None or mesh.rank == 0):
+            from adfmsl_torch.utils import MetricsLogger
 
-    if args.eval:
-        eval_proto_path = args.eval_protocol or _default_paths(exp, "eval", "trl")[0]
-        eval_dir = args.eval_dir or _default_paths(exp, "eval", "trl")[1]
-        eval_proto = parse_protocol(eval_proto_path, exp.data.label_polarity)
-        loader = make_dataset_and_loader(exp, eval_proto, eval_dir, shuffle=False,
-                                         batch_size=exp.train.eval_batch_size,
-                                         drop_last=False, **shard)
-        trainer.state.model.eval()
-        res = evaluate_to_file(trainer.state.model, loader, args.eval_output,
-                               labels=eval_proto.labels or None, mesh=mesh)
-        if res.metrics and (mesh is None or mesh.rank == 0):
-            print({k: round(v, 6) if isinstance(v, float) else v
-                   for k, v in res.metrics.items()})
-        return 0
+            mlog = stack.enter_context(contextlib.closing(MetricsLogger(args.log_dir)))
 
-    trainer.fit()
+            def metric_hook(em):
+                mlog.add_scalars({"train/loss": em.train_loss, "train/acc": em.train_acc,
+                                  "dev/acc": em.dev_acc}, em.epoch)
+
+        trainer = Trainer(exp, train_loader, dev_loader,
+                          checkpoint_dir=args.checkpoint_dir, metric_hook=metric_hook,
+                          mesh=mesh, device=device, persist_config=not args.eval)
+        if args.restore and args.checkpoint_dir:
+            epoch = trainer.restore()
+            logging.info("restored checkpoint epoch %d", epoch)
+
+        if args.eval:
+            eval_proto_path = args.eval_protocol or _default_paths(exp, "eval", "trl")[0]
+            eval_dir = args.eval_dir or _default_paths(exp, "eval", "trl")[1]
+            eval_proto = parse_protocol(eval_proto_path, exp.data.label_polarity)
+            loader = make_dataset_and_loader(exp, eval_proto, eval_dir, shuffle=False,
+                                             batch_size=exp.train.eval_batch_size,
+                                             drop_last=False, **shard)
+            trainer.state.model.eval()
+            res = evaluate_to_file(trainer.state.model, loader, args.eval_output,
+                                   labels=eval_proto.labels or None, mesh=mesh)
+            if res.metrics and (mesh is None or mesh.rank == 0):
+                print({k: round(v, 6) if isinstance(v, float) else v
+                       for k, v in res.metrics.items()})
+            return 0
+
+        if args.profile_dir:
+            from adfmsl_torch.utils import trace
+
+            with trace(args.profile_dir):
+                trainer.fit(num_epochs=1)
+            trainer.fit(num_epochs=max(exp.train.num_epochs - 1, 0))
+        else:
+            trainer.fit()
+    logging.info("step timing:\n%s", trainer.timer.report())
     return 0
 
 

@@ -4,11 +4,16 @@
 The reference scatters configuration over four overlapping mechanisms (argparse CLI,
 in-file ``model_config`` dicts, importable standardized-config modules, unused YAMLs;
 standardized_maze_config.py:8-37 and fmsl_standardized_config.py:17-79). Here there
-is ONE typed tree. The reference's flat-dict round trip waits for ROADMAP slice 9.
+is ONE typed tree; ``ExperimentConfig.to_reference_dict`` gives the reference's flat
+dict, and ``experiment_from_dict`` (checkpoints) and ``config/yaml_io.py:load_yaml``
+read a plain dict back through one ``_from_dict``, which warns for each key it does
+not know.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import logging
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Union
 
@@ -231,19 +236,74 @@ class ExperimentConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
 
+    def to_reference_dict(self) -> Dict[str, Any]:
+        """The reference's flat standardized dict, key for key
+        (fmsl_standardized_config.py:36-79), for diffing and verification."""
+        a, t, o = self.model.architecture, self.train, self.train.optimizer
+        d: Dict[str, Any] = {
+            "filts": copy.deepcopy(a.filts),   # never hand out live config state
+            "nb_fc_node": a.nb_fc_node,
+            "nb_classes": a.nb_classes,
+            "sample_rate": a.sample_rate,
+            "first_conv": a.first_conv,
+            "dropout_rate": a.dropout_rate,
+            "fc_dropout": a.fc_dropout,
+            "wav2vec2_model_name": self.model.wav2vec2.model_name,
+            "wav2vec2_output_dim": self.model.wav2vec2.output_dim,
+            "wav2vec2_freeze": self.model.wav2vec2.freeze,
+            "batch_size": t.batch_size,
+            "lr": o.lr,
+            "weight_decay": o.weight_decay,
+            "grad_clip_norm": o.grad_clip_norm,
+            "num_epochs": t.num_epochs,
+            "seed": t.seed,
+            "use_spec_augment_raw": self.model.spec_augment.enabled,
+            "spec_aug_freq_mask_param_raw": self.model.spec_augment.freq_mask_param,
+            "spec_aug_time_mask_param_raw": self.model.spec_augment.time_mask_param,
+            "spec_aug_n_freq_masks_raw": self.model.spec_augment.n_freq_masks,
+            "spec_aug_n_time_masks_raw": self.model.spec_augment.n_time_masks,
+        }
+        if self.model.fmsl is not None:
+            f = self.model.fmsl
+            d.update({"fmsl_type": f.fmsl_type, "fmsl_n_prototypes": f.n_prototypes,
+                      "fmsl_s": f.s, "fmsl_m": f.m, "fmsl_enable_lsa": f.enable_lsa,
+                      "fmsl_lsa_strength": f.lsa_strength})
+        return d
 
-def _from_dict(cls, d: Dict[str, Any]):
+
+# the dataclass of each nested field, keyed by (owner class, field name)
+_NESTED = {
+    (ExperimentConfig, "model"): ModelConfig,
+    (ExperimentConfig, "data"): DataConfig,
+    (ExperimentConfig, "train"): TrainConfig,
+    (ExperimentConfig, "mesh"): MeshConfig,
+    (ModelConfig, "architecture"): ArchitectureConfig,
+    (ModelConfig, "wav2vec2"): Wav2Vec2Config,
+    (ModelConfig, "fmsl"): FMSLConfig,
+    (ModelConfig, "spec_augment"): SpecAugmentConfig,
+    (ModelConfig, "frontend"): FrontendConfig,
+    (TrainConfig, "optimizer"): OptimizerConfig,
+    (TrainConfig, "loss"): LossConfig,
+}
+
+
+def _from_dict(cls, d: Optional[Dict[str, Any]]):
+    """``cls`` from a plain dict, nested fields through ``_NESTED``. A key the
+    class does not know is logged, named by class, and dropped (a stale or
+    mistyped key falling back to its default is what the verifier exists to
+    catch), as adfmsl's loader does (config/yaml_io.py:31-51)."""
+    if d is None:
+        return None
+    unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+    if unknown:
+        logging.getLogger(__name__).warning(
+            "%s: ignoring unknown config key(s) %s", cls.__name__, sorted(unknown))
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:
             continue
-        v = d[f.name]
-        sub = {"architecture": ArchitectureConfig, "wav2vec2": Wav2Vec2Config,
-               "fmsl": FMSLConfig, "spec_augment": SpecAugmentConfig,
-               "frontend": FrontendConfig, "optimizer": OptimizerConfig,
-               "loss": LossConfig, "model": ModelConfig, "data": DataConfig,
-               "train": TrainConfig, "mesh": MeshConfig}.get(f.name)
-        kwargs[f.name] = _from_dict(sub, v) if sub and v is not None else v
+        sub = _NESTED.get((cls, f.name))
+        kwargs[f.name] = _from_dict(sub, d[f.name]) if sub is not None else d[f.name]
     return cls(**kwargs)
 
 
@@ -251,4 +311,3 @@ def experiment_from_dict(d: Dict[str, Any]) -> "ExperimentConfig":
     """Inverse of ``dataclasses.asdict(ExperimentConfig)`` (checkpoints store
     the config as a plain dict, models/port.py:save_checkpoint)."""
     return _from_dict(ExperimentConfig, d)
-

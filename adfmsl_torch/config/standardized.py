@@ -78,6 +78,14 @@ ALL_MODELS = BASELINE_MODELS + FMSL_MODELS
 EXTRA_MODELS = ["lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel"]
 
 
+def get_standardized_config(model_type: str = "baseline") -> Dict[str, Any]:
+    """Reference-compatible flat dict (standardized_maze_config.py:39-64)."""
+    if model_type not in ("baseline", "fmsl"):
+        raise ValueError(f"model_type must be 'baseline' or 'fmsl', got {model_type!r}")
+    exp = make_experiment("maze5_fmsl" if model_type == "fmsl" else "maze5", drift=False)
+    return exp.to_reference_dict()
+
+
 def _fmsl_for(name: str, drift: bool = True) -> FMSLConfig:
     cfg = FMSLConfig(mode=FMSL_MODES.get(name, "replace"))
     if drift and name in FMSL_DRIFT:

@@ -11,8 +11,9 @@ maze6's plain encoder behind a BatchNorm, maze3_fmsl's projected stack),
 mean or attentive-stats pooling (:196-199), the classifier with its fc
 dropout and maze3's ReLU after fc1 (:209), the FMSL head in the 'refine',
 'replace', 'integrated' and 'fallback' modes, and both scores; the ``SPECS``
-of all 16 registry names (:280-386). ``build_model`` also builds adfmsl's
-extra families (``EXTRAS``: ``models/lcnn.py``, ``models/resnet.py``).
+of all 16 registry names (:280-386). ``build_model`` dispatches through
+``model_registry``, which also holds adfmsl's extra families (``EXTRAS``:
+``models/lcnn.py``, ``models/resnet.py``).
 ``MazeSpec.block_variant`` is carried, as in adfmsl, for 'reference' block
 semantics, which raise and name ROADMAP slice 9.
 
@@ -24,6 +25,7 @@ bonafide=1, spoof=0.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Tuple, Union
 
@@ -45,6 +47,7 @@ from adfmsl_torch.models.w2v2 import Wav2Vec2Encoder, arch_for
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
 from adfmsl_torch.ops.specaugment import spec_augment
+from adfmsl_torch.utils.registry import Registry
 
 
 @dataclass(frozen=True)
@@ -363,15 +366,21 @@ class MazeModel(nn.Module):
         return torch.cat([hs[min(i, len(hs) - 1)] for i in taps], dim=-1)
 
 
+# every registry name -> its factory (cfg, device=, generator=), as adfmsl's
+# model_registry (models/mazes.py:45, :389-394)
+model_registry = Registry("model")
+for _name, _spec in SPECS.items():
+    model_registry.register(_name, functools.partial(MazeModel, _spec))
+for _name, _cls in EXTRAS.items():
+    model_registry.register(_name, _cls)
+
+
 def build_model(cfg: ModelConfig, device: Optional[Union[str, torch.device]] = None,
                 seed: Optional[int] = 0) -> nn.Module:
-    """Build a ported registry model on ``device`` (``None`` means ``cuda``),
-    randomly initialised from ``seed``: a ``MazeModel`` for the ``SPECS``
-    names, the model's own class for the ``EXTRAS``."""
+    """Build the registry model ``cfg.name`` on ``device`` (``None`` means
+    ``cuda``), randomly initialised from ``seed``: a ``MazeModel`` for the
+    ``SPECS`` names, the model's own class for the ``EXTRAS``."""
+    if cfg.name not in model_registry:
+        raise KeyError(f"unknown model {cfg.name!r}; ported: {model_registry.names()}")
     gen = torch.Generator().manual_seed(seed) if seed is not None else None
-    if cfg.name in EXTRAS:
-        return EXTRAS[cfg.name](cfg, device=device, generator=gen)
-    if cfg.name not in SPECS:
-        raise KeyError(f"unknown model {cfg.name!r}; ported: "
-                       f"{sorted([*SPECS, *EXTRAS])}")
-    return MazeModel(SPECS[cfg.name], cfg, device=device, generator=gen)
+    return model_registry.get(cfg.name)(cfg, device=device, generator=gen)

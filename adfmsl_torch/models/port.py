@@ -126,11 +126,11 @@ def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
                          model_name: str) -> "OrderedDict[str, torch.Tensor]":
     """adfmsl ``MazeModel`` variables of ``model_name`` -> the port's state dict.
     Raises if the model is not ported or a leaf of either tree was not used."""
-    from adfmsl_torch.models.mazes import EXTRAS, SPECS
+    from adfmsl_torch.models.mazes import model_registry
 
-    if model_name not in SPECS and model_name not in EXTRAS:
+    if model_name not in model_registry:
         raise KeyError(f"model {model_name!r} is not ported; ported: "
-                       f"{sorted([*SPECS, *EXTRAS])}")
+                       f"{model_registry.names()}")
     try:
         return flax_tree_to_state_dict(params, batch_stats)
     except ValueError as e:

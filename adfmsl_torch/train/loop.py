@@ -9,8 +9,12 @@ a dev set gives accuracy and EER per epoch, which drive the checkpoint
 retention, the plateau scale and early stopping; a Wav2Vec2 model gets its
 pretrained encoder from ``wav2vec2.pretrained_path`` before the optimizer is
 built, and the optimizer labels its parameters ('main', 'backbone', 'frozen').
-adfmsl also writes ``experiment.yaml`` beside the checkpoints; here every
-epoch's ``model.pt`` carries the config.
+``metric_hook`` gets each epoch's ``EpochMetrics`` after its log line and
+before its checkpoint; with ``persist_config`` (the default) the config is
+written as ``experiment.yaml`` beside the checkpoints, for adfmsl's tools and
+the evaluate CLI (every epoch's ``model.pt`` carries it too); ``timer`` adds up
+the host's time in the ``input`` wait and the ``train_step`` (its dispatch:
+no synchronise is added, as in adfmsl).
 
 With ``mesh`` (``parallel/mesh.py``; one process a rank) the Trainer trains
 data-parallel as adfmsl's does under GSPMD: rank 0's weights are broadcast,
@@ -21,14 +25,16 @@ Dev evaluation scores each rank's rows and gathers the scores into one
 global buffer, so every rank computes the same accuracy and EER; the values
 that decide the plateau scale and early stopping are rank 0's, broadcast, so
 no rank leaves the loop alone and hangs the others in a collective. Rank 0
-writes the checkpoints; the others wait at a barrier.
+writes ``experiment.yaml`` and the checkpoints; the others wait at a barrier
+after each checkpoint.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
-from typing import TYPE_CHECKING, Dict, List, Optional, Union
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -46,6 +52,8 @@ from adfmsl_torch.train.early_stop import EarlyStopper
 from adfmsl_torch.train.optim import Optimizer, PlateauTracker
 from adfmsl_torch.train.state import TrainState
 from adfmsl_torch.train.steps import make_eval_step, make_train_step
+from adfmsl_torch.utils.profiling import StepTimer
+from adfmsl_torch.utils.rng import set_global_seed
 
 if TYPE_CHECKING:
     from adfmsl_torch.parallel.mesh import Mesh
@@ -71,13 +79,17 @@ class Trainer:
     def __init__(self, exp: ExperimentConfig, train_loader: DataLoader,
                  dev_loader: Optional[DataLoader] = None,
                  checkpoint_dir: Optional[str] = None,
+                 metric_hook: Optional[Callable[[EpochMetrics], None]] = None,
                  mesh: Optional["Mesh"] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 persist_config: bool = True):
         self.exp = exp
         self.mesh = mesh
         self.train_loader = train_loader
         self.dev_loader = dev_loader
+        self.metric_hook = metric_hook
         self.device = resolve_device(device)
+        set_global_seed(exp.train.seed)
         model = build_model(exp.model, device=self.device, seed=exp.train.seed)
         w2v2 = exp.model.wav2vec2
         if w2v2.pretrained_path or w2v2.require_pretrained:
@@ -97,8 +109,16 @@ class Trainer:
                                        metric=exp.train.early_stop_metric,
                                        mode=exp.train.early_stop_mode)
                      if checkpoint_dir else None)
+        if checkpoint_dir and persist_config and (mesh is None or mesh.rank == 0):
+            # off for an eval-time Trainer: the eval CLI changes exp (the fused
+            # extras, the cut) and must not overwrite the training config
+            from adfmsl_torch.config.yaml_io import save_yaml
+
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            save_yaml(exp, os.path.join(checkpoint_dir, "experiment.yaml"))
         self.history: List[EpochMetrics] = []
         self.epochs_run = 0              # advanced by fit(); restore() sets it
+        self.timer = StepTimer()
 
     def restore(self) -> int:
         """Load the latest checkpoint; the next epoch continues after it."""
@@ -117,12 +137,19 @@ class Trainer:
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         loss_sum = acc_sum = skip_sum = None
+        in_s0 = self.timer.totals.get("input", 0.0)
+        shard = self.mesh.data_rank if self.mesh is not None else 0
+        it = iter(self.train_loader)
         i = 0
-        for batch in self.train_loader:
-            audio, label, mask = self._place(batch)
-            shard = self.mesh.data_rank if self.mesh is not None else 0
-            m = self.train_step(self.state, audio, label, mask,
-                                self.state.generators(epoch, i, shard))
+        while True:
+            with self.timer.phase("input"):
+                batch = next(it, None)
+            if batch is None:
+                break
+            with self.timer.phase("train_step"):
+                audio, label, mask = self._place(batch)
+                m = self.train_step(self.state, audio, label, mask,
+                                    self.state.generators(epoch, i, shard))
             if loss_sum is None:
                 loss_sum, acc_sum, skip_sum = m["loss"], m["acc"], m["skipped"]
             else:
@@ -134,6 +161,10 @@ class Trainer:
                 log.info("epoch %d step %d loss %.4f acc %.3f", epoch, i,
                          float(m["loss"]), float(m["acc"]))
         n = max(i, 1)
+        in_s = self.timer.totals.get("input", 0.0) - in_s0
+        if in_s > 0 and i > 0:
+            log.info("epoch %d input wait: %.2fs (%.0f utt/s consumer-side)",
+                     epoch, in_s, i * self.train_loader.batch_size / in_s)
         return {"loss": float(loss_sum) / n if loss_sum is not None else 0.0,
                 "acc": float(acc_sum) / n if acc_sum is not None else 0.0,
                 "skipped": int(skip_sum) if skip_sum is not None else 0}
@@ -226,6 +257,8 @@ class Trainer:
             log.info("epoch %d done: loss %.4f train_acc %.3f dev_acc %.3f "
                      "dev_eer %.3f (%.1fs)", epoch, em.train_loss, em.train_acc,
                      em.dev_acc, em.dev_eer, em.seconds)
+            if self.metric_hook:
+                self.metric_hook(em)
             if self.ckpt:
                 if self.mesh is None or self.mesh.rank == 0:
                     self.ckpt.save(epoch, self.exp, self.state,

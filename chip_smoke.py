@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels    # phases 1 and 2-3d only
     python3 chip_smoke.py --only k2         # K2's library and cases only
     python3 chip_smoke.py --only multidevice   # the build and phase 7e only
+    python3 chip_smoke.py --only config_cli    # the build and phase 7f only
 
 Phases, each printing its own lines:
 
@@ -201,6 +202,24 @@ Phases, each printing its own lines:
    a rank, FFN 3072 -> 1536) at batch 8 against the replicated forward
    within 3e-2 * max(1, |logit|). The two-rank times are printed as what
    they are: two ranks share one card and gloo stages through the host;
+7f. the train CLI driven by config files (``config_cli``, run after 7b): (a)
+   RawNet main from a YAML written by the port's ``save_yaml`` (batch 12, 2
+   epochs, both kept, ``model.extra.fused_train_frontend``) through
+   ``cli.train --config --log_dir --profile_dir`` on the fixture at cut
+   64600: K3 and its backward kernel once a step (the counts set to 0 just
+   before), ``experiment.yaml`` beside the checkpoints equal to the YAML after
+   the CLI's path overrides and to ``model.pt``'s config, ``train/loss``,
+   ``train/acc`` and ``dev/acc`` in ``metrics.jsonl`` at steps 0 and 1,
+   finite and equal to each epoch's checkpoint metrics, one Chrome trace of
+   the first epoch whose CUDA kernels include K3's and K3-bwd's
+   ``__global__`` functions, and the step timer's report counting every step
+   (``input`` once more an epoch: the wait that finds the loader's end); (b)
+   maze5 from ``configs/maze5.yaml`` for one epoch, then ``cli.train --config
+   --eval --restore`` from a copy with ``model.extra.fused_eval_trunk``: K1 5
+   a batch, ``experiment.yaml`` left as it was, and the score file against
+   ``cli.evaluate --model_path`` (its config from ``experiment.yaml``) at the
+   same batch within 3e-2 * max(1, |score|). A line a part gives the
+   launches, the seconds and the trace's bytes;
 8. one f32 train step of maze5 and of main at batch 2, cut 16000, randomness
    off, on the card and on the CPU from the same weights (TF32 off): loss
    within 1e-4 relative, gradients as in tests/test_torch_train_step.py
@@ -241,8 +260,9 @@ Phases, each printing its own lines:
    wide stack heads (768 -> 128 and 1024 -> 128, the 1x1 skip, no ``pre``) at
    batch 128, T 201 and at ragged small T against the plain version; K1's
    launches on the few-shot path, K3's and its backward kernel's in the
-   remat phase's fused steps, and each rank's K1, K3 and K3-backward
-   launches in the multidevice phase among the launches by path.
+   remat phase's fused steps, each rank's K1, K3 and K3-backward launches
+   in the multidevice phase, and the config_cli phase's K1, K3 and
+   K3-backward launches among the launches by path.
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -263,6 +283,7 @@ import ast
 import contextlib
 import io
 import json
+import logging
 import math
 import os
 import re
@@ -415,6 +436,11 @@ REMAT_CASES = [("maze5", TRAIN_BATCH, {}, False), ("main", TRAIN_BATCH, K3_TRAIN
 FEWSHOT_TRAIN_UTTS, FEWSHOT_WILD_UTTS, FEWSHOT_STEPS = 64, 40, 3
 FEWSHOT_K_SHOT, FEWSHOT_UTTS_A_STEP, FEWSHOT_SCORE_BATCH = 5, 80, 32
 FEWSHOT_SCORE_TOL = 3e-2
+# the config_cli phase: RawNet main's epochs from its YAML, and the __global__
+# functions of K3 (csrc/sinc_abs_pool.cu:76) and K3-bwd (csrc/sinc_abs_pool_bwd.cu:134)
+# its profiler trace must name
+CONFIG_CLI_EPOCHS = 2
+CONFIG_CLI_TRACE_KERNELS = ("sinc_abs_pool_kernel", "sinc_bwd_kernel")
 K1_MAZE5 = 5                     # K1 launches a maze5 eval forward
 # the loader's host rate: utterances of LOADER_SECONDS, decoded and padded a
 # batch of BENCH_BATCH at a time, at each count of native threads
@@ -1666,6 +1692,185 @@ def _compare_steps(name, a, b):
             "bn_buffer_max_rel_diff": buf_err, "generators_equal": True}
 
 
+class _LogLines(logging.Handler):
+    """Collects the messages of the root logger at INFO and above."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def root_log_lines():
+    """The root logger's INFO messages while the block runs (the CLIs log
+    through it; its level is restored after)."""
+    root, handler = logging.getLogger(), _LogLines()
+    level = root.level
+    root.setLevel(logging.INFO)
+    root.addHandler(handler)
+    try:
+        yield handler.messages
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def timer_rows(messages):
+    """{phase: {"total_s", "count", "mean_ms"}} of the last step-timer report
+    among ``messages``."""
+    report = [m for m in messages if m.startswith("step timing:")][-1]
+    return {name: {"total_s": float(total), "count": int(count), "mean_ms": float(mean)}
+            for name, total, count, mean in (ln.split() for ln in report.splitlines()[2:])}
+
+
+def phase_config_cli(rf, sf, fixture, tmp, card):
+    """The train CLI driven by config files (``config_cli``). (a) RawNet main
+    from a YAML the port's ``save_yaml`` wrote, with ``fused_train_frontend``
+    in ``model.extra``, trained 2 epochs at batch 12 with ``--log_dir`` and
+    ``--profile_dir``: K3 and its backward kernel once a step; the
+    checkpoints' ``experiment.yaml`` is the tree the run used; the metrics log
+    holds ``train/loss``, ``train/acc`` and ``dev/acc`` at steps 0 and 1,
+    finite and equal to each epoch's checkpoint metrics; one trace, naming
+    both kernels; the step timer's report counts every step. (b) maze5 from
+    ``configs/maze5.yaml`` for one epoch, then ``--eval --restore`` from a
+    copy with ``fused_eval_trunk``: K1 5 a batch, ``experiment.yaml`` not
+    overwritten, the score file against ``cli.evaluate --model_path`` at the
+    same batch within 3e-2 * max(1, |score|)."""
+    import dataclasses
+
+    from adfmsl_torch.cli import evaluate
+    from adfmsl_torch.cli import train as cli_train
+    from adfmsl_torch.config import load_yaml, make_experiment, save_yaml
+    from adfmsl_torch.models import load_checkpoint
+    from adfmsl_torch.train import CheckpointManager
+    from adfmsl_torch.utils import read_metrics
+
+    root = os.path.join(tmp, "config_cli")
+    os.makedirs(root)
+    tr, dv, ev = fixture["train"], fixture["dev"], fixture["eval"]
+    data = ["--train_protocol", tr["protocol"], "--train_dir", tr["audio_dir"]]
+    steps = TRAIN_UTTS // TRAIN_BATCH
+
+    # (a)
+    exp = make_experiment("main")
+    exp.train.batch_size, exp.train.num_epochs = TRAIN_BATCH, CONFIG_CLI_EPOCHS
+    exp.train.keep_best_k = CONFIG_CLI_EPOCHS        # both epochs' metrics stay
+    exp.model.extra.update(K3_TRAIN)
+    cfg = os.path.join(root, "main_k3.yaml")
+    save_yaml(exp, cfg)
+    ck, logs, prof = (os.path.join(root, d) for d in ("main_ck", "logs", "profile"))
+    sf.sinc_abs_pool_fused.launches = sf.sinc_abs_pool_bwd.launches = 0
+    t0 = time.perf_counter()
+    with root_log_lines() as messages:
+        rc = cli_train.main(["--config", cfg, *data, "--dev_protocol", dv["protocol"],
+                             "--dev_dir", dv["audio_dir"], "--checkpoint_dir", ck,
+                             "--log_dir", logs, "--profile_dir", prof, "--device", "cuda"])
+        torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    k3, k3b = sf.sinc_abs_pool_fused.launches, sf.sinc_abs_pool_bwd.launches
+    n_steps = CONFIG_CLI_EPOCHS * steps
+    check(rc == 0, f"config_cli (a): cli.train exited {rc}")
+    check(k3 == n_steps and k3b == n_steps,
+          f"config_cli (a): K3 {k3} and K3-bwd {k3b} launches in {n_steps} steps")
+    used = load_yaml(cfg)                 # the YAML after the CLI's path overrides
+    used.data.database_path, used.data.protocols_path = "data/", "protocols/"
+    saved = load_yaml(os.path.join(ck, "experiment.yaml"))
+    check(dataclasses.asdict(saved) == dataclasses.asdict(used)
+          == dataclasses.asdict(load_checkpoint(ck)[0]),
+          "config_cli (a): experiment.yaml is not the tree the run used")
+    mgr, logged = CheckpointManager(ck), read_metrics(logs)
+    for tag, key in (("train/loss", "train_loss"), ("train/acc", "train_acc"),
+                     ("dev/acc", "dev_acc")):
+        want = [(e, mgr.metrics(e)[key]) for e in range(CONFIG_CLI_EPOCHS)]
+        check(logged.get(tag) == want and all(math.isfinite(v) for _, v in want),
+              f"config_cli (a): {tag} logged {logged.get(tag)}, checkpoints {want}")
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+    check(len(traces) == 1, f"config_cli (a): traces {traces}")
+    with open(traces[0]) as fh:
+        kernels = {e["name"] for e in json.load(fh)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    for fn in CONFIG_CLI_TRACE_KERNELS:
+        check(any(fn in k for k in kernels), f"config_cli (a): no {fn} in the trace")
+    rows = timer_rows(messages)
+    # each epoch's last input wait finds the loader's end
+    counts = {k: v["count"] for k, v in rows.items()}
+    check(counts == {"input": n_steps + CONFIG_CLI_EPOCHS, "train_step": n_steps},
+          f"config_cli (a): step timer {rows}")
+    epochs = [mgr.metrics(e) for e in range(CONFIG_CLI_EPOCHS)]
+    rec_a = {"model": "main", "extra": K3_TRAIN, "batch": TRAIN_BATCH, "cut": CUT,
+             "steps": n_steps, "k3_launches": k3, "k3_bwd_launches": k3b,
+             "epoch_seconds": [next(float(m.split("(")[-1].rstrip("s)")) for m in messages
+                                    if m.startswith(f"epoch {e} done"))
+                               for e in range(CONFIG_CLI_EPOCHS)],
+             "epochs": epochs, "timer": rows, "trace_bytes": os.path.getsize(traces[0]),
+             "trace_kernels": sorted(k for k in kernels
+                                     if any(fn in k for fn in CONFIG_CLI_TRACE_KERNELS)),
+             "wall_s": wall_a, "card": card}
+    print("config_cli_a " + json.dumps(rec_a), flush=True)
+
+    # (b)
+    ck2 = os.path.join(root, "maze5_ck")
+    maze5_yaml = str(ROOT / "configs" / "maze5.yaml")
+    t0 = time.perf_counter()
+    rc = cli_train.main(["--config", maze5_yaml, *data, "--num_epochs", "1",
+                         "--protocols_path", os.path.join(root, "no_protocols"),
+                         "--checkpoint_dir", ck2, "--device", "cuda"])
+    torch.cuda.synchronize()
+    check(rc == 0, f"config_cli (b): cli.train exited {rc}")
+    with open(os.path.join(ck2, "experiment.yaml")) as fh:
+        saved_text = fh.read()
+    fused = load_yaml(maze5_yaml)
+    fused.model.extra["fused_eval_trunk"] = True
+    fused_cfg = os.path.join(root, "maze5_fused.yaml")
+    save_yaml(fused, fused_cfg)
+    outs = {k: os.path.join(root, f"maze5_{k}_scores.txt") for k in ("train_eval", "evaluate")}
+    rf.resblock_eval.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_train.main(["--config", fused_cfg, *data, "--eval", "--restore",
+                             "--checkpoint_dir", ck2, "--eval_protocol", ev["protocol"],
+                             "--eval_dir", ev["audio_dir"], "--eval_output",
+                             outs["train_eval"], "--device", "cuda"])
+    torch.cuda.synchronize()
+    k1_train_eval = rf.resblock_eval.launches
+    check(rc == 0, f"config_cli (b): cli.train --eval exited {rc}")
+    with open(os.path.join(ck2, "experiment.yaml")) as fh:
+        check(fh.read() == saved_text, "config_cli (b): --eval overwrote experiment.yaml")
+    batch = fused.train.eval_batch_size
+    rf.resblock_eval.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = evaluate.main(["--model_type", "maze5", "--model_path", ck2, "--protocol",
+                            ev["protocol"], "--data_dir", ev["audio_dir"], "--output",
+                            outs["evaluate"], "--batch_size", str(batch), "--device", "cuda"])
+    torch.cuda.synchronize()
+    k1_evaluate = rf.resblock_eval.launches
+    wall_b = time.perf_counter() - t0
+    check(rc == 0, f"config_cli (b): evaluate exited {rc}")
+    scores = {}
+    for k, path in outs.items():
+        with open(path) as fh:
+            rows_k = [ln.split() for ln in fh.read().splitlines()]
+        check([r[0] for r in rows_k] == ev["utt_ids"], f"config_cli (b): {k} score file ids")
+        scores[k] = np.asarray([float(r[1]) for r in rows_k])
+        check(bool(np.isfinite(scores[k]).all()), f"config_cli (b): {k} non-finite scores")
+    n_batches = -(-EVAL_UTTS // batch)
+    check(k1_train_eval == K1_MAZE5 * n_batches and k1_evaluate == K1_MAZE5 * n_batches,
+          f"config_cli (b): K1 {k1_train_eval} (cli.train --eval) and {k1_evaluate} "
+          f"(cli.evaluate) launches, expected {K1_MAZE5 * n_batches}")
+    err = float(np.abs(scores["train_eval"] - scores["evaluate"]).max())
+    tol = FEWSHOT_SCORE_TOL * max(1.0, float(np.abs(scores["evaluate"]).max()))
+    rec_b = {"model": "maze5", "config": "configs/maze5.yaml",
+             "train_steps": TRAIN_UTTS // fused.train.batch_size,
+             "eval_batch": batch, "eval_batches": n_batches,
+             "k1_launches_train_eval": k1_train_eval, "k1_launches_evaluate": k1_evaluate,
+             "scores_max_abs_diff": err, "scores_tol": tol, "wall_s": wall_b, "card": card}
+    print("config_cli_b " + json.dumps(rec_b), flush=True)
+    check(err <= tol, f"config_cli (b): scores {err} apart, tolerance {tol}")
+    return {"a": rec_a, "b": rec_b}
+
+
 def phase_remat(name, batch, extra, encoder, sf, rf, dev, card):
     """One train step plain and one with activation checkpointing, from the
     same weights, batch and generators, then their timed steps and peak
@@ -2498,7 +2703,7 @@ def _k3_bwd_main(k3b, precision):
 
 
 def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, train,
-                 fused_train, remat, fewshot, md):
+                 fused_train, remat, fewshot, md, config_cli):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -2519,7 +2724,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     K3 / K3-bwd launches (a checkpointed fused step and its plain twin) join
     the launches by path, and so do each rank's K1 launches on the evaluate
     CLI's two-rank path and K3's and its backward kernel's in the two-rank
-    fused steps (multidevice phase)."""
+    fused steps (multidevice phase), and the config_cli phase's: K3's and its
+    backward kernel's in main's ``--config`` training, K1's in maze5's
+    ``cli.train --config --eval`` and in ``cli.evaluate --model_path`` of its
+    checkpoint."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
     k4_main = _k4_main(k4, BENCH_BATCH, "high")
     k4_big = _k4_main(k4, 384, "high")
@@ -2558,6 +2766,12 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
              for r, n in enumerate(d_md["k3_launches_by_rank"])}
     k3b_md = {f"main fused data-parallel steps x2, rank {r}": n
               for r, n in enumerate(d_md["k3_bwd_launches_by_rank"])}
+    cfg_a, cfg_b = config_cli["a"], config_cli["b"]
+    k1_cfg = {"maze5 cli.train --config --eval": cfg_b["k1_launches_train_eval"],
+              "maze5 cli.evaluate --model_path (experiment.yaml)":
+                  cfg_b["k1_launches_evaluate"]}
+    k3_cfg = {"main cli.train --config (fused_train_frontend)": cfg_a["k3_launches"]}
+    k3b_cfg = {"main cli.train --config (fused_train_frontend)": cfg_a["k3_bwd_launches"]}
     k3b_main = {p: _k3_bwd_main(k3b, p) for p in K3_BWD_TOL}
     k3t_main = next(r for r in k3_train if r["B"] == TRAIN_BATCH and r["T"] == CUT)
     return {"kernels": [{
@@ -2565,9 +2779,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "source": "adfmsl_torch/csrc/resblock_eval.cu",
         "replaces": "adfmsl/ops/pallas/resblock_fused.py:141",
         "launches": (sum(r["k1_launches"] for r in main_path) + sum(k1_train.values())
-                     + sum(k1_fewshot.values()) + sum(k1_md.values())),
+                     + sum(k1_fewshot.values()) + sum(k1_md.values())
+                     + sum(k1_cfg.values())),
         "launches_by_path": {**{r["model"]: r["k1_launches"] for r in main_path},
-                             **k1_train, **k1_fewshot, **k1_md},
+                             **k1_train, **k1_fewshot, **k1_md, **k1_cfg},
         "max_abs_err": max(r["max_abs_err_y"] for r in k1),
         "max_err_over_tol": max(max(r["max_abs_err_y"] / r["tol_y"],
                                     r["max_abs_err_sums"] / r["tol_sums"]) for r in k1),
@@ -2615,9 +2830,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:81",
         "launches": (sum(r["k3_launches"] for r in main_path) + sum(k3_eval_train.values())
                      + sum(k3_fused.values()) + sum(k3_remat.values())
-                     + sum(k3_md.values())),
+                     + sum(k3_md.values()) + sum(k3_cfg.values())),
         "launches_by_path": {**{r["model"]: r["k3_launches"] for r in main_path},
-                             **k3_eval_train, **k3_fused, **k3_remat, **k3_md},
+                             **k3_eval_train, **k3_fused, **k3_remat, **k3_md, **k3_cfg},
         "max_abs_err": max(r["max_abs_err"] for r in k3),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3),
         **_summed([k3_main]),
@@ -2633,8 +2848,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "source": "adfmsl_torch/csrc/sinc_abs_pool_bwd.cu",
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:152 (_sap_bwd, the custom VJP of "
                     "sinc_abs_pool :138)",
-        "launches": sum(k3b_fused.values()) + sum(k3b_remat.values()) + sum(k3b_md.values()),
-        "launches_by_path": {**k3b_fused, **k3b_remat, **k3b_md},
+        "launches": (sum(k3b_fused.values()) + sum(k3b_remat.values())
+                     + sum(k3b_md.values()) + sum(k3b_cfg.values())),
+        "launches_by_path": {**k3b_fused, **k3b_remat, **k3b_md, **k3b_cfg},
         "max_abs_err": max(r["max_abs_err"] for r in k3b),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3b),
         **_summed([k3b_main["tf32"]]),
@@ -2681,10 +2897,12 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "k2", "multidevice"], default=None,
+    ap.add_argument("--only", choices=["kernels", "k2", "multidevice", "config_cli"],
+                    default=None,
                     help="kernels: only the build and the kernels phase; k2: only "
-                         "K2's library and cases; multidevice: only the build and the "
-                         "multidevice phase (none of them ends in an {\"ok\": ...} line)")
+                         "K2's library and cases; multidevice / config_cli: only the "
+                         "build and that phase (none of them ends in an {\"ok\": ...} "
+                         "line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2737,11 +2955,16 @@ def main() -> int:
               "build_s": phase_s["build"], "libraries": sorted(libs)}
     print("device " + json.dumps(device), flush=True)
 
-    if args.only == "multidevice":
+    if args.only in ("multidevice", "config_cli"):
         with tempfile.TemporaryDirectory() as tmp:
-            fixture = generate_fixture(tmp, SyntheticSpec(n_train=2, n_dev=2,
-                                                          n_eval=EVAL_UTTS))
-            phase("multidevice", phase_multidevice, fixture, tmp, dev, smi)
+            if args.only == "multidevice":
+                fixture = generate_fixture(tmp, SyntheticSpec(n_train=2, n_dev=2,
+                                                              n_eval=EVAL_UTTS))
+                phase("multidevice", phase_multidevice, fixture, tmp, dev, smi)
+            else:
+                fixture = generate_fixture(tmp, SyntheticSpec(
+                    n_train=TRAIN_UTTS, n_dev=DEV_UTTS, n_eval=EVAL_UTTS))
+                phase("config_cli", phase_config_cli, rf, sf, fixture, tmp, smi)
         print("phase_seconds " + json.dumps({**phase_s,
                                              "total": time.perf_counter() - t_start}))
         print(smi, flush=True)
@@ -2769,6 +2992,7 @@ def main() -> int:
                                               for n in W2V2_TRAIN])
         fused_train = phase("fused_train", lambda: [phase_fused_train(n, sf, fixture, dev)
                                                     for n in ("main", "main_fmsl")])
+        config_cli = phase("config_cli", phase_config_cli, rf, sf, fixture, tmp, smi)
         remat = phase("remat", lambda: [phase_remat(*c, sf, rf, dev, smi)
                                         for c in REMAT_CASES])
         fewshot = phase("fewshot", phase_fewshot, rf, tmp, smi)
@@ -2796,7 +3020,8 @@ def main() -> int:
                                          "total": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front,
-                                  main_path, train, fused_train, remat, fewshot, md)),
+                                  main_path, train, fused_train, remat, fewshot, md,
+                                  config_cli)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -154,20 +154,33 @@ def test_restore_continues_and_evaluate_reads_the_checkpoint(runs, monkeypatch, 
                                                ("--data_parallel", "2", "slice 8"),
                                                ("--train_pack", "p", "slice 9"),
                                                ("--log_dir", "d", "slice 9")])
-def test_later_flags_name_their_slice(flag, value, slice_):
-    """Slice 9's flags raise and name their slice. Slice 8's ``--data_parallel``
-    is ported (tests/test_torch_dp_trainer.py trains with it): asked for
-    ``nccl`` ranks on the CPU, it reaches the launcher, which refuses and names
-    ``gloo`` instead of switching backends."""
+def test_later_flags_name_their_slice(flag, value, slice_, tmp_path, monkeypatch):
+    """The pack flags raise and name their slice (9). ``--config`` and
+    ``--log_dir`` are ported (tests/test_torch_config_io.py trains with them):
+    a missing YAML raises ``FileNotFoundError`` naming it, as adfmsl's
+    ``load_yaml`` does, and ``--log_dir`` reaches the data stage, which fails
+    on the missing default train protocol before anything is written. Slice
+    8's ``--data_parallel`` is ported (tests/test_torch_dp_trainer.py trains
+    with it): asked for ``nccl`` ranks on the CPU, it reaches the launcher,
+    which refuses and names ``gloo`` instead of switching backends. Each case
+    runs in an empty directory and leaves it empty."""
     from adfmsl_torch.cli import train as cli_train
 
-    if slice_ == "slice 8":
+    monkeypatch.chdir(tmp_path)
+    argv = ["--model", "maze5", flag, value, "--device", "cpu"]
+    if flag == "--data_parallel":
         with pytest.raises(ValueError, match="gloo"):
-            cli_train.main(["--model", "maze5", flag, value, "--dist_backend", "nccl",
-                            "--device", "cpu"])
-        return
-    with pytest.raises(NotImplementedError, match=slice_):
-        cli_train.main(["--model", "maze5", flag, value, "--device", "cpu"])
+            cli_train.main(argv + ["--dist_backend", "nccl"])
+    elif flag == "--config":
+        with pytest.raises(FileNotFoundError, match=value):
+            cli_train.main(argv)
+    elif flag == "--log_dir":
+        with pytest.raises(FileNotFoundError, match="ASVspoof2019.LA.cm.train.trn.txt"):
+            cli_train.main(argv)
+    else:
+        with pytest.raises(NotImplementedError, match=slice_):
+            cli_train.main(argv)
+    assert os.listdir(tmp_path) == []
 
 
 def test_rawnet_training_and_remat_name_their_slice():
