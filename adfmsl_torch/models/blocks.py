@@ -1,8 +1,11 @@
 """SE-residual trunk blocks (port of ``adfmsl/models/blocks.py``).
 
-Ported: ``SEBlock`` (:26), ``ResBlockSE`` in its 'tpu' semantics (:223-269),
-in train and eval mode, with its folded eval body (:310-350), ``ResStack``
-(:353), the Wav2Vec2 models' sequence blocks ``AttentiveStatsPooling`` (:373),
+Ported: ``SEBlock`` (:26), ``ResBlockSE`` (:115) in every one of its block
+semantics ('tpu' :223-269, the reference checkpoints' 'reference', 'maze2'
+and 'maze3' :270-308, 'fmsl_plain' / 'fmsl_se' :151-184 and 'fmsl_adaptive'
+:186-221), in train and eval mode, with the 'tpu' block's folded eval body
+(:310-350), ``ResStack`` (:353), the Wav2Vec2 models' sequence blocks
+``AttentiveStatsPooling`` (:373),
 ``TransformerEncoderLayer`` (:395), ``TransformerEncoderStack`` (:420),
 ``PlainTransformerEncoder`` (:451) and maze8's ``ConvFMSLLayer`` (:473), and
 the (optionally stacked) ``GRU`` (:548) that returns its last hidden state.
@@ -12,8 +15,9 @@ view exists only around ``conv1d`` / ``avg_pool1d`` calls.
 Numerics follow flax's rounding points: a layer with a ``dtype`` casts its
 input, kernel and bias to it and adds the bias after the product; a layer
 without one (the ASP and ConvFMSL Denses and convs, the LayerNorms, the
-BatchNorms of ConvFMSL) computes in the promoted dtype, f32 for a bf16 input,
-and returns f32. BatchNorm semantics: see ``adfmsl_torch/ops/norm.py``.
+BatchNorms of ConvFMSL and of every non-'tpu' residual block) computes in the
+promoted dtype, f32 for a bf16 input, and returns f32. BatchNorm semantics: see
+``adfmsl_torch/ops/norm.py``.
 """
 from __future__ import annotations
 
@@ -54,12 +58,16 @@ def init_like_flax_(module: nn.Module, generator: Optional[torch.Generator]) -> 
             m.reset_parameters()
 
 
-def conv_nhc(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype) -> torch.Tensor:
-    """SAME conv of a (B, T, C) tensor in ``dtype`` (flax ``nn.Conv(dtype=...)``
-    casts input, kernel and bias to it)."""
+def conv_nhc(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype,
+             stride: int = 1) -> torch.Tensor:
+    """Conv of a (B, T, C) tensor in ``dtype`` (flax ``nn.Conv(dtype=...)``
+    casts input, kernel and bias to it), padded by K // 2 on both sides: flax's
+    'SAME' at stride 1, its explicit ``((1, 1),)`` for K 3 and its 'SAME' for
+    K 1 at any stride."""
     w = conv.weight.to(dtype)
     b = conv.bias.to(dtype) if conv.bias is not None else None
-    y = F.conv1d(x.transpose(1, 2).to(dtype), w, b, padding=conv.kernel_size[0] // 2)
+    y = F.conv1d(x.transpose(1, 2).to(dtype), w, b, stride=stride,
+                 padding=conv.kernel_size[0] // 2)
     return y.transpose(1, 2)
 
 
@@ -112,6 +120,19 @@ def overlap_avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
     return y.transpose(1, 2).contiguous()
 
 
+def adaptive_avg_resample(x: torch.Tensor, lout: int) -> torch.Tensor:
+    """adfmsl's ``_adaptive_avg_resample`` (:92-112): torch's
+    ``adaptive_avg_pool1d`` over time, (B, T, C) -> (B, lout, C) with lout >= T,
+    so that a bin averages one or two elements. adfmsl blends them with f32
+    weights, which promotes a bf16 input, so the result is f32 unless T equals
+    lout (then ``x`` itself)."""
+    if x.shape[1] == lout:
+        return x
+    if x.shape[1] > lout:
+        raise ValueError(f"adaptive resample expects upsampling, got {x.shape[1]}->{lout}")
+    return F.adaptive_avg_pool1d(x.float().transpose(1, 2), lout).transpose(1, 2)
+
+
 class SEBlock(nn.Module):
     """Squeeze-excitation over the time axis; reduction 16, bias-free
     (maze4.py:149-163)."""
@@ -132,43 +153,99 @@ class SEBlock(nn.Module):
         return x * g[:, None, :].to(x.dtype)
 
 
+# the bias-free, conv-strided blocks of the FMSL files (adfmsl :151-184)
+_FMSL_PLAIN = ("fmsl_plain", "fmsl_se")
+# the semantics with an SE gate; adfmsl's last branch (:270-308) also takes a
+# name it does not know, as the 'reference' block with no SE
+_WITH_SE = ("tpu", "reference", "maze2", "maze3", "fmsl_adaptive") + _FMSL_PLAIN
+
+
 class ResBlockSE(nn.Module):
-    """'tpu'-semantics pre-activation residual block: the overlap avg pool
-    downsamples the raw block input first; then BN -> ReLU -> Conv(k3) -> BN ->
-    ReLU -> dropout -> Conv(k3), plus a BN-free identity skip (a 1x1 conv on a
-    channel change only), then SE. ``first`` drops the leading BN/ReLU (stack
+    """Pre-activation residual block (adfmsl ``ResBlockSE`` :115) in one of
+    adfmsl's block semantics; ``first`` drops the leading BN/ReLU (stack
     head). In train mode the BNs use the batch statistics (``bn_train``) and
     the dropout draws from the generator passed to ``forward``.
 
-    With ``fused_eval`` and a bf16 trunk, at eval, the body runs folded: BN stats become
-    per-channel affines (``fold_block_params``, recomputed every forward so a
-    later ``load_state_dict`` is never stale) and ``resblock_eval`` runs the
-    whole body as one kernel (K1) returning the output and its f32 channel
-    sums, which feed the SE gate."""
+    - 'tpu' (:223-269): the overlap avg pool downsamples the raw block input
+      first; then BN -> ReLU -> Conv(k3) -> BN -> ReLU -> dropout -> Conv(k3),
+      plus a BN-free identity skip (a 1x1 conv on a channel change only), then
+      SE. Its BNs emit the trunk dtype.
+    - 'reference' (maze4.py:105-147; :270-308): the same body at full
+      length, ``out = body + skip`` with a 1x1 conv on the skip on a stride or
+      a channel change, then the overlap pool ``AvgPool(2s-1, s, pad s-1)``
+      counting its pads, then SE. 'maze2' takes the 1x1 conv on a channel
+      change only; 'maze3' too, and its SE gates the body before the add, with
+      none after the pool. Any other name is this block with no SE.
+    - 'fmsl_plain' / 'fmsl_se' (:151-184): bias-free convs, ``conv1`` strided
+      (padding 1), the pre-activation feeds both branches, dropout after
+      ``conv2``, a bias-free strided 1x1 skip on a stride or a channel change,
+      SE after the add ('fmsl_se': on the body before it).
+    - 'fmsl_adaptive' (:186-221): biased convs with no stride, dropout after
+      ``conv2``; the skip is the pre-activation, through a 1x1 conv on a
+      stride or a channel change, then the overlap pool and back up to the
+      body's length (``adaptive_avg_resample``); SE after the add. The block
+      never downsamples.
+
+    Outside 'tpu' the BNs take no dtype: they return f32 in a bf16 model, and
+    the next conv casts, as in adfmsl.
+
+    With ``fused_eval``, 'tpu' semantics and a bf16 trunk, at eval, the body
+    runs folded: BN stats become per-channel affines (``fold_block_params``,
+    recomputed every forward so a later ``load_state_dict`` is never stale)
+    and ``resblock_eval`` runs the whole body as one kernel (K1) returning the
+    output and its f32 channel sums, which feed the SE gate."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  dropout_rate: float = 0.3, first: bool = False, use_se: bool = True,
-                 fused_eval: bool = False, dtype: torch.dtype = torch.float32):
+                 semantics: str = "tpu", fused_eval: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.stride = stride
         self.dropout_rate = dropout_rate
         self.first = first
+        self.semantics = semantics
         self.fused_eval = fused_eval
         self.dtype = dtype
+        plain = semantics in _FMSL_PLAIN
+        reshape = in_channels != out_channels
+        if semantics in _FMSL_PLAIN + ("fmsl_adaptive",):
+            skip_conv = reshape or stride != 1
+        else:
+            skip_conv = reshape or (semantics == "reference" and stride > 1)
         if not first:
             self.bn1 = batch_norm(in_channels)
-        self.conv1 = nn.Conv1d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = nn.Conv1d(in_channels, out_channels, 3, padding=1, bias=not plain)
         self.bn2 = batch_norm(out_channels)
-        self.conv2 = nn.Conv1d(out_channels, out_channels, 3, padding=1)
-        if in_channels != out_channels:
-            self.downsample = nn.Conv1d(in_channels, out_channels, 1)
-        self.se = SEBlock(out_channels) if use_se else None
+        self.conv2 = nn.Conv1d(out_channels, out_channels, 3, padding=1, bias=not plain)
+        if skip_conv:
+            self.downsample = nn.Conv1d(in_channels, out_channels, 1, bias=not plain)
+        self.se = SEBlock(out_channels) if use_se and semantics in _WITH_SE else None
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator``: the 'dropout' stream, needed in train mode."""
+        if self.semantics == "tpu":
+            return self._tpu(x, generator)
+        if self.semantics in _FMSL_PLAIN:
+            return self._fmsl_plain(x, generator)
+        if self.semantics == "fmsl_adaptive":
+            return self._fmsl_adaptive(x, generator)
+        return self._reference(x, generator)
+
+    def _pre(self, x: torch.Tensor) -> torch.Tensor:
+        """The leading BN (no dtype: f32 out) and ReLU, except at a stack head."""
+        if self.first:
+            return x
+        return torch.relu(bn_forward(x, self.bn1, torch.float32, self.training))
+
+    def _skip(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+        if not hasattr(self, "downsample"):
+            return x
+        return conv_nhc(x, self.downsample, self.dtype, stride)
+
+    def _tpu(self, x, generator):
         if self.stride > 1:
             x = overlap_avg_pool(x, self.stride)
         train = self.training
@@ -182,11 +259,56 @@ class ResBlockSE(nn.Module):
         h = torch.relu(bn_forward(h, self.bn2, dt, train))
         h = dropout(h, self.dropout_rate, generator, train)
         h = conv_nhc(h, self.conv2, dt)
-        skip = x              # the raw input: an f32 x promotes the sum, as in flax
-        if self.in_channels != self.out_channels:
-            skip = conv_nhc(x, self.downsample, dt)
-        out = h + skip
+        # the raw input: an f32 x promotes the sum, as in flax
+        out = h + self._skip(x)
         return self.se(out) if self.se is not None else out
+
+    def _reference(self, x, generator):
+        """'reference', 'maze2', 'maze3' and adfmsl's fall-through (:270-308)."""
+        train, dt = self.training, self.dtype
+        h = conv_nhc(self._pre(x), self.conv1, dt)
+        h = torch.relu(bn_forward(h, self.bn2, torch.float32, train))
+        h = dropout(h, self.dropout_rate, generator, train)
+        h = conv_nhc(h, self.conv2, dt)
+        maze3 = self.semantics == "maze3"
+        if self.se is not None and maze3:
+            h = self.se(h)
+        out = h + self._skip(x)
+        if self.stride > 1:
+            out = overlap_avg_pool(out, self.stride)
+        if self.se is not None and not maze3:
+            out = self.se(out)
+        return out
+
+    def _fmsl_plain(self, x, generator):
+        """'fmsl_plain' and 'fmsl_se' (:151-184)."""
+        train, dt = self.training, self.dtype
+        pre = self._pre(x)
+        h = conv_nhc(pre, self.conv1, dt, self.stride)
+        h = torch.relu(bn_forward(h, self.bn2, torch.float32, train))
+        h = conv_nhc(h, self.conv2, dt)
+        h = dropout(h, self.dropout_rate, generator, train)
+        fmsl_se = self.semantics == "fmsl_se"
+        if self.se is not None and fmsl_se:
+            h = self.se(h)
+        out = h + self._skip(pre, self.stride)
+        if self.se is not None and not fmsl_se:
+            out = self.se(out)
+        return out
+
+    def _fmsl_adaptive(self, x, generator):
+        """'fmsl_adaptive' (:186-221): the stride resamples the skip alone."""
+        train, dt = self.training, self.dtype
+        pre = self._pre(x)
+        out = conv_nhc(pre, self.conv1, dt)
+        out = torch.relu(bn_forward(out, self.bn2, torch.float32, train))
+        out = conv_nhc(out, self.conv2, dt)
+        out = dropout(out, self.dropout_rate, generator, train)
+        skip = self._skip(pre)
+        if self.stride > 1:
+            skip = adaptive_avg_resample(overlap_avg_pool(skip, self.stride), out.shape[1])
+        res = out + skip
+        return self.se(res) if self.se is not None else res
 
     def _fused_eval_body(self, x: torch.Tensor) -> torch.Tensor:
         tensors = dict(self.named_parameters())
@@ -201,17 +323,18 @@ class ResBlockSE(nn.Module):
 
 
 class ResStack(nn.Module):
-    """A stack of ResBlockSE with per-block (in, out, stride), named block{i}."""
+    """A stack of ResBlockSE with per-block (in, out, stride), named block{i},
+    all in one block ``semantics``."""
 
     def __init__(self, specs: Sequence[tuple], dropout_rate: float = 0.3,
-                 use_se: bool = True, fused_eval: bool = False,
+                 use_se: bool = True, semantics: str = "tpu", fused_eval: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_blocks = len(specs)
         for i, (cin, cout, stride) in enumerate(specs):
             self.add_module(f"block{i}", ResBlockSE(
                 cin, cout, stride, dropout_rate, first=(i == 0), use_se=use_se,
-                fused_eval=fused_eval, dtype=dtype))
+                semantics=semantics, fused_eval=fused_eval, dtype=dtype))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -14,8 +14,11 @@ dropout and maze3's ReLU after fc1 (:209), the FMSL head in the 'refine',
 of all 16 registry names (:280-386). ``build_model`` dispatches through
 ``model_registry``, which also holds adfmsl's extra families (``EXTRAS``:
 ``models/lcnn.py``, ``models/resnet.py``).
-``MazeSpec.block_variant`` is carried, as in adfmsl, for 'reference' block
-semantics, which raise and name ROADMAP slice 9.
+Under ``architecture.block_semantics='reference'`` (the reference checkpoints'
+semantics, ``models/port.py:reference_parity_experiment``) the trunk's blocks
+take ``MazeSpec.block_variant`` where the spec names one (adfmsl :169-171):
+'maze2', 'maze3', 'fmsl_plain', 'fmsl_se' or 'fmsl_adaptive'
+(``models/blocks.py:ResBlockSE``).
 
 Output contract (as adfmsl): dict with 'logits' (B, 2), 'scores' (B,) =
 log-softmax[:, 1] or the raw logit[:, 1] (``MazeSpec.score``), 'features'
@@ -69,8 +72,8 @@ class MazeSpec:
     score: str = "log_softmax"                      # 'log_softmax' | 'logit'
     fmsl_input_dim: int = 512                       # FMSL input, 'replace'/'integrated'
     fusion_layers: Optional[Tuple[int, ...]] = None     # maze6's encoder taps
-    # the block variant of 'reference' block semantics (ROADMAP slice 9);
-    # carried and unused under 'tpu' semantics, as in adfmsl
+    # the trunk's block semantics when architecture.block_semantics is
+    # 'reference' (None: 'reference' itself); unused under 'tpu', as in adfmsl
     block_variant: Optional[str] = None
     use_se: bool = True                             # maze3_fmsl's blocks have no SE
     asp_std: bool = True                # False: maze6_fmsl's ASP takes the raw variance
@@ -211,15 +214,14 @@ class MazeModel(nn.Module):
                 self.first_bn = batch_norm(feat_dim)
             if spec.conv_fmsl:
                 self.conv_fmsl = ConvFMSLLayer(feat_dim)
-            if a.block_semantics != "tpu":
-                raise NotImplementedError(
-                    f"block_semantics {a.block_semantics!r}: the port has 'tpu' only "
-                    "(reference semantics come with ROADMAP slice 9)")
+            semantics = a.block_semantics
+            if semantics == "reference" and spec.block_variant:
+                semantics = spec.block_variant
             # block0 takes the front end's real width, as flax infers it (the
             # 'tiny' encoder feeds maze2's 768-wide block0 64 channels)
             blocks = ((feat_dim,) + tuple(spec.blocks[0][1:]),) + tuple(spec.blocks[1:])
             self.trunk = ResStack(blocks, a.dropout_rate, use_se=spec.use_se,
-                                  fused_eval=bool(cfg.extra.get("fused_eval_trunk", False)),
+                                  semantics=semantics, fused_eval=bool(cfg.extra.get("fused_eval_trunk", False)),
                                   dtype=self.dtype)
             trunk_dim = spec.blocks[-1][1]
             if spec.transformer:

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only k2         # K2's library and cases only
     python3 chip_smoke.py --only multidevice   # the build and phase 7e only
     python3 chip_smoke.py --only config_cli    # the build and phase 7f only
+    python3 chip_smoke.py --only reference_ckpt   # the build and phase 7g only
 
 Phases, each printing its own lines:
 
@@ -220,6 +221,28 @@ Phases, each printing its own lines:
    ``cli.evaluate --model_path`` (its config from ``experiment.yaml``) at the
    same batch within 3e-2 * max(1, |score|). A line a part gives the
    launches, the seconds and the trace's bytes;
+7g. reference checkpoints (``reference_ckpt``, run after 7f) on a fixture of
+   16 eval, 24 train and 12 dev utterances at cut 64600: (a) thesis-style
+   ``.pth`` files of maze5, maze5_fmsl, maze4_fmsl and main (main's a rich
+   dict ``{"model_state_dict": ..., "epoch": 3}`` with 3 GRU layers), made by
+   the independent torch models of ``tests/torch_ref_nets.py`` with random
+   weights and BN statistics from a seeded generator, go through ``python -m
+   adfmsl_torch.cli.convert_maze`` (no missing or unconsumed key) and
+   ``cli.evaluate --model_path``; the score file must lie within atol 5e-4,
+   rtol 1e-3 (adfmsl's promise for these checkpoints) of the torch model run
+   on the card with TF32 off, on the audio as the CLI loads it, with no K1,
+   K3 or K3-bwd launch; beside it, the converted model's in-process gap with
+   TF32 off in cuDNN (the CLI's trunk convs take cuDNN's TF32 default); (b) the
+   converted main's ``experiment.yaml`` with ``fused_train_frontend`` and
+   batch 12: ``cli.train --restore --eval`` scores the restored weights
+   exactly as (a)'s file does, then ``cli.train --restore`` fine-tunes one
+   epoch with K3 and K3-bwd ('3xtf32': the model is f32) once a step and
+   finite losses, and from the converted weights, with the randomness off,
+   one fused step against one through the composition front end (loss within
+   5e-2 relative, gradient cosine >= 0.85, as 7b); (c) maze5 with 'reference'
+   block semantics in bf16 and ``fused_eval_trunk``: K1 no launch, the scores
+   bitwise those without the flag. A line a part gives the largest score
+   differences, the launches and the seconds;
 8. one f32 train step of maze5 and of main at batch 2, cut 16000, randomness
    off, on the card and on the CPU from the same weights (TF32 off): loss
    within 1e-4 relative, gradients as in tests/test_torch_train_step.py
@@ -261,8 +284,8 @@ Phases, each printing its own lines:
    batch 128, T 201 and at ragged small T against the plain version; K1's
    launches on the few-shot path, K3's and its backward kernel's in the
    remat phase's fused steps, each rank's K1, K3 and K3-backward launches
-   in the multidevice phase, and the config_cli phase's K1, K3 and
-   K3-backward launches among the launches by path.
+   in the multidevice phase, and the config_cli and reference_ckpt phases'
+   K1, K3 and K3-backward launches among the launches by path.
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -476,6 +499,14 @@ MD_BF16_LOSS_REL, MD_BF16_GRAD_COS = 1e-2, 0.95
 MD_SCORE_REL = 1e-5
 MD_LIMIT = 300.0
 MD_SHARED = "two ranks share one card; gloo stages through the host"
+# the reference_ckpt phase: its fixture, the thesis-style checkpoints it
+# converts (main's RawNet with the original RawNet2 yaml's 3 GRU layers) and
+# the score bound adfmsl promises for them (tests/test_port.py:961,
+# adfmsl/cli/evaluate.py:101-104)
+REF_TRAIN_UTTS, REF_DEV_UTTS, REF_EVAL_UTTS = 24, 12, 16
+REF_CKPT_MODELS = ("maze5", "maze5_fmsl", "maze4_fmsl", "main")
+REF_GRU_LAYERS = 3
+REF_SCORE_ATOL, REF_SCORE_RTOL = 5e-4, 1e-3
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1871,6 +1902,257 @@ def phase_config_cli(rf, sf, fixture, tmp, card):
     return {"a": rec_a, "b": rec_b}
 
 
+def _ref_net(name, nets):
+    """The independent torch reference of ``name`` (tests/torch_ref_nets.py);
+    column 1 of its output (a log-softmax, or maze4_fmsl's raw logits) is the
+    score."""
+    from adfmsl_torch.config import make_experiment
+
+    if name in ("maze5", "maze5_fmsl"):
+        return nets.TMaze5(fmsl=name == "maze5_fmsl")
+    if name == "maze4_fmsl":
+        return nets.TMaze4FMSL(s=make_experiment(name).model.fmsl.s)
+    return nets.TRawNet(gru_layers=REF_GRU_LAYERS)
+
+
+def _score_file(path, ids):
+    with open(path) as fh:
+        rows = [ln.split() for ln in fh.read().splitlines()]
+    check([r[0] for r in rows] == ids, f"{path}: score file ids differ from the protocol")
+    return np.asarray([float(r[1]) for r in rows])
+
+
+def _fixture_audio(exp, split, n=None):
+    """The split's utterances as ``cli.evaluate`` loads them for ``exp``."""
+    from adfmsl_torch.data import AsvspoofDataset, parse_protocol
+
+    proto = parse_protocol(split["protocol"], exp.data.label_polarity)
+    ds = AsvspoofDataset(proto, split["audio_dir"], cut=exp.data.cut,
+                         pad_mode=exp.data.pad_mode, sample_rate=exp.data.sample_rate,
+                         use_native_io=exp.data.use_native_io,
+                         num_workers=exp.data.num_workers)
+    ids = proto.utt_ids[:n] if n else proto.utt_ids
+    return torch.from_numpy(np.stack([ds.load(u)[0] for u in ids]))
+
+
+def _batched_scores(fn, audio, dev):
+    with torch.no_grad():
+        return torch.cat([fn(audio[i:i + EVAL_BATCH].to(dev)).float().cpu()
+                          for i in range(0, len(audio), EVAL_BATCH)]).numpy()
+
+
+def phase_reference_ckpt(rf, sf, tmp, dev, card):
+    """Thesis-style torch checkpoints through ``cli.convert_maze`` on the card
+    (``reference_ckpt``), on a fixture of 16 eval, 24 train and 12 dev
+    utterances at cut 64600. (a) maze5, maze5_fmsl, maze4_fmsl and main (a
+    rich dict, 3 GRU layers) from tests/torch_ref_nets.py with random weights
+    and BN statistics: converted with no missing or unconsumed key, scored by
+    ``cli.evaluate --model_path``, the scores within atol 5e-4, rtol 1e-3 of
+    the torch reference on the card with TF32 off; K1, K3 and K3-bwd no
+    launch. The CLI's f32 model runs its trunk's convs in cuDNN's default
+    TF32 (only the sinc conv opts out); the same checkpoint's in-process
+    scores with TF32 off give the gap beside it. (b) main's
+    converted ``experiment.yaml`` with ``fused_train_frontend`` and batch 12:
+    ``cli.train --restore --eval`` scores the restored weights equal to (a)'s
+    file, then ``cli.train --restore`` trains one epoch, K3 and K3-bwd
+    ('3xtf32': the model is f32) once a step, finite losses; from the
+    converted weights and one batch, randomness off, a fused step against the
+    composition: loss within 5e-2 relative, gradient cosine >= 0.85. (c) maze5
+    with 'reference' block semantics in bf16 and ``fused_eval_trunk``: no K1
+    launch, scores bitwise those of the same model without the flag."""
+    import dataclasses
+
+    from adfmsl_torch.cli import convert_maze, evaluate
+    from adfmsl_torch.cli import train as cli_train
+    from adfmsl_torch.config import load_yaml, make_experiment, save_yaml
+    from adfmsl_torch.data import SyntheticSpec, generate_fixture
+    from adfmsl_torch.models import build_model, load_checkpoint
+    from adfmsl_torch.train import CheckpointManager, Optimizer, TrainState, make_train_step
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_ref_nets as nets
+
+    root = os.path.join(tmp, "reference_ckpt")
+    fixture = generate_fixture(root, SyntheticSpec(n_train=REF_TRAIN_UTTS, n_dev=REF_DEV_UTTS,
+                                                   n_eval=REF_EVAL_UTTS))
+    tr, dv, ev = fixture["train"], fixture["dev"], fixture["eval"]
+
+    def counts():
+        return {"k1": rf.resblock_eval.launches, "k3": sf.sinc_abs_pool_fused.launches,
+                "k3_bwd": sf.sinc_abs_pool_bwd.launches}
+
+    def zero():
+        rf.resblock_eval.launches = sf.sinc_abs_pool_fused.launches = 0
+        sf.sinc_abs_pool_bwd.launches = 0
+
+    # (a)
+    recs, converted, audio_cache = [], {}, {}
+    t_a = time.perf_counter()
+    for seed, name in enumerate(REF_CKPT_MODELS):
+        t0 = time.perf_counter()
+        tm = nets.randomize(_ref_net(name, nets), torch.Generator().manual_seed(seed)).eval()
+        pth, ck = os.path.join(root, f"{name}.pth"), os.path.join(root, f"{name}_ck")
+        sd = tm.state_dict()
+        torch.save({"model_state_dict": sd, "epoch": 3} if name == "main" else sd, pth)
+        zero()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = convert_maze.main(["--torch_ckpt", pth, "--model_type", name, "--out", ck,
+                                    "--cut", str(CUT), "--device", dev.type])
+        check(rc == 0, f"reference_ckpt (a) {name}: convert_maze exited {rc}")
+        check("[missing=0 unconsumed=0]" in buf.getvalue(),
+              f"reference_ckpt (a) {name}: conversion reported {buf.getvalue()!r}")
+        out = os.path.join(root, f"{name}_scores.txt")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = evaluate.main(["--model_type", name, "--model_path", ck, "--protocol",
+                                ev["protocol"], "--data_dir", ev["audio_dir"], "--output", out,
+                                "--batch_size", str(EVAL_BATCH), "--device", dev.type])
+        torch.cuda.synchronize()
+        launched = counts()
+        check(rc == 0, f"reference_ckpt (a) {name}: evaluate exited {rc}")
+        check(launched == {"k1": 0, "k3": 0, "k3_bwd": 0},
+              f"reference_ckpt (a) {name}: kernels launched {launched}")
+        got = _score_file(out, ev["utt_ids"])
+        exp, port_sd = load_checkpoint(ck)
+        audio = _fixture_audio(load_yaml(os.path.join(ck, "experiment.yaml")), ev)
+        audio_cache[name] = audio
+        tm.to(dev)
+        with exact_f32():
+            ref = _batched_scores(lambda x: tm(x)[:, 1], audio, dev)
+        del tm
+        model = build_model(exp.model, device=dev)
+        model.load_state_dict(port_sd, strict=True)
+        with exact_f32():
+            tf32_off = _batched_scores(lambda x: model(x)["scores"], audio, dev)
+        del model
+        converted[name] = port_sd
+        gap = float(np.abs(got - ref).max())
+        excess = float(np.max(np.abs(got - ref) - REF_SCORE_RTOL * np.abs(ref)))
+        rec = {"model": name, "utterances": len(got), "batch": EVAL_BATCH, "cut": CUT,
+               "max_abs_score_diff": gap, "atol": REF_SCORE_ATOL, "rtol": REF_SCORE_RTOL,
+               "max_diff_less_rtol_term": excess,
+               "tf32_off_max_abs_diff": float(np.abs(tf32_off - ref).max()),
+               "max_abs_ref_score": float(np.abs(ref).max()),
+               "launches": launched, "seconds": time.perf_counter() - t0}
+        recs.append(rec)
+        check(bool(np.isfinite(got).all()) and
+              bool(np.allclose(got, ref, atol=REF_SCORE_ATOL, rtol=REF_SCORE_RTOL)),
+              f"reference_ckpt (a) {name}: scores {gap} from the torch reference")
+    rec_a = {"models": recs, "seconds": time.perf_counter() - t_a, "card": card}
+    print("reference_ckpt_a " + json.dumps(rec_a), flush=True)
+
+    # (b)
+    t_b = time.perf_counter()
+    ck = os.path.join(root, "main_ck")
+    y = load_yaml(os.path.join(ck, "experiment.yaml"))
+    y.model.extra.update(K3_TRAIN)
+    y.train.batch_size, y.train.eval_batch_size = TRAIN_BATCH, EVAL_BATCH
+    cfg = os.path.join(root, "main_finetune.yaml")
+    save_yaml(y, cfg)
+    data = ["--config", cfg, "--train_protocol", tr["protocol"], "--train_dir", tr["audio_dir"],
+            "--checkpoint_dir", ck, "--restore", "--device", dev.type]
+    restored = os.path.join(root, "main_restored_scores.txt")
+    zero()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_train.main([*data, "--eval", "--eval_protocol", ev["protocol"], "--eval_dir",
+                             ev["audio_dir"], "--eval_output", restored])
+    torch.cuda.synchronize()
+    check(rc == 0, f"reference_ckpt (b): cli.train --restore --eval exited {rc}")
+    eval_launched = counts()
+    check(eval_launched["k3"] == 0, f"reference_ckpt (b): --eval launched {eval_launched}")
+    before = _score_file(restored, ev["utt_ids"])
+    first = _score_file(os.path.join(root, "main_scores.txt"), ev["utt_ids"])
+    restore_diff = float(np.abs(before - first).max())
+    check(np.array_equal(before, first),
+          f"reference_ckpt (b): restored scores {restore_diff} from the converted ones")
+    zero()
+    t0 = time.perf_counter()
+    rc = cli_train.main([*data, "--dev_protocol", dv["protocol"], "--dev_dir", dv["audio_dir"],
+                         "--num_epochs", "2"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launched = counts()
+    check(rc == 0, f"reference_ckpt (b): cli.train --restore exited {rc}")
+    steps = REF_TRAIN_UTTS // TRAIN_BATCH
+    check(launched["k3"] == steps and launched["k3_bwd"] == steps and launched["k1"] == 0,
+          f"reference_ckpt (b): {launched} launches in {steps} fine-tuning steps")
+    mgr = CheckpointManager(ck)
+    check(mgr.all_epochs()[-1] == 1, f"reference_ckpt (b): epochs {mgr.all_epochs()}")
+    metrics = mgr.metrics(1)
+    check(math.isfinite(metrics["train_loss"]), f"reference_ckpt (b): epoch 1 {metrics}")
+
+    e = load_yaml(cfg)
+    e.model.architecture.dropout_rate = e.model.architecture.fc_dropout = 0.0
+    e.model.spec_augment.enabled = False
+    x = _fixture_audio(e, tr, TRAIN_BATCH).to(dev)
+    labels = (torch.arange(TRAIN_BATCH, device=dev) % 2).long()
+    mask = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+    loss, grads, step_launches = {}, {}, {}
+    for key, extra in (("k3", K3_TRAIN), ("composition", {})):
+        ek = dataclasses.replace(e, model=dataclasses.replace(e.model, extra=dict(extra)))
+        model = build_model(ek.model, device=dev)
+        model.load_state_dict(converted["main"], strict=True)
+        st = TrainState(model, Optimizer(ek.train.optimizer, model.parameters(), 10, 1), seed=0)
+        zero()
+        met = make_train_step(ek)(st, x, labels, mask, st.generators(0, 0))
+        torch.cuda.synchronize()
+        step_launches[key] = counts()
+        check(float(met["skipped"]) == 0.0, f"reference_ckpt (b): {key} step skipped")
+        loss[key], grads[key] = float(met["loss"]), _grads(st, met)
+        del model, st
+    check(step_launches["k3"]["k3"] == 1 and step_launches["k3"]["k3_bwd"] == 1
+          and step_launches["composition"]["k3"] == 0,
+          f"reference_ckpt (b): step launches {step_launches}")
+    a = np.concatenate(list(grads["k3"].values()))
+    b = np.concatenate([grads["composition"][k] for k in grads["k3"]])
+    cos = float(a @ b) / float(np.linalg.norm(a) * np.linalg.norm(b))
+    rel = abs(loss["k3"] - loss["composition"]) / abs(loss["composition"])
+    rec_b = {"model": "main", "config": "converted experiment.yaml + fused_train_frontend",
+             "batch": TRAIN_BATCH, "cut": CUT, "steps": steps, "launches": launched,
+             "restored_vs_converted_max_abs_diff": restore_diff,
+             "epoch1": metrics, "train_s": train_s,
+             "loss_k3": loss["k3"], "loss_composition": loss["composition"],
+             "loss_rel_diff": rel, "loss_tol": FUSED_TRAIN_LOSS_REL,
+             "grad_cosine": cos, "grad_cosine_min": FUSED_TRAIN_GRAD_COS,
+             "seconds": time.perf_counter() - t_b, "card": card}
+    print("reference_ckpt_b " + json.dumps(rec_b), flush=True)
+    check(math.isfinite(rel) and rel <= FUSED_TRAIN_LOSS_REL,
+          f"reference_ckpt (b): fused step loss differs by {rel}")
+    check(math.isfinite(cos) and cos >= FUSED_TRAIN_GRAD_COS,
+          f"reference_ckpt (b): fused step gradient cosine {cos}")
+
+    # (c)
+    t_c = time.perf_counter()
+    scores = {}
+    state = None
+    for fused in (True, False):
+        ec = make_experiment("maze5")
+        ec.model.architecture.block_semantics = "reference"
+        ec.model.dtype = "bfloat16"
+        ec.model.extra["fused_eval_trunk"] = fused
+        model = build_model(ec.model, device=dev, seed=0)
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state, strict=True)
+        zero()
+        with torch.no_grad():
+            scores[fused] = model(audio_cache["maze5"].to(dev))["scores"]
+        torch.cuda.synchronize()
+        if fused:
+            k1_fused = counts()["k1"]
+        del model
+    rec_c = {"model": "maze5", "block_semantics": "reference", "dtype": "bfloat16",
+             "batch": len(scores[True]), "k1_launches_fused_eval_trunk": k1_fused,
+             "scores_bitwise_equal": bool(torch.equal(scores[True], scores[False])),
+             "seconds": time.perf_counter() - t_c, "card": card}
+    print("reference_ckpt_c " + json.dumps(rec_c), flush=True)
+    check(k1_fused == 0, f"reference_ckpt (c): K1 launched {k1_fused} times")
+    check(rec_c["scores_bitwise_equal"] and bool(torch.isfinite(scores[True]).all()),
+          "reference_ckpt (c): scores differ with fused_eval_trunk")
+    torch.cuda.empty_cache()
+    return {"a": rec_a, "b": rec_b, "c": rec_c}
+
+
 def phase_remat(name, batch, extra, encoder, sf, rf, dev, card):
     """One train step plain and one with activation checkpointing, from the
     same weights, batch and generators, then their timed steps and peak
@@ -2703,7 +2985,7 @@ def _k3_bwd_main(k3b, precision):
 
 
 def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, train,
-                 fused_train, remat, fewshot, md, config_cli):
+                 fused_train, remat, fewshot, md, config_cli, ref_ckpt):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -2727,7 +3009,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     fused steps (multidevice phase), and the config_cli phase's: K3's and its
     backward kernel's in main's ``--config`` training, K1's in maze5's
     ``cli.train --config --eval`` and in ``cli.evaluate --model_path`` of its
-    checkpoint."""
+    checkpoint. The reference_ckpt phase's paths: the converted checkpoints
+    through ``cli.evaluate`` (no kernel: f32 reference parity) and main's
+    fine-tuning from the converted checkpoint (K3, K3-bwd)."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
     k4_main = _k4_main(k4, BENCH_BATCH, "high")
     k4_big = _k4_main(k4, 384, "high")
@@ -2772,6 +3056,15 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
                   cfg_b["k1_launches_evaluate"]}
     k3_cfg = {"main cli.train --config (fused_train_frontend)": cfg_a["k3_launches"]}
     k3b_cfg = {"main cli.train --config (fused_train_frontend)": cfg_a["k3_bwd_launches"]}
+    ref_eval = {f"{r['model']} converted reference checkpoint (cli.evaluate)": r["launches"]
+                for r in ref_ckpt["a"]["models"]}
+    ref_tune = "main converted reference checkpoint fine-tuned (cli.train --restore)"
+    k1_ref = {**{k: v["k1"] for k, v in ref_eval.items()},
+              "maze5 'reference' blocks, bf16, fused_eval_trunk":
+                  ref_ckpt["c"]["k1_launches_fused_eval_trunk"]}
+    k3_ref = {**{k: v["k3"] for k, v in ref_eval.items()},
+              ref_tune: ref_ckpt["b"]["launches"]["k3"]}
+    k3b_ref = {ref_tune: ref_ckpt["b"]["launches"]["k3_bwd"]}
     k3b_main = {p: _k3_bwd_main(k3b, p) for p in K3_BWD_TOL}
     k3t_main = next(r for r in k3_train if r["B"] == TRAIN_BATCH and r["T"] == CUT)
     return {"kernels": [{
@@ -2780,9 +3073,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "replaces": "adfmsl/ops/pallas/resblock_fused.py:141",
         "launches": (sum(r["k1_launches"] for r in main_path) + sum(k1_train.values())
                      + sum(k1_fewshot.values()) + sum(k1_md.values())
-                     + sum(k1_cfg.values())),
+                     + sum(k1_cfg.values()) + sum(k1_ref.values())),
         "launches_by_path": {**{r["model"]: r["k1_launches"] for r in main_path},
-                             **k1_train, **k1_fewshot, **k1_md, **k1_cfg},
+                             **k1_train, **k1_fewshot, **k1_md, **k1_cfg, **k1_ref},
         "max_abs_err": max(r["max_abs_err_y"] for r in k1),
         "max_err_over_tol": max(max(r["max_abs_err_y"] / r["tol_y"],
                                     r["max_abs_err_sums"] / r["tol_sums"]) for r in k1),
@@ -2830,9 +3123,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:81",
         "launches": (sum(r["k3_launches"] for r in main_path) + sum(k3_eval_train.values())
                      + sum(k3_fused.values()) + sum(k3_remat.values())
-                     + sum(k3_md.values()) + sum(k3_cfg.values())),
+                     + sum(k3_md.values()) + sum(k3_cfg.values()) + sum(k3_ref.values())),
         "launches_by_path": {**{r["model"]: r["k3_launches"] for r in main_path},
-                             **k3_eval_train, **k3_fused, **k3_remat, **k3_md, **k3_cfg},
+                             **k3_eval_train, **k3_fused, **k3_remat, **k3_md, **k3_cfg,
+                             **k3_ref},
         "max_abs_err": max(r["max_abs_err"] for r in k3),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3),
         **_summed([k3_main]),
@@ -2849,8 +3143,8 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:152 (_sap_bwd, the custom VJP of "
                     "sinc_abs_pool :138)",
         "launches": (sum(k3b_fused.values()) + sum(k3b_remat.values())
-                     + sum(k3b_md.values()) + sum(k3b_cfg.values())),
-        "launches_by_path": {**k3b_fused, **k3b_remat, **k3b_md, **k3b_cfg},
+                     + sum(k3b_md.values()) + sum(k3b_cfg.values()) + sum(k3b_ref.values())),
+        "launches_by_path": {**k3b_fused, **k3b_remat, **k3b_md, **k3b_cfg, **k3b_ref},
         "max_abs_err": max(r["max_abs_err"] for r in k3b),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3b),
         **_summed([k3b_main["tf32"]]),
@@ -2897,12 +3191,13 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "k2", "multidevice", "config_cli"],
+    ap.add_argument("--only", choices=["kernels", "k2", "multidevice", "config_cli",
+                                       "reference_ckpt"],
                     default=None,
                     help="kernels: only the build and the kernels phase; k2: only "
-                         "K2's library and cases; multidevice / config_cli: only the "
-                         "build and that phase (none of them ends in an {\"ok\": ...} "
-                         "line)")
+                         "K2's library and cases; multidevice / config_cli / "
+                         "reference_ckpt: only the build and that phase (none of them "
+                         "ends in an {\"ok\": ...} line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2955,9 +3250,11 @@ def main() -> int:
               "build_s": phase_s["build"], "libraries": sorted(libs)}
     print("device " + json.dumps(device), flush=True)
 
-    if args.only in ("multidevice", "config_cli"):
+    if args.only in ("multidevice", "config_cli", "reference_ckpt"):
         with tempfile.TemporaryDirectory() as tmp:
-            if args.only == "multidevice":
+            if args.only == "reference_ckpt":
+                phase("reference_ckpt", phase_reference_ckpt, rf, sf, tmp, dev, smi)
+            elif args.only == "multidevice":
                 fixture = generate_fixture(tmp, SyntheticSpec(n_train=2, n_dev=2,
                                                               n_eval=EVAL_UTTS))
                 phase("multidevice", phase_multidevice, fixture, tmp, dev, smi)
@@ -2993,6 +3290,7 @@ def main() -> int:
         fused_train = phase("fused_train", lambda: [phase_fused_train(n, sf, fixture, dev)
                                                     for n in ("main", "main_fmsl")])
         config_cli = phase("config_cli", phase_config_cli, rf, sf, fixture, tmp, smi)
+        ref_ckpt = phase("reference_ckpt", phase_reference_ckpt, rf, sf, tmp, dev, smi)
         remat = phase("remat", lambda: [phase_remat(*c, sf, rf, dev, smi)
                                         for c in REMAT_CASES])
         fewshot = phase("fewshot", phase_fewshot, rf, tmp, smi)
@@ -3021,7 +3319,7 @@ def main() -> int:
     print(smi, flush=True)
     print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front,
                                   main_path, train, fused_train, remat, fewshot, md,
-                                  config_cli)),
+                                  config_cli, ref_ckpt)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -150,14 +150,22 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_models_name_their_slice():
-    """Every registry model is ported; the path still to port raises and names
-    its ROADMAP slice: 'reference' block semantics (slice 9). The encoder's
-    activation checkpointing (slice 6c) is ported: with the flag set the
-    model builds and its train forward is finite."""
+    """Every registry model is ported, and so are the two paths this test
+    once pinned as raising. 'reference' block semantics (slice 9b): maze6_fmsl
+    builds with its 'fmsl_plain' blocks (bias-free convs) and its eval
+    forward on the tiny encoder is finite. The encoder's activation
+    checkpointing (slice 6c): with the flag set the model builds and its
+    train forward is finite."""
     exp = make_experiment("maze6_fmsl")
     exp.model.architecture.block_semantics = "reference"
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        build_model(exp.model, device="cpu")
+    exp.model.wav2vec2.model_name = "tiny"
+    model = build_model(exp.model, device="cpu")
+    assert model.trunk.block1.semantics == "fmsl_plain"
+    assert model.trunk.block1.conv1.bias is None
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 4000)).astype(np.float32))
+    with torch.no_grad():
+        out = model(x)
+    assert out["logits"].shape == (2, 2) and torch.isfinite(out["logits"]).all()
     exp = make_experiment("maze6_fmsl")
     exp.model.wav2vec2.model_name = "tiny"
     exp.model.wav2vec2.remat_extractor = True
