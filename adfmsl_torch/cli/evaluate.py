@@ -1,8 +1,8 @@
 """Evaluation CLI of the port: protocol -> score file -> EER / min-DCF / min t-DCF.
 
     python -m adfmsl_torch.cli.evaluate --model_type maze5|main|... --protocol P \
-        --data_dir D [--model_path CKPT_DIR] [--fused_frontend] [--device cuda] \
-        [--data_parallel N --dist_backend nccl|gloo] ...
+        --data_dir D | --pack PK [--model_path CKPT_DIR] [--fused_frontend] \
+        [--device cuda] [--data_parallel N --dist_backend nccl|gloo] ...
 
 Port of ``adfmsl/cli/evaluate.py``: rebuilds the architecture, loads the
 checkpoint (``model.pt`` written by ``adfmsl_torch.models.save_checkpoint``;
@@ -10,7 +10,9 @@ its config from ``experiment.yaml`` beside it where there is one, as adfmsl's
 CLI reads it, else from ``model.pt``) or initialises randomly from
 ``--seed``, optionally smoke-tests a synthetic forward pass, streams the eval
 protocol, writes the score file and prints the metric dict. Runs on the card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given. ``--pack`` reads the protocol's clips from
+a pack of ``python -m adfmsl_torch.cli.pack`` instead of decoding
+``--data_dir`` (adfmsl :117-134); the clip length is then the pack's.
 
 ``--data_parallel N`` (N > 1) scores over N local ranks (``parallel/launch.py``;
 ``--dist_backend`` and ``--dist_timeout`` as in ``cli/train.py``): rank 0's
@@ -36,7 +38,10 @@ def build_parser():
     p.add_argument("--model_path", default=None,
                    help="checkpoint dir holding model.pt (optional: random init)")
     p.add_argument("--protocol", required=True)
-    p.add_argument("--data_dir", required=True)
+    p.add_argument("--data_dir", default=None)
+    p.add_argument("--pack", default=None,
+                   help="pack prefix (cli.pack) replacing --data_dir: no decode "
+                        "during evaluation")
     p.add_argument("--output", default=None, help="score file path")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--cut", type=int, default=None,
@@ -100,6 +105,8 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     parser = build_parser()
     args = parser.parse_args(argv)
+    if not (args.data_dir or args.pack):
+        parser.error("one of --data_dir or --pack is required")
     if args.data_parallel > 1:
         from adfmsl_torch.parallel import launch
 
@@ -130,7 +137,7 @@ def run(parser, args, device, mesh=None) -> int:
     """Score as the parsed ``args`` say on ``device``; under ``mesh`` as this
     rank."""
     from adfmsl_torch.config import load_yaml, make_experiment
-    from adfmsl_torch.data import AsvspoofDataset, DataLoader, parse_protocol
+    from adfmsl_torch.data import AsvspoofDataset, DataLoader, PackedDataset, parse_protocol
     from adfmsl_torch.device import resolve_device
     from adfmsl_torch.evaluation import evaluate_to_file
     from adfmsl_torch.models import SPECS, build_model, load_checkpoint
@@ -154,6 +161,20 @@ def run(parser, args, device, mesh=None) -> int:
         exp = make_experiment(args.model_type, drift=not args.no_drift)
     if args.cut:
         exp.data.cut = args.cut
+    proto = parse_protocol(args.protocol, exp.data.label_polarity)
+    if args.pack:
+        ds = PackedDataset(args.pack, proto)
+        if ds.cut != exp.data.cut:
+            (logging.warning if args.cut else logging.info)(
+                "clip length comes from the pack: %d (config had %d%s)",
+                ds.cut, exp.data.cut,
+                " — the explicit --cut is overridden" if args.cut else "")
+            exp.data.cut = ds.cut
+    else:
+        ds = AsvspoofDataset(proto, args.data_dir, cut=exp.data.cut,
+                             pad_mode=exp.data.pad_mode, sample_rate=exp.data.sample_rate,
+                             use_native_io=exp.data.use_native_io,
+                             num_workers=exp.data.num_workers)
     spec = SPECS.get(args.model_type)
     if spec is not None:
         set_fused_extras(exp, spec,
@@ -166,11 +187,6 @@ def run(parser, args, device, mesh=None) -> int:
         from adfmsl_torch.parallel import replicate
 
         replicate(mesh, model)
-    proto = parse_protocol(args.protocol, exp.data.label_polarity)
-    ds = AsvspoofDataset(proto, args.data_dir, cut=exp.data.cut,
-                         pad_mode=exp.data.pad_mode, sample_rate=exp.data.sample_rate,
-                         use_native_io=exp.data.use_native_io,
-                         num_workers=exp.data.num_workers)
     shard = ({"rank": mesh.data_rank, "world": mesh.dp} if mesh is not None else {})
     loader = DataLoader(ds, args.batch_size, shuffle=False, drop_last=False,
                         prefetch=exp.data.prefetch, **shard)

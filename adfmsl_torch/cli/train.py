@@ -4,6 +4,7 @@
         --train_protocol P --train_dir D [--dev_protocol P2 --dev_dir D2] \\
         --batch_size 12 --num_epochs N --checkpoint_dir C [--restore] \\
         [--log_dir L] [--profile_dir T] [--device cuda|cpu] \\
+        [--train_pack PK --dev_pack PK2 --eval_pack PK3] \\
         [--data_parallel N --dist_backend nccl|gloo]
 
 Trains a registry model from its standardized configuration, or from the
@@ -22,8 +23,14 @@ each epoch's ``train/loss``, ``train/acc`` and ``dev/acc`` at step = epoch
 to ``L/metrics.jsonl`` (``utils/metrics_log.py``); ``--profile_dir`` traces
 the first epoch with ``torch.profiler`` into ``T`` and trains the rest
 untraced; every training run ends by logging the Trainer's step timer. Runs
-on the card unless ``--device cpu`` is given. The pack flags (ROADMAP slice
-9) raise and name the slice.
+on the card unless ``--device cpu`` is given.
+
+``--train_pack`` / ``--dev_pack`` / ``--eval_pack`` read a split from a pack
+of ``python -m adfmsl_torch.cli.pack`` instead of decoding its audio dir (adfmsl
+:105-121, :164-167): the split's protocol is parsed first and gives the labels,
+the batches are those of the audio path, and the train pack's clip length
+becomes ``exp.data.cut`` before the Trainer is built (``experiment.yaml``
+records it).
 
 ``--data_parallel N`` (N > 1) trains data-parallel over N local ranks
 (``parallel/launch.py``: one process each, rank r on card r): each rank
@@ -45,11 +52,6 @@ import json
 import logging
 import os
 import sys
-
-# flag -> the ROADMAP slice that brings it
-LATER_FLAGS = {"train_pack": "slice 9 (data/pack.py)",
-               "dev_pack": "slice 9 (data/pack.py)",
-               "eval_pack": "slice 9 (data/pack.py)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,9 +90,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dist_timeout", type=float, default=1800.0,
                    help="seconds a collective may wait for the other ranks before "
                         "its rank fails (the run itself has no time limit)")
-    p.add_argument("--train_pack", default=None)
+    p.add_argument("--train_pack", default=None,
+                   help="pack prefix (cli.pack) replacing the train audio dir")
     p.add_argument("--dev_pack", default=None)
-    p.add_argument("--eval_pack", default=None)
+    p.add_argument("--eval_pack", default=None,
+                   help="pack prefix for the --eval protocol split")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
 
@@ -106,9 +110,6 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, slice_ in LATER_FLAGS.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} comes with ROADMAP {slice_}")
     if args.data_parallel > 1:
         from adfmsl_torch.parallel import launch
 
@@ -163,13 +164,16 @@ def run(args, device, mesh=None) -> int:
     shard = ({"rank": mesh.data_rank, "world": mesh.dp} if mesh is not None else {})
     train_proto = parse_protocol(train_proto_path, exp.data.label_polarity)
     train_loader = make_dataset_and_loader(exp, train_proto, train_dir, shuffle=True,
-                                           **shard)
+                                           pack=args.train_pack, **shard)
+    if train_loader.ds.cut != exp.data.cut:
+        logging.info("clip length from pack: %d", train_loader.ds.cut)
+        exp.data.cut = train_loader.ds.cut
     dev_loader = None
-    if os.path.exists(dev_proto_path):
+    if args.dev_pack or os.path.exists(dev_proto_path):
         dev_proto = parse_protocol(dev_proto_path, exp.data.label_polarity)
         dev_loader = make_dataset_and_loader(exp, dev_proto, dev_dir, shuffle=False,
                                              batch_size=exp.train.eval_batch_size,
-                                             drop_last=False, **shard)
+                                             drop_last=False, pack=args.dev_pack, **shard)
 
     with contextlib.ExitStack() as stack:
         metric_hook = None
@@ -195,7 +199,7 @@ def run(args, device, mesh=None) -> int:
             eval_proto = parse_protocol(eval_proto_path, exp.data.label_polarity)
             loader = make_dataset_and_loader(exp, eval_proto, eval_dir, shuffle=False,
                                              batch_size=exp.train.eval_batch_size,
-                                             drop_last=False, **shard)
+                                             drop_last=False, pack=args.eval_pack, **shard)
             trainer.state.model.eval()
             res = evaluate_to_file(trainer.state.model, loader, args.eval_output,
                                    labels=eval_proto.labels or None, mesh=mesh)

@@ -6,12 +6,14 @@ Two variants exist in the reference and they are NOT equivalent spectrally:
   with zeros.
 Both are exposed; configs pick via ``DataConfig.pad_mode``.
 
-These are the host variants of ``adfmsl/data/pad.py`` (numpy, inside the loader);
-its on-device variants are not ported.
+Host variants operate on numpy (inside the loader); ``tile_pad_device`` /
+``zero_pad_device`` are the static-shape equivalents on tensors of any device
+(adfmsl :47-59): the input is a fixed-capacity buffer plus a true length.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def tile_pad(x: np.ndarray, max_len: int = 64600) -> np.ndarray:
@@ -39,3 +41,20 @@ def pad(x: np.ndarray, max_len: int = 64600, mode: str = "tile") -> np.ndarray:
     if mode == "zero":
         return zero_pad(x, max_len)
     raise ValueError(f"unknown pad mode {mode!r}")
+
+
+def tile_pad_device(buf: torch.Tensor, length, max_len: int = 64600) -> torch.Tensor:
+    """Static-shape tile-pad: ``buf`` is (max_len,) with the clip in [:length] and
+    anything after it ignored. Gathers by modular indexing (``torch.take``
+    reads ``buf`` flattened, as ``jnp.take`` does), so the tiling matches
+    np.tile's exactly; ``length`` is clamped to at least 1."""
+    length = torch.clamp(torch.as_tensor(length, device=buf.device), min=1)
+    idx = torch.arange(max_len, device=buf.device)
+    src = torch.where(idx < length, idx, idx % length)
+    return torch.take(buf, torch.clamp(src, max=max_len - 1))
+
+
+def zero_pad_device(buf: torch.Tensor, length, max_len: int = 64600) -> torch.Tensor:
+    idx = torch.arange(max_len, device=buf.device)
+    length = torch.as_tensor(length, device=buf.device)
+    return torch.where(idx < length, buf, 0.0)

@@ -1,6 +1,9 @@
 """Host-side input pipeline: path resolution, decode+pad, fixed-shape batching,
-threaded prefetch (the port's copy of ``adfmsl/data/pipeline.py``, without
-adfmsl's fuzzy file discovery).
+threaded prefetch (the port's copy of ``adfmsl/data/pipeline.py``).
+
+Audio paths resolve through the reference's three fixed layouts, then, with
+``AsvspoofDataset(fuzzy_discovery=True)``, through ``FuzzyAudioResolver``'s
+recursive index of the tree (in ``load`` and in the batch path alike).
 
 Two ways to split the data over ranks:
 - ``shard_index`` / ``num_shards``: adfmsl's per-host split of the utterance
@@ -29,7 +32,7 @@ import os
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -54,6 +57,37 @@ def resolve_audio_path(base_dir: str, utt_id: str) -> Optional[str]:
     return None
 
 
+class FuzzyAudioResolver:
+    """Recursive-glob discovery with utt-id pattern matching — the eval scripts'
+    robust dataset fallback (Maze5_eval.py:128 ``_discover_audio_files``, :169
+    ``_find_matching_file``). One os.walk indexes every audio file under the root;
+    lookups match exact stem first, then any stem containing the utt_id."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self._exact: Dict[str, str] = {}
+        self._stems: List[Tuple[str, str]] = []
+        for dirpath, _, files in os.walk(root):
+            for f in files:
+                stem, ext = os.path.splitext(f)
+                if ext.lower() in _EXTS:
+                    p = os.path.join(dirpath, f)
+                    self._exact.setdefault(stem, p)
+                    self._stems.append((stem, p))
+
+    def __len__(self) -> int:
+        return len(self._stems)
+
+    def resolve(self, utt_id: str) -> Optional[str]:
+        p = self._exact.get(utt_id)
+        if p:
+            return p
+        for stem, path in self._stems:
+            if utt_id in stem:
+                return path
+        return None
+
+
 @dataclass
 class Batch:
     """One fixed-shape batch. ``mask`` marks real (non-padding) rows. A
@@ -69,7 +103,9 @@ class Batch:
 
 
 class AsvspoofDataset:
-    """Maps utt_ids -> (decoded, padded waveform, label)."""
+    """Maps utt_ids -> (decoded, padded waveform, label). ``labeled=False``
+    gives every utterance label 0; ``fuzzy_discovery`` indexes the tree under
+    ``base_dir`` once and tries it after the three fixed layouts."""
 
     def __init__(
         self,
@@ -78,6 +114,8 @@ class AsvspoofDataset:
         cut: int = 64600,
         pad_mode: str = "tile",
         sample_rate: int = 16000,
+        labeled: bool = True,
+        fuzzy_discovery: bool = False,
         use_native_io: bool = True,
         num_workers: int = 2,
     ):
@@ -86,16 +124,20 @@ class AsvspoofDataset:
         self.cut = cut
         self.pad_mode = pad_mode
         self.sample_rate = sample_rate
+        self.labeled = labeled
         self.use_native_io = use_native_io
         self.num_workers = max(1, num_workers)
-        self._labels = protocol.labels
+        self._labels = protocol.labels if labeled else {}
         self._warned = 0
+        self._fuzzy = FuzzyAudioResolver(base_dir) if fuzzy_discovery else None
 
     def __len__(self) -> int:
         return len(self.protocol)
 
     def _resolve(self, utt_id: str) -> Optional[str]:
         path = resolve_audio_path(self.base_dir, utt_id)
+        if path is None and self._fuzzy is not None:
+            path = self._fuzzy.resolve(utt_id)
         if path is None and self._warned < 20:
             log.warning("missing audio for %s under %s; using zeros", utt_id,
                         self.base_dir)

@@ -65,3 +65,15 @@ def parse_protocol(path: str, polarity: str = "bonafide1") -> Protocol:
             entries.append(ProtocolEntry(speaker, utt_id, attack, label))
     return Protocol(entries)
 
+
+def gen_spoof_list(
+    dir_meta: str, is_train: bool = False, is_eval: bool = False,
+    polarity: str = "bonafide1",
+):
+    """Reference-compatible wrapper (maze2.py:213-234): returns ``(d_meta, file_list)``
+    for train/dev, ``file_list`` for bare eval lists."""
+    if is_eval:
+        with open(dir_meta) as fh:
+            return [ln.strip() for ln in fh if ln.strip()]
+    p = parse_protocol(dir_meta, polarity=polarity)
+    return p.labels, p.utt_ids

@@ -14,7 +14,10 @@ before its checkpoint; with ``persist_config`` (the default) the config is
 written as ``experiment.yaml`` beside the checkpoints, for adfmsl's tools and
 the evaluate CLI (every epoch's ``model.pt`` carries it too); ``timer`` adds up
 the host's time in the ``input`` wait and the ``train_step`` (its dispatch:
-no synchronise is added, as in adfmsl).
+no synchronise is added, as in adfmsl). ``noise_bank`` / ``rir_bank`` (arrays
+or tensors, moved to the model's device once) feed the train step's waveform
+augmentation when ``exp.data.augment_enabled`` is set (adfmsl :49, :85-86; no
+CLI flag passes a bank, as in adfmsl).
 
 With ``mesh`` (``parallel/mesh.py``; one process a rank) the Trainer trains
 data-parallel as adfmsl's does under GSPMD: rank 0's weights are broadcast,
@@ -26,7 +29,9 @@ global buffer, so every rank computes the same accuracy and EER; the values
 that decide the plateau scale and early stopping are rank 0's, broadcast, so
 no rank leaves the loop alone and hangs the others in a collective. Rank 0
 writes ``experiment.yaml`` and the checkpoints; the others wait at a barrier
-after each checkpoint.
+after each checkpoint. The banks are rank 0's on every rank (broadcast, as the
+weights), and each data rank augments its own rows from its shard's
+'augment' stream, as it draws its dropout.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from adfmsl_torch.config.base import ExperimentConfig
+from adfmsl_torch.data.pack import PackedDataset
 from adfmsl_torch.data.pipeline import AsvspoofDataset, Batch, DataLoader
 from adfmsl_torch.data.protocol import Protocol
 from adfmsl_torch.device import resolve_device
@@ -82,7 +88,7 @@ class Trainer:
                  metric_hook: Optional[Callable[[EpochMetrics], None]] = None,
                  mesh: Optional["Mesh"] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 persist_config: bool = True):
+                 persist_config: bool = True, noise_bank=None, rir_bank=None):
         self.exp = exp
         self.mesh = mesh
         self.train_loader = train_loader
@@ -94,6 +100,8 @@ class Trainer:
         w2v2 = exp.model.wav2vec2
         if w2v2.pretrained_path or w2v2.require_pretrained:
             inject_pretrained_w2v2(model, w2v2)
+        banks = [None if b is None else torch.as_tensor(b, dtype=torch.float32).to(self.device)
+                 for b in (noise_bank, rir_bank)]
         if mesh is not None:
             from adfmsl_torch.parallel.mesh import check_loader, replicate
 
@@ -101,9 +109,12 @@ class Trainer:
                 if loader is not None:
                     check_loader(mesh, loader)
             replicate(mesh, model)
+            for b in banks:
+                if b is not None:
+                    dist.broadcast(b, src=0)
         opt = Optimizer.for_model(exp, model, max(len(train_loader), 1))
         self.state = TrainState(model, opt, exp.train.seed)
-        self.train_step = make_train_step(exp, mesh)
+        self.train_step = make_train_step(exp, mesh, noise_bank=banks[0], rir_bank=banks[1])
         self.eval_step = make_eval_step()
         self.ckpt = (CheckpointManager(checkpoint_dir, keep_best_k=exp.train.keep_best_k,
                                        metric=exp.train.early_stop_metric,
@@ -288,17 +299,23 @@ class Trainer:
         return self.history
 
 
-def make_dataset_and_loader(exp: ExperimentConfig, protocol: Protocol, audio_dir: str,
-                            shuffle: bool, batch_size: Optional[int] = None,
+def make_dataset_and_loader(exp: ExperimentConfig, protocol: Protocol,
+                            audio_dir: Optional[str], shuffle: bool,
+                            batch_size: Optional[int] = None,
                             drop_last: bool = True, shard_index: int = 0,
                             num_shards: int = 1, rank: int = 0,
-                            world: int = 1) -> DataLoader:
+                            world: int = 1, pack: Optional[str] = None) -> DataLoader:
     """The dataset and loader of ``exp`` (``rank`` / ``world``: this data
-    rank's row block of each global batch)."""
-    ds = AsvspoofDataset(protocol, audio_dir, cut=exp.data.cut, pad_mode=exp.data.pad_mode,
-                         sample_rate=exp.data.sample_rate,
-                         use_native_io=exp.data.use_native_io,
-                         num_workers=exp.data.num_workers)
+    rank's row block of each global batch): the audio under ``audio_dir``, or
+    with ``pack`` the packed rows of ``{pack}.npy`` (``data/pack.py``; the
+    protocol gives the labels), in the same batches."""
+    if pack:
+        ds = PackedDataset(pack, protocol)
+    else:
+        ds = AsvspoofDataset(protocol, audio_dir, cut=exp.data.cut,
+                             pad_mode=exp.data.pad_mode, sample_rate=exp.data.sample_rate,
+                             use_native_io=exp.data.use_native_io,
+                             num_workers=exp.data.num_workers)
     return DataLoader(ds, batch_size or exp.train.batch_size, shuffle=shuffle,
                       drop_last=drop_last, seed=exp.train.seed, prefetch=exp.data.prefetch,
                       shard_index=shard_index, num_shards=num_shards, rank=rank, world=world)

@@ -3,8 +3,9 @@ BN running statistics), the optimizer (its moments, update count and plateau
 scale), the step counter and the seed of the per-step random streams.
 
 adfmsl draws three streams per step, 'dropout', 'specaugment' and 'lsa'
-(``train/steps.py:57-64``), from ``key_for_step(root, 'dropout', epoch *
-100000 + i)`` (``train/loop.py:146-147``). The port gives each stream its own
+(``train/steps.py:57-64``), and a fourth, ``fold_in(rng, 3)``, for waveform
+augmentation (:69), from ``key_for_step(root, 'dropout', epoch * 100000 +
+i)`` (``train/loop.py:146-147``). The port gives each stream its own
 ``torch.Generator`` on the model's device, seeded from (seed, epoch, step,
 stream) through numpy's ``SeedSequence``: reproducible, independent of what
 ran before, and never equal to JAX's bits.
@@ -19,7 +20,8 @@ import torch
 
 from adfmsl_torch.train.optim import Optimizer
 
-STREAMS = {"dropout": 1, "specaugment": 2, "lsa": 3}   # adfmsl utils/rng.py tags
+# adfmsl utils/rng.py:_PURPOSES tags; 'augment' feeds data/augment.py
+STREAMS = {"dropout": 1, "specaugment": 2, "lsa": 3, "augment": 6}
 
 
 @dataclass

@@ -20,6 +20,12 @@ backward, the BN running statistics move once and the generators replay their
 draws, so the step's loss, gradients, statistics and generator states are
 those of the plain step. The loss stays outside, as in adfmsl.
 
+With ``exp.data.augment_enabled`` and a noise or RIR bank (adfmsl :53-54,
+:66-71), the step first augments ``audio`` (``data/augment.py:
+augment_waveform``, from ``rngs['augment']``) under ``no_grad``, before the
+forward and outside ``train.remat``'s checkpoint, so a recompute never
+draws again; every later part of the step sees the augmented audio.
+
 The step's three parts run under ``torch.profiler.record_function`` labels
 (``STEP_LABELS``), so a profile of the real step splits its device time into
 forward, backward and update.
@@ -54,6 +60,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from adfmsl_torch.config.base import ExperimentConfig
+from adfmsl_torch.data.augment import augment_waveform
 from adfmsl_torch.heads.losses import compute_loss, loss_parts, masked_mean
 from adfmsl_torch.ops.remat import checkpoint
 from adfmsl_torch.parallel.collectives import all_reduce_flat, data_parallel
@@ -76,21 +83,34 @@ def grad_global_norm(params, mesh=None) -> torch.Tensor:
     return torch.sqrt(global_norm(whole) ** 2 + sq)
 
 
-def make_train_step(exp: ExperimentConfig, mesh=None, local_bn: bool = False
+def make_train_step(exp: ExperimentConfig, mesh=None, local_bn: bool = False,
+                    noise_bank: Optional[torch.Tensor] = None,
+                    rir_bank: Optional[torch.Tensor] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, audio, labels, mask, rngs) -> metrics``; updates ``state``
     in place. ``audio`` (B, T) f32, ``labels`` (B,) int, ``mask`` (B,) bool,
     all on the model's device (under ``mesh``: this rank's rows); ``rngs``
-    from ``state.generators``."""
+    from ``state.generators``. ``noise_bank`` (N, T) and ``rir_bank`` (R, L)
+    lie on the model's device; they augment only with
+    ``exp.data.augment_enabled``."""
     lcfg = exp.train.loss
     use_remat = exp.train.remat
     group = mesh.data_group if mesh is not None else None
     dp = mesh.dp if mesh is not None else 1
+    dcfg = exp.data
+    augment = dcfg.augment_enabled and (noise_bank is not None or rir_bank is not None)
 
     def step(state: TrainState, audio: torch.Tensor, labels: torch.Tensor,
              mask: torch.Tensor, rngs: Optional[Mapping[str, torch.Generator]] = None
              ) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
+        if augment:
+            if rngs is None:
+                raise ValueError("an augmenting train step draws from rngs['augment']")
+            with torch.no_grad():
+                audio = augment_waveform(audio, rngs["augment"], noise_bank, rir_bank,
+                                         dcfg.augment_noise_prob, dcfg.augment_reverb_prob,
+                                         dcfg.augment_snr_db_min, dcfg.augment_snr_db_max)
         with data_parallel(None if local_bn else group):
             with record_function(STEP_LABELS[0]):
                 model.train()

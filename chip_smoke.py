@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only multidevice   # the build and phase 7e only
     python3 chip_smoke.py --only config_cli    # the build and phase 7f only
     python3 chip_smoke.py --only reference_ckpt   # the build and phase 7g only
+    python3 chip_smoke.py --only packs      # the build and phase 7h only
 
 Phases, each printing its own lines:
 
@@ -243,6 +244,27 @@ Phases, each printing its own lines:
    block semantics in bf16 and ``fused_eval_trunk``: K1 no launch, the scores
    bitwise those without the flag. A line a part gives the largest score
    differences, the launches and the seconds;
+7h. packs (``packs``, run after 7g) on the same fixture at cut 64600: (a)
+   ``python -m adfmsl_torch.cli.pack`` packs the eval split from its WAV
+   files and from its FLAC twin (equal arrays), and maze5 scored by
+   ``cli.evaluate --pack`` (K1 5 a batch) writes the ``--data_dir`` run's
+   score file byte for byte (the largest score difference printed); (b)
+   RawNet main from a YAML with ``fused_train_frontend`` through ``cli.train
+   --train_pack --dev_pack`` at batch 12 for 2 epochs (K3 and K3-bwd once a
+   step), then ``--eval --eval_pack`` against ``--eval --eval_dir`` (equal
+   score files); (c) a ``Trainer`` with ``data.augment_enabled``, the train
+   pack's loader, a noise bank of 8 fixture clips and an RIR bank of 4
+   ``synthetic_rir`` of length 2048, one epoch of 4 steps of RawNet main
+   through K3 / K3-bwd (4 launches each), finite losses that differ from the
+   same steps without banks, every gated-off row reaching the model bit for
+   bit as loaded and every gated-on row changed; the gate rates, and the
+   augmentation's ms (CUDA events) beside the step's with and without banks;
+   (d) the 256 four-second FLAC utterances of 4c packed through the CLI:
+   ``PackedDataset.load_batch``'s host utt/s at batch 128 (median of 3
+   passes) beside 4c's FLAC rates at 1, 2, 4 and 8 threads and the decode
+   rate the CLI printed; (e) ``cli.train --data_parallel 2 --dist_backend
+   gloo --train_pack``, one epoch of 2 maze5 steps at a global batch of 12,
+   the two ranks sharing the card: each rank's ``rank_summary`` line, exit 0;
 8. one f32 train step of maze5 and of main at batch 2, cut 16000, randomness
    off, on the card and on the CPU from the same weights (TF32 off): loss
    within 1e-4 relative, gradients as in tests/test_torch_train_step.py
@@ -284,8 +306,8 @@ Phases, each printing its own lines:
    batch 128, T 201 and at ragged small T against the plain version; K1's
    launches on the few-shot path, K3's and its backward kernel's in the
    remat phase's fused steps, each rank's K1, K3 and K3-backward launches
-   in the multidevice phase, and the config_cli and reference_ckpt phases'
-   K1, K3 and K3-backward launches among the launches by path.
+   in the multidevice phase, and the config_cli, reference_ckpt and packs
+   phases' K1, K3 and K3-backward launches among the launches by path.
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -507,6 +529,12 @@ REF_TRAIN_UTTS, REF_DEV_UTTS, REF_EVAL_UTTS = 24, 12, 16
 REF_CKPT_MODELS = ("maze5", "maze5_fmsl", "maze4_fmsl", "main")
 REF_GRU_LAYERS = 3
 REF_SCORE_ATOL, REF_SCORE_RTOL = 5e-4, 1e-3
+# the packs phase: the augmentation's banks (fixture clips, synthetic RIRs and
+# their length), the train protocol's head for the two-rank run (2 steps of
+# TRAIN_BATCH), and the limit of each cli.pack call in seconds
+PACK_NOISE_CLIPS, PACK_RIRS, PACK_RIR_LEN = 8, 4, 2048
+PACK_MD_UTTS = 2 * TRAIN_BATCH
+PACK_LIMIT = 300.0
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1050,8 +1078,8 @@ def phase_native_io(rf, fixture, tmp):
     twin through maze5's evaluate CLI (identical score files, K1 5 times a
     batch), then the loader's host rate (``LOADER_*``); returns the record."""
     from adfmsl_torch.cli import evaluate
-    from adfmsl_torch.data import AsvspoofDataset, parse_protocol, write_wav
-    from adfmsl_torch.data.flac import flac_twin, write_flac
+    from adfmsl_torch.data import AsvspoofDataset, parse_protocol
+    from adfmsl_torch.data.flac import flac_twin
     from adfmsl_torch.ops import _build
 
     ev = fixture["eval"]
@@ -1079,42 +1107,61 @@ def phase_native_io(rf, fixture, tmp):
     rec["score_files_identical"] = True
 
     # the loader's host rate: 4 s utterances, a tone and noise, as FLAC and WAV
+    proto_path, ids, dirs = loader_corpus(tmp)
+    proto = parse_protocol(proto_path)
+    configs = ([(f"flac_native_w{w}", "flac", True, w) for w in LOADER_WORKERS]
+               + [("wav_native_w8", "wav", True, 8), ("wav_numpy", "wav", False, 1)])
+    rates = {key: loader_rate(AsvspoofDataset(proto, dirs[fmt], cut=CUT,
+                                              use_native_io=native, num_workers=workers),
+                              ids, key)
+             for key, fmt, native, workers in configs}
+    rec.update(utterances=LOADER_UTTS, seconds_each=LOADER_SECONDS, batch=BENCH_BATCH,
+               cpu_count=os.cpu_count(), loader=rates)
+    print("native_io " + json.dumps(rec), flush=True)
+    return rec
+
+
+def loader_corpus(tmp):
+    """The loader's host-rate corpus under ``tmp``, written at the first call:
+    ``LOADER_UTTS`` utterances of ``LOADER_SECONDS`` s, a tone and noise, as
+    FLAC (FIXED subframes) and as 16-bit WAV; returns (protocol path, ids,
+    {format: dir})."""
+    from adfmsl_torch.data import write_wav
+    from adfmsl_torch.data.flac import write_flac
+
+    dirs = {fmt: os.path.join(tmp, f"loader_{fmt}") for fmt in ("flac", "wav")}
+    ids = [f"LA_L_{i:05d}" for i in range(LOADER_UTTS)]
+    proto_path = os.path.join(tmp, "loader_protocol.txt")
+    if os.path.exists(proto_path):
+        return proto_path, ids, dirs
     rng = np.random.default_rng(6)
     n = 16000 * LOADER_SECONDS
-    dirs = {fmt: os.path.join(tmp, f"loader_{fmt}") for fmt in ("flac", "wav")}
     for d in dirs.values():
         os.makedirs(d)
-    ids = [f"LA_L_{i:05d}" for i in range(LOADER_UTTS)]
     for i, u in enumerate(ids):
         x = 0.3 * np.sin(2 * np.pi * (150 + i) * np.arange(n) / 16000)
         x = np.clip(x + 0.05 * rng.standard_normal(n), -1.0, 1.0).astype(np.float32)
         write_flac(os.path.join(dirs["flac"], u + ".flac"), np.round(x * 32767.0))
         write_wav(os.path.join(dirs["wav"], u + ".wav"), x, 16000)
-    proto_path = os.path.join(tmp, "loader_protocol.txt")
     with open(proto_path, "w") as fh:
         fh.write("".join(f"LA_0000 {u} - - bonafide\n" for u in ids))
-    proto = parse_protocol(proto_path)
-    configs = ([(f"flac_native_w{w}", "flac", True, w) for w in LOADER_WORKERS]
-               + [("wav_native_w8", "wav", True, 8), ("wav_numpy", "wav", False, 1)])
-    rates = {}
-    for key, fmt, native, workers in configs:
-        ds = AsvspoofDataset(proto, dirs[fmt], cut=CUT, use_native_io=native,
-                             num_workers=workers)
-        ds.load_batch(ids[:8])                            # page cache, first call
-        secs = []
-        for _ in range(LOADER_PASSES):
-            t0 = time.perf_counter()
-            for b in range(0, LOADER_UTTS, BENCH_BATCH):
-                audio, _ = ds.load_batch(ids[b:b + BENCH_BATCH])
-            secs.append(time.perf_counter() - t0)
-        check(audio.shape == (BENCH_BATCH, CUT) and bool(audio.any()),
-              f"loader {key}: batch {audio.shape}")
-        rates[key] = {"utt_per_s": LOADER_UTTS / float(np.median(secs)),
-                      "passes_s": secs}
-    rec.update(utterances=LOADER_UTTS, seconds_each=LOADER_SECONDS, batch=BENCH_BATCH,
-               cpu_count=os.cpu_count(), loader=rates)
-    print("native_io " + json.dumps(rec), flush=True)
-    return rec
+    return proto_path, ids, dirs
+
+
+def loader_rate(ds, ids, key):
+    """Host utt/s of ``ds.load_batch`` over ``ids`` a batch of ``BENCH_BATCH``
+    at a time: the median of ``LOADER_PASSES`` passes over files (or a pack)
+    in the page cache."""
+    ds.load_batch(ids[:8])                            # page cache, first call
+    secs = []
+    for _ in range(LOADER_PASSES):
+        t0 = time.perf_counter()
+        for b in range(0, len(ids), BENCH_BATCH):
+            audio, _ = ds.load_batch(ids[b:b + BENCH_BATCH])
+        secs.append(time.perf_counter() - t0)
+    check(audio.shape == (BENCH_BATCH, CUT) and bool(audio.any()),
+          f"loader {key}: batch {audio.shape}")
+    return {"utt_per_s": len(ids) / float(np.median(secs)), "passes_s": secs}
 
 
 def forward_rate(model, x, reps: int = 5) -> tuple:
@@ -1900,6 +1947,306 @@ def phase_config_cli(rf, sf, fixture, tmp, card):
     print("config_cli_b " + json.dumps(rec_b), flush=True)
     check(err <= tol, f"config_cli (b): scores {err} apart, tolerance {tol}")
     return {"a": rec_a, "b": rec_b}
+
+
+def pack_cli(argv, in_process=True):
+    """The pack CLI on ``argv``: its ``main`` in this process, or ``python -m
+    adfmsl_torch.cli.pack`` in a subprocess; returns its printed line and the
+    utt/s of decode it reports."""
+    if in_process:
+        from adfmsl_torch.cli import pack
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = pack.main(argv)
+        out, err = buf.getvalue(), ""
+    else:
+        p = subprocess.run([sys.executable, "-m", "adfmsl_torch.cli.pack", *argv],
+                           capture_output=True, text=True, cwd=str(ROOT),
+                           timeout=PACK_LIMIT)
+        rc, out, err = p.returncode, p.stdout, p.stderr
+    check(rc == 0, f"cli.pack {argv}: exited {rc}: {err[-3000:]}")
+    line = out.strip().splitlines()[-1]
+    check(line.startswith("packed ") and line.endswith(" utt/s decode)"),
+          f"cli.pack printed {line!r}")
+    return line, float(line.rsplit("(", 1)[1].split()[0])
+
+
+def _read_scores(path):
+    with open(path) as fh:
+        rows = [ln.split() for ln in fh.read().splitlines()]
+    return [r[0] for r in rows], np.asarray([float(r[1]) for r in rows])
+
+
+def phase_packs(rf, sf, fixture, tmp, card, native=None):
+    """Packs on the card (``packs``, phase 7h). (a) the fixture's eval split
+    packed by ``python -m adfmsl_torch.cli.pack`` from its WAV files and from
+    its FLAC twin (equal arrays), maze5 scored by ``cli.evaluate --pack`` (K1
+    5 a batch) against the ``--data_dir`` run's score file (equal bytes);
+    (b) RawNet main from a YAML with ``fused_train_frontend`` through
+    ``cli.train --train_pack --dev_pack`` (K3 and K3-bwd once a step), then
+    ``--eval --eval_pack`` against ``--eval --eval_dir``; (c) a ``Trainer``
+    with ``data.augment_enabled``, the pack's loader, a noise bank of
+    ``PACK_NOISE_CLIPS`` fixture clips and an RIR bank of ``PACK_RIRS``
+    ``synthetic_rir`` of ``PACK_RIR_LEN``: K3 / K3-bwd once a step, finite
+    losses unlike the same steps' without banks, gated-off rows reaching the
+    model as loaded; the gate rates and the augmentation's ms a step against
+    the step's; (d) the 256 four-second FLAC utterances of ``loader_corpus``
+    packed, ``PackedDataset.load_batch``'s host utt/s beside FLAC's at 1, 2, 4
+    and 8 threads (``native``'s, else measured here) and ``cli.pack``'s
+    decode rate; (e) ``cli.train --data_parallel 2 --dist_backend gloo
+    --train_pack``, one epoch of 2 maze5 steps, the ranks sharing the card."""
+    from adfmsl_torch.cli import evaluate
+    from adfmsl_torch.cli import train as cli_train
+    from adfmsl_torch.config import load_yaml, make_experiment, save_yaml
+    from adfmsl_torch.data import (AsvspoofDataset, PackedDataset, draw_augment,
+                                   parse_protocol, synthetic_rir)
+    from adfmsl_torch.data.augment import augment_waveform
+    from adfmsl_torch.data.flac import flac_twin
+    from adfmsl_torch.train import CheckpointManager, Trainer, make_dataset_and_loader
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "packs")
+    os.makedirs(root)
+    tr, dv, ev = fixture["train"], fixture["dev"], fixture["eval"]
+    dev = torch.device("cuda", 0)
+    rec = {"card": card, "cut": CUT}
+
+    # (a)
+    flac_dir = os.path.join(root, "eval_flac")
+    flac_twin(ev["audio_dir"], flac_dir)
+    prefix = {k: os.path.join(root, f"eval_{k}") for k in ("wav", "flac")}
+    # the WAV split through the module's entry point, the rest through its main
+    lines = {k: pack_cli(["--protocol", ev["protocol"], "--data_dir", d, "--out_prefix",
+                          prefix[k]], in_process=k == "flac")[0]
+             for k, d in (("wav", ev["audio_dir"]), ("flac", flac_dir))}
+    check(np.array_equal(np.load(prefix["wav"] + ".npy"), np.load(prefix["flac"] + ".npy")),
+          "packs (a): the FLAC twin's pack differs from the WAV split's")
+    outs = {k: os.path.join(root, f"maze5_{k}_scores.txt") for k in ("data_dir", "pack")}
+    k1 = {}
+    for k, src in (("data_dir", ["--data_dir", ev["audio_dir"], "--cut", str(CUT)]),
+                   ("pack", ["--pack", prefix["flac"]])):
+        rf.resblock_eval.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = evaluate.main(["--model_type", "maze5", "--protocol", ev["protocol"], *src,
+                                "--output", outs[k], "--batch_size", str(EVAL_BATCH),
+                                "--device", "cuda", "--seed", "0"])
+        torch.cuda.synchronize()
+        k1[k] = rf.resblock_eval.launches
+        check(rc == 0, f"packs (a): maze5 evaluate from the {k} exited {rc}")
+    n_batches = -(-EVAL_UTTS // EVAL_BATCH)
+    check(k1["pack"] == K1_MAZE5 * n_batches,
+          f"packs (a): K1 launched {k1['pack']} times, expected {K1_MAZE5 * n_batches}")
+    (ids_d, s_d), (ids_p, s_p) = _read_scores(outs["data_dir"]), _read_scores(outs["pack"])
+    check(ids_d == ids_p == ev["utt_ids"] and bool(np.isfinite(s_p).all()),
+          "packs (a): score file ids or values")
+    with open(outs["data_dir"], "rb") as a, open(outs["pack"], "rb") as b:
+        same = a.read() == b.read()
+    rec["a"] = {"wall_s": time.perf_counter() - t_phase,
+                "model": "maze5", "batch": EVAL_BATCH, "batches": n_batches,
+                "pack_lines": lines, "k1_launches": k1["pack"],
+                "k1_launches_data_dir": k1["data_dir"],
+                "scores_max_abs_diff": float(np.abs(s_p - s_d).max()),
+                "score_files_identical": same}
+    print("packs_a " + json.dumps(rec["a"]), flush=True)
+    check(same, "packs (a): the pack's score file differs from the --data_dir run's")
+
+    # (b)
+    t_part = time.perf_counter()
+    packs = {}
+    for split, f in (("train", tr), ("dev", dv)):
+        packs[split] = os.path.join(root, split)
+        pack_cli(["--protocol", f["protocol"], "--data_dir", f["audio_dir"], "--out_prefix",
+                  packs[split]])
+    exp = make_experiment("main")
+    exp.train.batch_size, exp.train.num_epochs = TRAIN_BATCH, CONFIG_CLI_EPOCHS
+    exp.train.keep_best_k = CONFIG_CLI_EPOCHS        # both epochs' metrics stay
+    exp.model.extra.update(K3_TRAIN)
+    cfg = os.path.join(root, "main_k3.yaml")
+    save_yaml(exp, cfg)
+    ck = os.path.join(root, "main_ck")
+    common = ["--config", cfg, "--train_protocol", tr["protocol"], "--dev_protocol",
+              dv["protocol"], "--checkpoint_dir", ck, "--device", "cuda"]
+    sf.sinc_abs_pool_fused.launches = sf.sinc_abs_pool_bwd.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_train.main(common + ["--train_pack", packs["train"], "--dev_pack", packs["dev"]])
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    k3, k3b = sf.sinc_abs_pool_fused.launches, sf.sinc_abs_pool_bwd.launches
+    n_steps = CONFIG_CLI_EPOCHS * (TRAIN_UTTS // TRAIN_BATCH)
+    check(rc == 0, f"packs (b): cli.train --train_pack exited {rc}")
+    check(k3 == n_steps and k3b == n_steps,
+          f"packs (b): K3 {k3} and K3-bwd {k3b} launches in {n_steps} steps")
+    mgr = CheckpointManager(ck)
+    epochs = [mgr.metrics(e) for e in mgr.all_epochs()]
+    check(bool(epochs) and all(math.isfinite(m["train_loss"]) for m in epochs),
+          f"packs (b): epoch metrics {epochs}")
+    check(load_yaml(os.path.join(ck, "experiment.yaml")).data.cut == CUT,
+          "packs (b): experiment.yaml's cut")
+    souts = {k: os.path.join(root, f"main_{k}_scores.txt") for k in ("eval_dir", "eval_pack")}
+    for k, src in (("eval_dir", ["--eval_dir", ev["audio_dir"]]),
+                   ("eval_pack", ["--eval_pack", prefix["wav"]])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_train.main(common + ["--train_pack", packs["train"], "--restore",
+                                          "--eval", "--eval_protocol", ev["protocol"],
+                                          "--eval_output", souts[k], *src])
+        torch.cuda.synchronize()
+        check(rc == 0, f"packs (b): cli.train --eval from the {k} exited {rc}")
+    (ids_d, s_d), (ids_p, s_p) = (_read_scores(souts["eval_dir"]),
+                                  _read_scores(souts["eval_pack"]))
+    check(ids_d == ids_p == ev["utt_ids"] and bool(np.isfinite(s_p).all()),
+          "packs (b): score file ids or values")
+    with open(souts["eval_dir"], "rb") as a, open(souts["eval_pack"], "rb") as b:
+        same = a.read() == b.read()
+    rec["b"] = {"model": "main", "extra": K3_TRAIN, "batch": TRAIN_BATCH, "steps": n_steps,
+                "k3_launches": k3, "k3_bwd_launches": k3b,
+                "train_loss": [m["train_loss"] for m in epochs], "train_cli_wall_s": wall_b,
+                "wall_s": time.perf_counter() - t_part,
+                "scores_max_abs_diff": float(np.abs(s_p - s_d).max()),
+                "score_files_identical": same}
+    print("packs_b " + json.dumps(rec["b"]), flush=True)
+    check(same, "packs (b): --eval_pack's score file differs from --eval_dir's")
+
+    # (c)
+    t_part = time.perf_counter()
+    exp = make_experiment("main")
+    exp.train.batch_size, exp.train.num_epochs, exp.train.log_every_steps = TRAIN_BATCH, 1, 0
+    exp.model.extra.update(K3_TRAIN)
+    exp.data.augment_enabled = True
+    dcfg = exp.data
+    proto = parse_protocol(tr["protocol"], dcfg.label_polarity)
+    noise = PackedDataset(packs["dev"]).load_batch(dv["utt_ids"][:PACK_NOISE_CLIPS])[0]
+    rirs = torch.stack([synthetic_rir(torch.Generator(device=dev).manual_seed(i),
+                                      PACK_RIR_LEN) for i in range(PACK_RIRS)])
+    steps = TRAIN_UTTS // TRAIN_BATCH
+    runs = {}
+    for key, banks in (("augmented", {"noise_bank": noise, "rir_bank": rirs}), ("plain", {})):
+        trainer = Trainer(exp, make_dataset_and_loader(exp, proto, None, shuffle=True,
+                                                       pack=packs["train"]),
+                          None, device=dev, **banks)
+        seen, loaded, losses = [], [], []
+        hook = trainer.state.model.register_forward_pre_hook(
+            lambda mod, args: seen.append(args[0].detach().clone()) if mod.training else None)
+        place, step = trainer._place, trainer.train_step
+
+        def placed(batch, place=place, loaded=loaded):
+            out = place(batch)
+            loaded.append(out[0].clone())
+            return out
+
+        def stepped(*a, step=step, losses=losses):
+            met = step(*a)
+            losses.append(float(met["loss"]))
+            return met
+
+        trainer._place, trainer.train_step = placed, stepped
+        sf.sinc_abs_pool_fused.launches = sf.sinc_abs_pool_bwd.launches = 0
+        trainer.fit()
+        torch.cuda.synchronize()
+        k3, k3b = sf.sinc_abs_pool_fused.launches, sf.sinc_abs_pool_bwd.launches
+        hook.remove()
+        check(k3 == steps and k3b == steps,
+              f"packs (c) {key}: K3 {k3} and K3-bwd {k3b} launches in {steps} steps")
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"packs (c) {key}: losses {losses}")
+        x, y, m = placed(next(iter(trainer.train_loader)))
+        gens = trainer.state.generators(1, 0)
+        step_ms = cuda_ms(lambda: step(trainer.state, x, y, m, gens))
+        runs[key] = {"k3_launches": k3, "k3_bwd_launches": k3b, "losses": losses,
+                     "step_ms": step_ms, "seen": seen, "loaded": loaded, "trainer": trainer}
+    aug = runs["augmented"]
+    check(aug["losses"] != runs["plain"]["losses"],
+          "packs (c): the augmented steps' losses equal the plain steps'")
+    gates_n, gates_r = [], []
+    for i in range(steps):
+        d = draw_augment(TRAIN_BATCH, aug["trainer"].state.generators(0, i)["augment"],
+                         PACK_NOISE_CLIPS, PACK_RIRS, dcfg.augment_snr_db_min,
+                         dcfg.augment_snr_db_max)
+        on_n = (d.noise_u < dcfg.augment_noise_prob).squeeze(1)
+        on_r = (d.reverb_u < dcfg.augment_reverb_prob).squeeze(1)
+        gates_n.append(on_n)
+        gates_r.append(on_r)
+        off = ~(on_n | on_r)
+        check(torch.equal(aug["seen"][i][off], aug["loaded"][i][off]),
+              f"packs (c): step {i}'s gated-off rows differ from the loaded audio")
+        check(bool((aug["seen"][i][~off] != aug["loaded"][i][~off]).any(dim=1).all()),
+              f"packs (c): step {i}'s gated-on rows reached the model unchanged")
+    nb = torch.from_numpy(noise).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x0 = aug["loaded"][0]
+    aug_ms = cuda_ms(lambda: augment_waveform(
+        x0, g, nb, rirs, dcfg.augment_noise_prob, dcfg.augment_reverb_prob,
+        dcfg.augment_snr_db_min, dcfg.augment_snr_db_max))
+    rec["c"] = {"model": "main", "extra": K3_TRAIN, "batch": TRAIN_BATCH, "steps": steps,
+                "noise_clips": PACK_NOISE_CLIPS, "rirs": PACK_RIRS, "rir_len": PACK_RIR_LEN,
+                "probs": [dcfg.augment_noise_prob, dcfg.augment_reverb_prob],
+                **{f"{k}_{f}": runs[k][f] for k in runs
+                   for f in ("k3_launches", "k3_bwd_launches", "losses", "step_ms")},
+                "noise_gate_rate": float(torch.cat(gates_n).float().mean()),
+                "reverb_gate_rate": float(torch.cat(gates_r).float().mean()),
+                "rows": steps * TRAIN_BATCH, "augment_ms": aug_ms,
+                "wall_s": time.perf_counter() - t_part,
+                "fft_points": int(2 ** np.ceil(np.log2(CUT + PACK_RIR_LEN - 1)))}
+    print("packs_c " + json.dumps(rec["c"]), flush=True)
+    del runs, aug
+    torch.cuda.empty_cache()
+
+    # (d)
+    t_part = time.perf_counter()
+    proto_path, ids, dirs = loader_corpus(tmp)
+    loader_prefix = os.path.join(root, "loader_flac")
+    line, decode = pack_cli(["--protocol", proto_path, "--data_dir", dirs["flac"],
+                             "--out_prefix", loader_prefix])
+    lproto = parse_protocol(proto_path)
+    rates = {"pack": loader_rate(PackedDataset(loader_prefix, lproto), ids, "pack")}
+    if native is not None:
+        rates.update({k: v for k, v in native["loader"].items() if k.startswith("flac")})
+    else:
+        rates.update({f"flac_native_w{w}": loader_rate(
+            AsvspoofDataset(lproto, dirs["flac"], cut=CUT, num_workers=w), ids,
+            f"flac_native_w{w}") for w in LOADER_WORKERS})
+    rec["d"] = {"utterances": LOADER_UTTS, "seconds_each": LOADER_SECONDS,
+                "batch": BENCH_BATCH, "cpu_count": os.cpu_count(), "pack_line": line,
+                "pack_decode_utt_per_s": decode, "pack_bytes": LOADER_UTTS * CUT * 4,
+                "loader": rates, "wall_s": time.perf_counter() - t_part}
+    print("packs_d " + json.dumps(rec["d"]), flush=True)
+
+    # (e)
+    md_proto = os.path.join(root, "train_md.txt")
+    with open(tr["protocol"]) as fh:
+        head = fh.read().splitlines()[:PACK_MD_UTTS]
+    with open(md_proto, "w") as fh:
+        fh.write("\n".join(head) + "\n")
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-m", "adfmsl_torch.cli.train", "--model", "maze5",
+                          "--train_protocol", md_proto, "--train_pack", packs["train"],
+                          "--protocols_path", os.path.join(root, "no_protocols"),
+                          "--batch_size", str(TRAIN_BATCH), "--num_epochs", "1",
+                          "--checkpoint_dir", os.path.join(root, "md_ck"),
+                          "--data_parallel", "2", "--dist_backend", "gloo",
+                          "--dist_timeout", str(MD_LIMIT), "--device", "cuda"],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         cwd=str(ROOT), start_new_session=True)
+    try:
+        stdout, stderr = p.communicate(timeout=MD_LIMIT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)      # the CLI and the ranks it spawned
+        p.communicate()
+        raise
+    check(p.returncode == 0, f"packs (e): CLI exited {p.returncode}: {stderr[-3000:]}")
+    ranks = [ln for ln in stdout.splitlines() if ln.startswith("rank_summary ")]
+    for ln in ranks:
+        print(ln, flush=True)
+    md = CheckpointManager(os.path.join(root, "md_ck")).metrics(0)
+    rec["e"] = {"model": "maze5", "global_batch": TRAIN_BATCH,
+                "steps": PACK_MD_UTTS // TRAIN_BATCH, "ranks": len(ranks),
+                "train_loss": md["train_loss"], "wall_s": time.perf_counter() - t0,
+                "note": MD_SHARED}
+    print("packs_e " + json.dumps(rec["e"]), flush=True)
+    check(len(ranks) == 2 and math.isfinite(md["train_loss"]),
+          f"packs (e): {len(ranks)} rank summaries, train loss {md['train_loss']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
 
 
 def _ref_net(name, nets):
@@ -2985,7 +3332,7 @@ def _k3_bwd_main(k3b, precision):
 
 
 def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, train,
-                 fused_train, remat, fewshot, md, config_cli, ref_ckpt):
+                 fused_train, remat, fewshot, md, config_cli, ref_ckpt, packs):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -3011,7 +3358,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     ``cli.train --config --eval`` and in ``cli.evaluate --model_path`` of its
     checkpoint. The reference_ckpt phase's paths: the converted checkpoints
     through ``cli.evaluate`` (no kernel: f32 reference parity) and main's
-    fine-tuning from the converted checkpoint (K3, K3-bwd)."""
+    fine-tuning from the converted checkpoint (K3, K3-bwd). The packs phase's:
+    maze5 scored from a pack (K1), RawNet main trained from packs through the
+    train CLI and augmented through the ``Trainer`` (K3, K3-bwd)."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
     k4_main = _k4_main(k4, BENCH_BATCH, "high")
     k4_big = _k4_main(k4, 384, "high")
@@ -3065,6 +3414,16 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     k3_ref = {**{k: v["k3"] for k, v in ref_eval.items()},
               ref_tune: ref_ckpt["b"]["launches"]["k3"]}
     k3b_ref = {ref_tune: ref_ckpt["b"]["launches"]["k3_bwd"]}
+    k1_pack = {"maze5 cli.evaluate --pack": packs["a"]["k1_launches"]}
+    k3_pack = {"main cli.train --train_pack --dev_pack (fused_train_frontend)":
+                   packs["b"]["k3_launches"],
+               "main Trainer from a pack, augmented": packs["c"]["augmented_k3_launches"],
+               "main Trainer from a pack, no banks": packs["c"]["plain_k3_launches"]}
+    k3b_pack = {"main cli.train --train_pack --dev_pack (fused_train_frontend)":
+                    packs["b"]["k3_bwd_launches"],
+                "main Trainer from a pack, augmented":
+                    packs["c"]["augmented_k3_bwd_launches"],
+                "main Trainer from a pack, no banks": packs["c"]["plain_k3_bwd_launches"]}
     k3b_main = {p: _k3_bwd_main(k3b, p) for p in K3_BWD_TOL}
     k3t_main = next(r for r in k3_train if r["B"] == TRAIN_BATCH and r["T"] == CUT)
     return {"kernels": [{
@@ -3073,9 +3432,11 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "replaces": "adfmsl/ops/pallas/resblock_fused.py:141",
         "launches": (sum(r["k1_launches"] for r in main_path) + sum(k1_train.values())
                      + sum(k1_fewshot.values()) + sum(k1_md.values())
-                     + sum(k1_cfg.values()) + sum(k1_ref.values())),
+                     + sum(k1_cfg.values()) + sum(k1_ref.values())
+                     + sum(k1_pack.values())),
         "launches_by_path": {**{r["model"]: r["k1_launches"] for r in main_path},
-                             **k1_train, **k1_fewshot, **k1_md, **k1_cfg, **k1_ref},
+                             **k1_train, **k1_fewshot, **k1_md, **k1_cfg, **k1_ref,
+                             **k1_pack},
         "max_abs_err": max(r["max_abs_err_y"] for r in k1),
         "max_err_over_tol": max(max(r["max_abs_err_y"] / r["tol_y"],
                                     r["max_abs_err_sums"] / r["tol_sums"]) for r in k1),
@@ -3123,10 +3484,11 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:81",
         "launches": (sum(r["k3_launches"] for r in main_path) + sum(k3_eval_train.values())
                      + sum(k3_fused.values()) + sum(k3_remat.values())
-                     + sum(k3_md.values()) + sum(k3_cfg.values()) + sum(k3_ref.values())),
+                     + sum(k3_md.values()) + sum(k3_cfg.values()) + sum(k3_ref.values())
+                     + sum(k3_pack.values())),
         "launches_by_path": {**{r["model"]: r["k3_launches"] for r in main_path},
                              **k3_eval_train, **k3_fused, **k3_remat, **k3_md, **k3_cfg,
-                             **k3_ref},
+                             **k3_ref, **k3_pack},
         "max_abs_err": max(r["max_abs_err"] for r in k3),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3),
         **_summed([k3_main]),
@@ -3143,8 +3505,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "replaces": "adfmsl/ops/pallas/sinc_fused.py:152 (_sap_bwd, the custom VJP of "
                     "sinc_abs_pool :138)",
         "launches": (sum(k3b_fused.values()) + sum(k3b_remat.values())
-                     + sum(k3b_md.values()) + sum(k3b_cfg.values()) + sum(k3b_ref.values())),
-        "launches_by_path": {**k3b_fused, **k3b_remat, **k3b_md, **k3b_cfg, **k3b_ref},
+                     + sum(k3b_md.values()) + sum(k3b_cfg.values()) + sum(k3b_ref.values())
+                     + sum(k3b_pack.values())),
+        "launches_by_path": {**k3b_fused, **k3b_remat, **k3b_md, **k3b_cfg, **k3b_ref,
+                             **k3b_pack},
         "max_abs_err": max(r["max_abs_err"] for r in k3b),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3b),
         **_summed([k3b_main["tf32"]]),
@@ -3192,12 +3556,12 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernels", "k2", "multidevice", "config_cli",
-                                       "reference_ckpt"],
+                                       "reference_ckpt", "packs"],
                     default=None,
                     help="kernels: only the build and the kernels phase; k2: only "
                          "K2's library and cases; multidevice / config_cli / "
-                         "reference_ckpt: only the build and that phase (none of them "
-                         "ends in an {\"ok\": ...} line)")
+                         "reference_ckpt / packs: only the build and that phase (none "
+                         "of them ends in an {\"ok\": ...} line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3250,7 +3614,7 @@ def main() -> int:
               "build_s": phase_s["build"], "libraries": sorted(libs)}
     print("device " + json.dumps(device), flush=True)
 
-    if args.only in ("multidevice", "config_cli", "reference_ckpt"):
+    if args.only in ("multidevice", "config_cli", "reference_ckpt", "packs"):
         with tempfile.TemporaryDirectory() as tmp:
             if args.only == "reference_ckpt":
                 phase("reference_ckpt", phase_reference_ckpt, rf, sf, tmp, dev, smi)
@@ -3261,7 +3625,10 @@ def main() -> int:
             else:
                 fixture = generate_fixture(tmp, SyntheticSpec(
                     n_train=TRAIN_UTTS, n_dev=DEV_UTTS, n_eval=EVAL_UTTS))
-                phase("config_cli", phase_config_cli, rf, sf, fixture, tmp, smi)
+                if args.only == "packs":
+                    phase("packs", phase_packs, rf, sf, fixture, tmp, smi)
+                else:
+                    phase("config_cli", phase_config_cli, rf, sf, fixture, tmp, smi)
         print("phase_seconds " + json.dumps({**phase_s,
                                              "total": time.perf_counter() - t_start}))
         print(smi, flush=True)
@@ -3291,6 +3658,7 @@ def main() -> int:
                                                     for n in ("main", "main_fmsl")])
         config_cli = phase("config_cli", phase_config_cli, rf, sf, fixture, tmp, smi)
         ref_ckpt = phase("reference_ckpt", phase_reference_ckpt, rf, sf, tmp, dev, smi)
+        packs = phase("packs", phase_packs, rf, sf, fixture, tmp, smi, native)
         remat = phase("remat", lambda: [phase_remat(*c, sf, rf, dev, smi)
                                         for c in REMAT_CASES])
         fewshot = phase("fewshot", phase_fewshot, rf, tmp, smi)
@@ -3306,8 +3674,9 @@ def main() -> int:
     main_rate = phase("throughput_main", phase_throughput_main, dev, smi)
     card_rates += phase("throughput_w2v2", lambda: [phase_throughput(n, dev, smi, rf)
                                                     for n in W2V2_K1])
-    feed = {"card": smi, "loader_utt_per_s": {k: v["utt_per_s"]
-                                              for k, v in native["loader"].items()},
+    feed = {"card": smi, "loader_utt_per_s": {
+                **{k: v["utt_per_s"] for k, v in native["loader"].items()},
+                "pack": packs["d"]["loader"]["pack"]["utt_per_s"]},
             "card_eval_utt_per_s": {**{r["model"]: r["utt_per_s_k1"] for r in card_rates},
                                     "main": main_rate[f"utt_per_s_b{BENCH_BATCH}"]},
             "batch": BENCH_BATCH, "cut": CUT}
@@ -3319,7 +3688,7 @@ def main() -> int:
     print(smi, flush=True)
     print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front,
                                   main_path, train, fused_train, remat, fewshot, md,
-                                  config_cli, ref_ckpt)),
+                                  config_cli, ref_ckpt, packs)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -155,11 +155,14 @@ def test_restore_continues_and_evaluate_reads_the_checkpoint(runs, monkeypatch, 
                                                ("--train_pack", "p", "slice 9"),
                                                ("--log_dir", "d", "slice 9")])
 def test_later_flags_name_their_slice(flag, value, slice_, tmp_path, monkeypatch):
-    """The pack flags raise and name their slice (9). ``--config`` and
-    ``--log_dir`` are ported (tests/test_torch_config_io.py trains with them):
-    a missing YAML raises ``FileNotFoundError`` naming it, as adfmsl's
+    """Every flag here is ported. ``--config`` and ``--log_dir`` came with
+    slice 9's item 9a (tests/test_torch_config_io.py trains with them): a
+    missing YAML raises ``FileNotFoundError`` naming it, as adfmsl's
     ``load_yaml`` does, and ``--log_dir`` reaches the data stage, which fails
-    on the missing default train protocol before anything is written. Slice
+    on the missing default train protocol before anything is written. The
+    pack flags came with item 9d (tests/test_torch_pack.py trains from
+    packs): as in adfmsl, the train protocol is parsed before the pack is
+    opened, so ``--train_pack`` fails on the same missing protocol. Slice
     8's ``--data_parallel`` is ported (tests/test_torch_dp_trainer.py trains
     with it): asked for ``nccl`` ranks on the CPU, it reaches the launcher,
     which refuses and names ``gloo`` instead of switching backends. Each case
@@ -174,11 +177,8 @@ def test_later_flags_name_their_slice(flag, value, slice_, tmp_path, monkeypatch
     elif flag == "--config":
         with pytest.raises(FileNotFoundError, match=value):
             cli_train.main(argv)
-    elif flag == "--log_dir":
-        with pytest.raises(FileNotFoundError, match="ASVspoof2019.LA.cm.train.trn.txt"):
-            cli_train.main(argv)
     else:
-        with pytest.raises(NotImplementedError, match=slice_):
+        with pytest.raises(FileNotFoundError, match="ASVspoof2019.LA.cm.train.trn.txt"):
             cli_train.main(argv)
     assert os.listdir(tmp_path) == []
 
