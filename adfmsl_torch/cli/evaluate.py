@@ -2,7 +2,8 @@
 
     python -m adfmsl_torch.cli.evaluate --model_type maze5|main|... --protocol P \
         --data_dir D | --pack PK [--model_path CKPT_DIR] [--fused_frontend] \
-        [--device cuda] [--data_parallel N --dist_backend nccl|gloo] ...
+        [--device cuda] [--data_parallel N --dist_backend nccl|gloo] \
+        [--dump_embeddings E.npz] ...
 
 Port of ``adfmsl/cli/evaluate.py``: rebuilds the architecture, loads the
 checkpoint (``model.pt`` written by ``adfmsl_torch.models.save_checkpoint``;
@@ -14,10 +15,17 @@ unless ``--device cpu`` is given. ``--pack`` reads the protocol's clips from
 a pack of ``python -m adfmsl_torch.cli.pack`` instead of decoding
 ``--data_dir`` (adfmsl :117-134); the clip length is then the pack's.
 
+``--dump_embeddings NPZ`` (adfmsl :44-47, :154-182) also saves the pooled
+embeddings of the same forward as the scores: an ``.npz`` of ``utt_ids``,
+``features`` (N, D) and ``scores``, and for a model with an FMSL head its
+``prototypes`` and ``class_weights``, each row divided by its norm + 1e-12
+(``python -m adfmsl_torch.cli.analyze --embeddings`` reads it).
+
 ``--data_parallel N`` (N > 1) scores over N local ranks (``parallel/launch.py``;
 ``--dist_backend`` and ``--dist_timeout`` as in ``cli/train.py``): rank 0's
 weights are broadcast, each rank decodes and scores its row block of every
-batch, and rank 0 writes the score file, equal to the one-process file. Each rank prints a
+batch, and rank 0 writes the score file (and the ``--dump_embeddings`` file), equal to
+the one-process file. Each rank prints a
 ``rank_summary`` JSON line (its rows scored and kernel launches).
 """
 from __future__ import annotations
@@ -56,6 +64,10 @@ def build_parser():
                    help="run the trunk unfolded instead of through the K1 kernel")
     p.add_argument("--smoke_test", action="store_true",
                    help="synthetic forward-pass check before evaluation")
+    p.add_argument("--dump_embeddings", default=None, metavar="NPZ",
+                   help="also save per-utterance pooled embeddings (+ FMSL "
+                        "prototypes/class weights when present) for "
+                        "cli.analyze --embeddings")
     p.add_argument("--asv_scores", default=None, metavar="FILE",
                    help="organizers' ASV score file (target/nontarget/spoof "
                         "keys): derives the ASV operating point so min_tdcf "
@@ -193,12 +205,34 @@ def run(parser, args, device, mesh=None) -> int:
     if args.smoke_test and not smoke_test(model, exp.data.cut):
         return 1
     out_path = args.output or f"{args.model_type}_scores.txt"
+    # with --dump_embeddings the features ride the same forward as the scores
     res = evaluate_to_file(model, loader, out_path, labels=proto.labels or None,
-                           asv_scores=args.asv_scores, mesh=mesh)
-    if res.metrics and (mesh is None or mesh.rank == 0):
+                           asv_scores=args.asv_scores, mesh=mesh,
+                           collect_features=bool(args.dump_embeddings))
+    if mesh is not None and mesh.rank != 0:
+        return 0
+    if res.metrics:
         print({k: round(v, 6) if isinstance(v, float) else v
                for k, v in res.metrics.items()})
+    if args.dump_embeddings:
+        dump_embeddings(args.dump_embeddings, model, res)
     return 0
+
+
+def dump_embeddings(path: str, model, res) -> None:
+    """The ``.npz`` of ``--dump_embeddings``; an FMSL head's prototypes and
+    class weights normalised as the head uses them (``heads/fmsl.py``)."""
+    extras = {}
+    fmsl = getattr(model, "fmsl", None)
+    for key, name in (("prototypes", "prototypes"), ("weight", "class_weights")):
+        v = getattr(fmsl, key, None)
+        if v is not None:
+            v = v.detach().float().cpu().numpy()
+            extras[name] = v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-12)
+    np.savez(path, utt_ids=np.array(res.utt_ids), features=res.features,
+             scores=res.scores, **extras)
+    logging.info("dumped %d embeddings (dim %d) to %s",
+                 len(res.utt_ids), res.features.shape[-1], path)
 
 
 if __name__ == "__main__":

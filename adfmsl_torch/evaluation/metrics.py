@@ -30,13 +30,17 @@ def _warn_if_degenerate(scores: np.ndarray) -> None:
     s = np.asarray(scores, dtype=np.float64)
     if s.size >= 4:
         _, counts = np.unique(s, return_counts=True)
-        top = int(counts.max())
-        if top > s.size // 2:
-            log.warning(
-                "degenerate score distribution: %d/%d scores are exactly "
-                "equal (saturated log-softmax?); EER/DCF over ties is not "
-                "meaningful — deploy an earlier (best-dev) checkpoint",
-                top, s.size)
+        _warn_if_top_tie(int(counts.max()), s.size)
+
+
+def _warn_if_top_tie(top: int, size: int) -> None:
+    """The warning of ``_warn_if_degenerate`` from the largest tie's count."""
+    if size >= 4 and top > size // 2:
+        log.warning(
+            "degenerate score distribution: %d/%d scores are exactly "
+            "equal (saturated log-softmax?); EER/DCF over ties is not "
+            "meaningful — deploy an earlier (best-dev) checkpoint",
+            top, size)
 
 
 def roc_points(scores: np.ndarray, labels: np.ndarray

@@ -5,7 +5,7 @@ utterance, ``"{utt_id} {score}\\n"``, score = the class-1 (bonafide) log-prob/lo
 (written maze2.py:333-343, parsed score_file_processor.py:138-154)."""
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple
 
 
 def write_score_file(path: str, utt_ids: Iterable[str], scores: Iterable[float]) -> int:
@@ -35,3 +35,16 @@ def read_score_file(path: str) -> Dict[str, float]:
                 continue   # tolerate headers/garbage like the reference parser
     return out
 
+
+
+def join_scores_with_labels(scores: Dict[str, float], labels: Dict[str, int]
+                            ) -> Tuple[List[float], List[int], List[str]]:
+    """Inner-join on utt_id; returns (scores, labels, missing_utts)."""
+    s, y, missing = [], [], []
+    for u, v in scores.items():
+        if u in labels:
+            s.append(v)
+            y.append(labels[u])
+        else:
+            missing.append(u)
+    return s, y, missing

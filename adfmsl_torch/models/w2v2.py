@@ -394,19 +394,22 @@ def port_hf_state_dict(sd: dict, arch: W2V2Arch) -> dict:
     return p
 
 
+def read_hf_state_dict(path: str) -> "dict[str, np.ndarray]":
+    """A local HF checkpoint (.safetensors, torch .bin / .pt) as numpy arrays."""
+    if path.endswith(".safetensors"):
+        try:
+            from safetensors.numpy import load_file
+        except ImportError as e:
+            raise ImportError(f"reading {path} needs the 'safetensors' package") from e
+        return load_file(path)
+    return {k: v.numpy() for k, v in torch.load(path, map_location="cpu",
+                                                weights_only=True).items()}
+
+
 def load_pretrained(path: str, arch: W2V2Arch) -> "dict[str, torch.Tensor]":
     """A local HF checkpoint (.safetensors, torch .bin / .pt) -> the port's
     state dict of ``Wav2Vec2Encoder`` (adfmsl ``w2v2.py:294``, which returns
     the flax tree: here it goes on through ``state_dict_from_flax``)."""
     from adfmsl_torch.models.port import flax_tree_to_state_dict
 
-    if path.endswith(".safetensors"):
-        try:
-            from safetensors.numpy import load_file
-        except ImportError as e:
-            raise ImportError(f"reading {path} needs the 'safetensors' package") from e
-        sd = load_file(path)
-    else:
-        sd = {k: v.numpy() for k, v in torch.load(path, map_location="cpu",
-                                                  weights_only=True).items()}
-    return flax_tree_to_state_dict(port_hf_state_dict(sd, arch))
+    return flax_tree_to_state_dict(port_hf_state_dict(read_hf_state_dict(path), arch))

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only config_cli    # the build and phase 7f only
     python3 chip_smoke.py --only reference_ckpt   # the build and phase 7g only
     python3 chip_smoke.py --only packs      # the build and phase 7h only
+    python3 chip_smoke.py --only analysis   # the build and phase 7i only
 
 Phases, each printing its own lines:
 
@@ -265,6 +266,19 @@ Phases, each printing its own lines:
    rate the CLI printed; (e) ``cli.train --data_parallel 2 --dist_backend
    gloo --train_pack``, one epoch of 2 maze5 steps at a global batch of 12,
    the two ranks sharing the card: each rank's ``rank_summary`` line, exit 0;
+7i. analysis (``analysis``, run after 7h; ``phase_analysis``) on a fixture of
+   256 eval utterances at cut 64600: (a) maze5 and maze5_fmsl through
+   ``cli.evaluate`` at batch 128 with and without ``--dump_embeddings`` (K1
+   10 launches a run both times, byte-equal score files) and with
+   ``--no_fused_trunk`` (features within 3e-3 * max(1, |x|), unit FMSL
+   rows); (c) ``cli.batch`` of maze5 and main for one epoch at batch 12 (K3
+   and K3-bwd once a main step, K1 5 a maze5 and 6 a main dev or eval batch);
+   (b) ``cli.analyze`` with figures, embeddings and curves, its
+   ``--regression 0.001`` gate (rc 2), ``cli.compare`` at 1,000 resamples;
+   (d) the bootstrap's host seconds over 71,237 scores; (e) ``BNAct`` against
+   the f32 BN -> SELU composition at (16, 21450, 128) bf16: errors, ms of the
+   forward and of forward + backward, peak memory; (f) the base encoder's
+   msgpack export, reload and ``cli.convert --verify``. A line a part;
 8. one f32 train step of maze5 and of main at batch 2, cut 16000, randomness
    off, on the card and on the CPU from the same weights (TF32 off): loss
    within 1e-4 relative, gradients as in tests/test_torch_train_step.py
@@ -535,6 +549,12 @@ REF_SCORE_ATOL, REF_SCORE_RTOL = 5e-4, 1e-3
 PACK_NOISE_CLIPS, PACK_RIRS, PACK_RIR_LEN = 8, 4, 2048
 PACK_MD_UTTS = 2 * TRAIN_BATCH
 PACK_LIMIT = 300.0
+# the analysis phase: its eval fixture (two batches of BENCH_BATCH), the
+# bootstrap's resamples and the LA eval list's size and bonafide count, and
+# BNAct's case (maze5 block0 at batch 16) with its bf16 tolerance (x max(1, |ref|))
+ANALYSIS_UTTS = 2 * BENCH_BATCH
+BOOT_UTTS, BOOT_BONAFIDE, BOOT_RESAMPLES = 71237, 7355, 1000
+BNACT_SHAPE, BNACT_TOL = (16, 21450, 128), 2e-2
 
 
 def check(ok: bool, msg: str) -> None:
@@ -2249,6 +2269,393 @@ def phase_packs(rf, sf, fixture, tmp, card, native=None):
     return rec
 
 
+def _cli_quiet(main, argv):
+    """``main(argv)`` with its standard output captured: (rc, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+class _LaunchMarks(logging.Handler):
+    """Snapshots kernel launch counters whenever the batch CLI logs the start
+    of a model (``=== training <model> ===``)."""
+
+    def __init__(self, counters):
+        super().__init__(logging.INFO)
+        self.counters, self.marks = counters, []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("=== training "):
+            self.marks.append((msg.split()[2], {k: c.launches for k, c in
+                                                self.counters.items()}))
+
+
+def bn_act_case(dev):
+    """(e): ``BNAct`` in train mode at maze5 block0's shape, bf16, 'selu',
+    against the plain composition (f32 ``F.batch_norm`` -> SELU -> bf16 under
+    autograd) on the same input, weights and cotangent."""
+    from adfmsl_torch.ops import BNAct
+
+    b, t, c = BNACT_SHAPE
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.randn(b, t, c, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    dy = torch.randn(b, t, c, generator=g, device=dev).to(torch.bfloat16)
+    scale = torch.rand(c, generator=g, device=dev) + 0.5
+    bias = torch.randn(c, generator=g, device=dev) * 0.1
+    mod = BNAct(c, act="selu", dtype=torch.bfloat16).to(dev).train()
+    with torch.no_grad():
+        mod.scale.copy_(scale)
+        mod.bias.copy_(bias)
+    w, bb = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+
+    def plain(xx):
+        z = F.batch_norm(xx.float().reshape(-1, c), None, None, w, bb, training=True,
+                         eps=1e-5)
+        return F.selu(z).reshape(xx.shape).to(torch.bfloat16)
+
+    cases = (("bn_act", mod, [mod.scale, mod.bias]), ("composition", plain, [w, bb]))
+    outs = {}
+    for name, fn, params in cases:
+        xx = x.clone().requires_grad_()
+        y = fn(xx)
+        y.backward(dy)
+        outs[name] = [y.detach().float(), xx.grad.float()] + [p.grad.clone() for p in params]
+        for p in params:
+            p.grad = None
+    # one train-mode call from the initial statistics (0, 1): momentum 0.9 on
+    # the one-pass biased variance
+    xf = x.float().reshape(-1, c)
+    mean = xf.mean(0)
+    var = (xf * xf).mean(0) - mean * mean
+    stats_err = max(float((mod.mean - 0.1 * mean).abs().max()),
+                    float((mod.var - (0.9 + 0.1 * var)).abs().max()))
+    check(stats_err <= 1e-5 * max(1.0, float(var.abs().max())),
+          f"analysis (e): BNAct's running statistics off by {stats_err}")
+    rec = {"shape": list(BNACT_SHAPE), "dtype": "bfloat16", "act": "selu",
+           "running_stats_max_abs_err": stats_err, "errors": {}}
+    for i, key in enumerate(("y", "dx", "dscale", "dbias")):
+        got, ref = outs["bn_act"][i], outs["composition"][i]
+        tol = BNACT_TOL * max(1.0, float(ref.abs().max()))
+        rec["errors"][key] = {"max_abs_err": float((got - ref).abs().max()), "tol": tol}
+        check(bool(torch.isfinite(got).all()) and rec["errors"][key]["max_abs_err"] <= tol,
+              f"analysis (e): BNAct {key} {rec['errors'][key]}")
+    del outs
+    for name, fn, params in cases:
+        def forward(fn=fn):
+            with torch.no_grad():
+                fn(x)
+
+        def step(fn=fn, params=params):
+            fn(x.detach().requires_grad_()).backward(dy)
+            for p in params:
+                p.grad = None
+
+        rec[f"{name}_fwd_ms"] = cuda_ms(forward)
+        rec[f"{name}_fwd_bwd_ms"] = cuda_ms(step)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        xi = x.detach().requires_grad_()
+        yi = fn(xi)
+        rec[f"{name}_held_after_fwd_mib"] = (torch.cuda.memory_allocated() - base) / 2 ** 20
+        yi.backward(dy)
+        torch.cuda.synchronize()
+        rec[f"{name}_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del xi, yi
+        for p in params:
+            p.grad = None
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_analysis(rf, sf, tmp, card):
+    """Embeddings, the analysis layer, the batch CLI, the bootstrap, ``BNAct``
+    and the msgpack export on the card (``analysis``, phase 7i), on a fixture
+    of ``ANALYSIS_UTTS`` eval, ``TRAIN_UTTS`` train and ``DEV_UTTS`` dev
+    utterances at cut 64600, random weights from seed 0. (a) maze5 and
+    maze5_fmsl through ``cli.evaluate`` at batch 128, without and with
+    ``--dump_embeddings`` (K1 5 a batch both times, equal score files), then
+    ``--no_fused_trunk --dump_embeddings``: features (256, 1024), finite, the
+    K1 run's within 3e-3 * max(1, |x|) of the unfolded trunk's; maze5_fmsl's
+    prototypes and class weights unit rows within 1e-6. (c) ``cli.batch`` of
+    maze5 (``fused_eval_trunk``) and main (``fused_train_frontend``,
+    ``fused_eval_trunk``; each keeps its own ``extra`` keys), one epoch at batch
+    12: K3 and K3-bwd once a main train step, K1 5 a maze5 and 6 a main dev or
+    eval batch (counted between the CLI's per-model log lines); its
+    ``results.csv``, ``report.md`` and score files. (b) ``cli.analyze`` over
+    (a)'s two score files with ``--figures``, ``--embeddings`` on (a)'s dumps
+    and ``--curves`` on metric logs written from (c)'s checkpoints (rc 0, the
+    files it wrote), then ``--regression 0.001`` (rc 2: random weights miss
+    the thesis's EERs), then ``cli.compare`` of the two at 1,000 resamples;
+    without matplotlib the figures are left out and said so. (d) on the host,
+    ``bootstrap_metric`` and ``paired_bootstrap_test`` at 1,000 resamples over
+    71,237 seeded scores (the LA eval list's size and bonafide count): their
+    seconds. (e) ``bn_act_case``. (f) ``save_native`` of a random base
+    encoder's flax tree (from ``tests/torch_ref_nets.py:hf_layout_state_dict``), ``load_native`` and
+    ``flax_tree_to_state_dict`` into a fresh encoder on the card: its output on
+    a (4, 64600) batch equals the original's bit for bit; ``cli.convert
+    --verify`` of the same HF-layout checkpoint writes the same bytes."""
+    import yaml
+
+    from adfmsl_torch.cli import analyze, batch, compare, convert, evaluate
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.data import SyntheticSpec, generate_fixture
+    from adfmsl_torch.evaluation import bootstrap_metric, paired_bootstrap_test
+    from adfmsl_torch.models.port import flax_tree_to_state_dict
+    from adfmsl_torch.models.pretrained import load_native, save_native
+    from adfmsl_torch.models.w2v2 import W2V2Arch, Wav2Vec2Encoder, port_hf_state_dict
+    from adfmsl_torch.train import CheckpointManager
+    from adfmsl_torch.utils import MetricsLogger
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    root = os.path.join(tmp, "analysis")
+    fx = generate_fixture(os.path.join(root, "fixture"), SyntheticSpec(
+        n_train=TRAIN_UTTS, n_dev=DEV_UTTS, n_eval=ANALYSIS_UTTS))
+    tr, dv, ev = fx["train"], fx["dev"], fx["eval"]
+    rec = {"card": card, "cut": CUT}
+    try:
+        import matplotlib  # noqa: F401  (host-only figures)
+        figures = True
+    except ImportError:
+        figures = False
+        print("figures: matplotlib not installed", flush=True)
+
+    # (a)
+    t_part = time.perf_counter()
+    scores_dir = os.path.join(root, "scores")
+    n_batches = -(-ANALYSIS_UTTS // BENCH_BATCH)
+    rec["a"], dumps = {}, []
+    for name in ("maze5", "maze5_fmsl"):
+        common = ["--model_type", name, "--protocol", ev["protocol"], "--data_dir",
+                  ev["audio_dir"], "--batch_size", str(BENCH_BATCH), "--cut", str(CUT),
+                  "--device", "cuda", "--seed", "0"]
+        runs = {}
+        for key, extra in (("plain", []), ("dump", []), ("unfolded", ["--no_fused_trunk"])):
+            out = (os.path.join(scores_dir, f"{name}_scores.txt") if key == "dump"
+                   else os.path.join(root, f"{name}_{key}_scores.txt"))
+            npz = os.path.join(root, f"{name}_{key}.npz")
+            argv = common + ["--output", out] + extra + (
+                ["--dump_embeddings", npz] if key != "plain" else [])
+            rf.resblock_eval.launches = 0
+            t0 = time.perf_counter()
+            rc, _ = _cli_quiet(evaluate.main, argv)
+            torch.cuda.synchronize()
+            runs[key] = {"k1": rf.resblock_eval.launches, "out": out, "npz": npz,
+                         "wall_s": time.perf_counter() - t0}
+            check(rc == 0, f"analysis (a): {name} evaluate {key} exited {rc}")
+        with open(runs["plain"]["out"], "rb") as a, open(runs["dump"]["out"], "rb") as b:
+            same = a.read() == b.read()
+        with np.load(runs["dump"]["npz"]) as z, np.load(runs["unfolded"]["npz"]) as u:
+            files = sorted(z.files)
+            ids, feats, feats_u = [str(s) for s in z["utt_ids"]], z["features"], u["features"]
+            units = {k: float(np.abs(np.linalg.norm(z[k], axis=-1) - 1.0).max())
+                     for k in ("prototypes", "class_weights") if k in z.files}
+        feat_tol = 3e-3 * max(1.0, float(np.abs(feats_u).max()))
+        r = {"card": card, "batch": BENCH_BATCH, "utterances": ANALYSIS_UTTS, "batches": n_batches,
+             "k1_launches": runs["dump"]["k1"], "k1_launches_without_flag": runs["plain"]["k1"],
+             "k1_launches_no_fused_trunk": runs["unfolded"]["k1"],
+             "score_files_identical": same, "npz_keys": files,
+             "features_shape": list(feats.shape),
+             "features_max_abs_err_vs_unfolded": float(np.abs(feats - feats_u).max()),
+             "features_tol": feat_tol, "unit_row_max_err": units,
+             "wall_s": {k: v["wall_s"] for k, v in runs.items()}}
+        rec["a"][name] = r
+        print(f"analysis_a_{name} " + json.dumps(r), flush=True)
+        check(runs["plain"]["k1"] == runs["dump"]["k1"] == K1_MAZE5 * n_batches
+              and runs["unfolded"]["k1"] == 0,
+              f"analysis (a): {name} K1 launches {r['k1_launches_without_flag']} / "
+              f"{r['k1_launches']} / {r['k1_launches_no_fused_trunk']}")
+        check(same, f"analysis (a): {name}'s score file differs with --dump_embeddings")
+        check(ids == ev["utt_ids"] and feats.shape == (ANALYSIS_UTTS, 1024)
+              and bool(np.isfinite(feats).all()), f"analysis (a): {name} features {feats.shape}")
+        check(r["features_max_abs_err_vs_unfolded"] <= feat_tol,
+              f"analysis (a): {name} features off the unfolded trunk's")
+        check(len(units) == (2 if name.endswith("_fmsl") else 0)
+              and all(v <= 1e-6 for v in units.values()),
+              f"analysis (a): {name} prototype / class weight rows {units}")
+        dumps.append(runs["dump"]["npz"])
+    rec["a"]["wall_s"] = time.perf_counter() - t_part
+
+    # (c)
+    t_part = time.perf_counter()
+    extras = {"maze5": {"fused_eval_trunk": True},
+              "main": {**K3_TRAIN, "fused_eval_trunk": True}}
+    plan = {"models": ["maze5", "main"],
+            "overrides": {"train.num_epochs": 1, "train.batch_size": TRAIN_BATCH,
+                          "train.eval_batch_size": BENCH_BATCH, "data.cut": CUT},
+            "per_model": {m: {"model.extra": {**make_experiment(m).model.extra, **e}}
+                          for m, e in extras.items()}}
+    plan_path = os.path.join(root, "plan.yaml")
+    with open(plan_path, "w") as fh:
+        yaml.safe_dump(plan, fh)
+    out_dir = os.path.join(root, "batch_out")
+    counters = {"k1": rf.resblock_eval, "k3": sf.sinc_abs_pool_fused,
+                "k3_bwd": sf.sinc_abs_pool_bwd}
+    for c in counters.values():
+        c.launches = 0
+    marks = _LaunchMarks(counters)
+    logging.getLogger().addHandler(marks)
+    try:
+        with root_log_lines():
+            rc, text = _cli_quiet(batch.main, [
+                "--config", plan_path, "--train_protocol", tr["protocol"],
+                "--train_dir", tr["audio_dir"], "--dev_protocol", dv["protocol"],
+                "--dev_dir", dv["audio_dir"], "--eval_protocol", ev["protocol"],
+                "--eval_dir", ev["audio_dir"], "--output_dir", out_dir, "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger().removeHandler(marks)
+    check(rc == 0, f"analysis (c): cli.batch exited {rc}")
+    end = {k: c.launches for k, c in counters.items()}
+    starts = [m[1] for m in marks.marks] + [end]
+    by_model = {m[0]: {k: starts[i + 1][k] - starts[i][k] for k in counters}
+                for i, m in enumerate(marks.marks)}
+    steps = TRAIN_UTTS // TRAIN_BATCH
+    eval_batches = -(-DEV_UTTS // BENCH_BATCH) + n_batches    # dev pass + eval protocol
+    want = {"maze5": {"k1": K1_MAZE5 * eval_batches, "k3": 0, "k3_bwd": 0},
+            "main": {"k1": 6 * eval_batches, "k3": steps, "k3_bwd": steps}}
+    written = sorted(os.listdir(out_dir)) + sorted(
+        f"scores/{f}" for f in os.listdir(os.path.join(out_dir, "scores")))
+    score_ok = {}
+    for m in plan["models"]:
+        ids, s = _read_scores(os.path.join(out_dir, "scores", f"{m}_scores.txt"))
+        score_ok[m] = ids == ev["utt_ids"] and bool(np.isfinite(s).all())
+    rec["c"] = {"card": card, "plan": plan, "train_batch": TRAIN_BATCH, "steps_per_model": steps,
+                "eval_batch": BENCH_BATCH, "dev_and_eval_batches": eval_batches,
+                "launches": by_model, "expected": want, "files": written,
+                "summary": text.strip().splitlines()[-2:],
+                "wall_s": time.perf_counter() - t_part}
+    print("analysis_c " + json.dumps(rec["c"]), flush=True)
+    check(by_model == want, f"analysis (c): launches {by_model}, expected {want}")
+    check(all(score_ok.values()), f"analysis (c): score files {score_ok}")
+    check({"results.csv", "report.md", "scores/maze5_scores.txt",
+           "scores/main_scores.txt"} <= set(written), f"analysis (c): wrote {written}")
+
+    # (b)
+    t_part = time.perf_counter()
+    logs = []
+    for m in plan["models"]:
+        mgr = CheckpointManager(os.path.join(out_dir, "ckpts", m))
+        d = os.path.join(root, "logs", m)
+        log = MetricsLogger(d, also_tensorboard=False)
+        for e in mgr.all_epochs():
+            met = mgr.metrics(e)
+            log.add_scalars({"train/loss": met["train_loss"], "train/acc": met["train_acc"],
+                             "dev/acc": met["dev_acc"]}, e)
+        log.close()
+        logs += ["--curves", d]
+    an_dir = os.path.join(root, "analyze_out")
+    base = ["--scores_dir", scores_dir, "--protocol", ev["protocol"], "--output_dir", an_dir]
+    extra = ["--figures", *[a for p in dumps for a in ("--embeddings", p)], *logs]
+    rc0, text0 = _cli_quiet(analyze.main, base + (extra if figures else []))
+    files = sorted(os.listdir(an_dir))
+    rc2, text2 = _cli_quiet(analyze.main, base + ["--regression", "0.001"])
+    cmp_dir = os.path.join(root, "compare_out")
+    t0 = time.perf_counter()
+    rc_cmp, text_cmp = _cli_quiet(compare.main, [
+        "--scores_a", os.path.join(scores_dir, "maze5_scores.txt"),
+        "--scores_b", os.path.join(scores_dir, "maze5_fmsl_scores.txt"),
+        "--protocol", ev["protocol"], "--output_dir", cmp_dir,
+        "--n_resamples", str(BOOT_RESAMPLES), *([] if figures else ["--no_figures"])])
+    cmp_s = time.perf_counter() - t0
+    want_files = {"processed_performance_data.json", "results.csv", "results.tex",
+                  "report.md"}
+    if figures:
+        want_files |= {"roc.png", "det.png", "model_comparison.png", "maze5_score_dist.png",
+                       "maze5_fmsl_score_dist.png", "trend_visualizations.png",
+                       "comprehensive_histogram.png", "training_curves.png",
+                       *(f"embedding_geometry_{os.path.splitext(os.path.basename(p))[0]}.png"
+                         for p in dumps)}
+    rec["b"] = {"card": card, "figures": figures, "analyze_rc": rc0, "files": files,
+                "regression_rc": rc2,
+                "regression_lines": [ln for ln in text2.splitlines()
+                                     if ln.startswith("regression")],
+                "compare_rc": rc_cmp, "compare_files": sorted(os.listdir(cmp_dir)),
+                "compare_s": cmp_s, "compare_resamples": BOOT_RESAMPLES,
+                "compare_verdict": [ln for ln in text_cmp.splitlines()
+                                    if ln.startswith(("Paired", "**Better"))],
+                "wall_s": time.perf_counter() - t_part}
+    print("analysis_b " + json.dumps(rec["b"]), flush=True)
+    check(rc0 == 0 and want_files <= set(files), f"analysis (b): analyze rc {rc0}, {files}")
+    check(rc2 == 2, f"analysis (b): --regression 0.001 returned {rc2}, expected 2")
+    check(rc_cmp == 0 and "comparison.md" in rec["b"]["compare_files"],
+          f"analysis (b): compare rc {rc_cmp}")
+
+    # (d)
+    rng = np.random.default_rng(0)
+    y = np.zeros(BOOT_UTTS, dtype=int)
+    y[rng.choice(BOOT_UTTS, BOOT_BONAFIDE, replace=False)] = 1
+    sa, sb = y * 2.0 + rng.normal(0, 1, BOOT_UTTS), y * 1.5 + rng.normal(0, 1, BOOT_UTTS)
+    t0 = time.perf_counter()
+    boot = bootstrap_metric(sa, y, n_resamples=BOOT_RESAMPLES, seed=0)
+    boot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paired = paired_bootstrap_test(sa, sb, y, n_resamples=BOOT_RESAMPLES, seed=0)
+    paired_s = time.perf_counter() - t0
+    rec["d"] = {"card": card, "utterances": BOOT_UTTS, "bonafide": BOOT_BONAFIDE,
+                "resamples": BOOT_RESAMPLES, "cpu_count": os.cpu_count(),
+                "bootstrap_metric_s": boot_s, "paired_bootstrap_test_s": paired_s,
+                "eer": [boot.point, boot.ci_low, boot.ci_high], "paired": paired}
+    print("analysis_d " + json.dumps(rec["d"]), flush=True)
+    check(boot.ci_low <= boot.point <= boot.ci_high and 0 <= paired["p_value"] <= 1,
+          f"analysis (d): {rec['d']}")
+
+    # (e)
+    rec["e"] = {"card": card, **bn_act_case(dev)}
+    print("analysis_e " + json.dumps(rec["e"]), flush=True)
+
+    # (f)
+    t_part = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_ref_nets import hf_layout_state_dict
+
+    arch = W2V2Arch.base()
+    hf = hf_layout_state_dict(arch, seed=0)
+    hf_path = os.path.join(root, "w2v2_hf.bin")
+    torch.save(hf, hf_path)
+    tree = port_hf_state_dict({k: v.numpy() for k, v in hf.items()}, arch)
+    native = os.path.join(root, "w2v2_base.msgpack")
+    t0 = time.perf_counter()
+    save_native(tree, native)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_native(native)
+    load_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, CUT))
+                         .astype(np.float32)).to(dev)
+    outs = []
+    for t in (tree, back):
+        enc = Wav2Vec2Encoder(arch, normalize_input=False).to(dev).eval()
+        enc.load_state_dict(flax_tree_to_state_dict(t), strict=True)
+        with torch.inference_mode():
+            outs.append(enc(x))
+        del enc
+    conv_path = os.path.join(root, "w2v2_convert.msgpack")
+    rc, text = _cli_quiet(convert.main, ["--torch_ckpt", hf_path, "--arch", "base", "--out",
+                                         conv_path, "--verify", "--device", "cuda"])
+    with open(native, "rb") as a, open(conv_path, "rb") as b:
+        same_file = a.read() == b.read()
+    rec["f"] = {"card": card, "arch": "base", "params": int(sum(v.numel() for v in hf.values())),
+                "file_bytes": os.path.getsize(native), "save_s": save_s, "load_s": load_s,
+                "batch": [4, CUT], "output_shape": list(outs[0].shape),
+                "outputs_identical": bool(torch.equal(outs[0], outs[1])),
+                "finite": bool(torch.isfinite(outs[0]).all()), "convert_rc": rc,
+                "convert_lines": text.strip().splitlines(),
+                "convert_file_identical": same_file, "wall_s": time.perf_counter() - t_part}
+    print("analysis_f " + json.dumps(rec["f"]), flush=True)
+    check(rec["f"]["outputs_identical"] and rec["f"]["finite"],
+          "analysis (f): the reloaded encoder's output differs")
+    check(rc == 0 and same_file, f"analysis (f): cli.convert rc {rc}, same file {same_file}")
+    del outs, back, tree
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
 def _ref_net(name, nets):
     """The independent torch reference of ``name`` (tests/torch_ref_nets.py);
     column 1 of its output (a log-softmax, or maze4_fmsl's raw logits) is the
@@ -3332,7 +3739,7 @@ def _k3_bwd_main(k3b, precision):
 
 
 def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, train,
-                 fused_train, remat, fewshot, md, config_cli, ref_ckpt, packs):
+                 fused_train, remat, fewshot, md, config_cli, ref_ckpt, packs, analysis):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -3360,7 +3767,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     through ``cli.evaluate`` (no kernel: f32 reference parity) and main's
     fine-tuning from the converted checkpoint (K3, K3-bwd). The packs phase's:
     maze5 scored from a pack (K1), RawNet main trained from packs through the
-    train CLI and augmented through the ``Trainer`` (K3, K3-bwd)."""
+    train CLI and augmented through the ``Trainer`` (K3, K3-bwd). The analysis
+    phase's: maze5 and maze5_fmsl through ``cli.evaluate --dump_embeddings``
+    (K1), and ``cli.batch``'s maze5 (K1 on its dev and eval batches) and main
+    (K3, K3-bwd in its train steps, K1 on its dev and eval batches)."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
     k4_main = _k4_main(k4, BENCH_BATCH, "high")
     k4_big = _k4_main(k4, 384, "high")
@@ -3424,6 +3834,13 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
                 "main Trainer from a pack, augmented":
                     packs["c"]["augmented_k3_bwd_launches"],
                 "main Trainer from a pack, no banks": packs["c"]["plain_k3_bwd_launches"]}
+    batch_k = analysis["c"]["launches"]
+    k1_analysis = {**{f"{m} cli.evaluate --dump_embeddings": analysis["a"][m]["k1_launches"]
+                      for m in ("maze5", "maze5_fmsl")},
+                   **{f"{m} cli.batch (fused_eval_trunk)": batch_k[m]["k1"]
+                      for m in ("maze5", "main")}}
+    k3_analysis = {"main cli.batch (fused_train_frontend)": batch_k["main"]["k3"]}
+    k3b_analysis = {"main cli.batch (fused_train_frontend)": batch_k["main"]["k3_bwd"]}
     k3b_main = {p: _k3_bwd_main(k3b, p) for p in K3_BWD_TOL}
     k3t_main = next(r for r in k3_train if r["B"] == TRAIN_BATCH and r["T"] == CUT)
     return {"kernels": [{
@@ -3433,10 +3850,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "launches": (sum(r["k1_launches"] for r in main_path) + sum(k1_train.values())
                      + sum(k1_fewshot.values()) + sum(k1_md.values())
                      + sum(k1_cfg.values()) + sum(k1_ref.values())
-                     + sum(k1_pack.values())),
+                     + sum(k1_pack.values()) + sum(k1_analysis.values())),
         "launches_by_path": {**{r["model"]: r["k1_launches"] for r in main_path},
                              **k1_train, **k1_fewshot, **k1_md, **k1_cfg, **k1_ref,
-                             **k1_pack},
+                             **k1_pack, **k1_analysis},
         "max_abs_err": max(r["max_abs_err_y"] for r in k1),
         "max_err_over_tol": max(max(r["max_abs_err_y"] / r["tol_y"],
                                     r["max_abs_err_sums"] / r["tol_sums"]) for r in k1),
@@ -3485,10 +3902,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
         "launches": (sum(r["k3_launches"] for r in main_path) + sum(k3_eval_train.values())
                      + sum(k3_fused.values()) + sum(k3_remat.values())
                      + sum(k3_md.values()) + sum(k3_cfg.values()) + sum(k3_ref.values())
-                     + sum(k3_pack.values())),
+                     + sum(k3_pack.values()) + sum(k3_analysis.values())),
         "launches_by_path": {**{r["model"]: r["k3_launches"] for r in main_path},
                              **k3_eval_train, **k3_fused, **k3_remat, **k3_md, **k3_cfg,
-                             **k3_ref, **k3_pack},
+                             **k3_ref, **k3_pack, **k3_analysis},
         "max_abs_err": max(r["max_abs_err"] for r in k3),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3),
         **_summed([k3_main]),
@@ -3506,9 +3923,9 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
                     "sinc_abs_pool :138)",
         "launches": (sum(k3b_fused.values()) + sum(k3b_remat.values())
                      + sum(k3b_md.values()) + sum(k3b_cfg.values()) + sum(k3b_ref.values())
-                     + sum(k3b_pack.values())),
+                     + sum(k3b_pack.values()) + sum(k3b_analysis.values())),
         "launches_by_path": {**k3b_fused, **k3b_remat, **k3b_md, **k3b_cfg, **k3b_ref,
-                             **k3b_pack},
+                             **k3b_pack, **k3b_analysis},
         "max_abs_err": max(r["max_abs_err"] for r in k3b),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in k3b),
         **_summed([k3b_main["tf32"]]),
@@ -3556,12 +3973,12 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernels", "k2", "multidevice", "config_cli",
-                                       "reference_ckpt", "packs"],
+                                       "reference_ckpt", "packs", "analysis"],
                     default=None,
                     help="kernels: only the build and the kernels phase; k2: only "
                          "K2's library and cases; multidevice / config_cli / "
-                         "reference_ckpt / packs: only the build and that phase (none "
-                         "of them ends in an {\"ok\": ...} line)")
+                         "reference_ckpt / packs / analysis: only the build and that "
+                         "phase (none of them ends in an {\"ok\": ...} line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3614,10 +4031,12 @@ def main() -> int:
               "build_s": phase_s["build"], "libraries": sorted(libs)}
     print("device " + json.dumps(device), flush=True)
 
-    if args.only in ("multidevice", "config_cli", "reference_ckpt", "packs"):
+    if args.only in ("multidevice", "config_cli", "reference_ckpt", "packs", "analysis"):
         with tempfile.TemporaryDirectory() as tmp:
             if args.only == "reference_ckpt":
                 phase("reference_ckpt", phase_reference_ckpt, rf, sf, tmp, dev, smi)
+            elif args.only == "analysis":
+                phase("analysis", phase_analysis, rf, sf, tmp, smi)
             elif args.only == "multidevice":
                 fixture = generate_fixture(tmp, SyntheticSpec(n_train=2, n_dev=2,
                                                               n_eval=EVAL_UTTS))
@@ -3659,6 +4078,7 @@ def main() -> int:
         config_cli = phase("config_cli", phase_config_cli, rf, sf, fixture, tmp, smi)
         ref_ckpt = phase("reference_ckpt", phase_reference_ckpt, rf, sf, tmp, dev, smi)
         packs = phase("packs", phase_packs, rf, sf, fixture, tmp, smi, native)
+        analysis = phase("analysis", phase_analysis, rf, sf, tmp, smi)
         remat = phase("remat", lambda: [phase_remat(*c, sf, rf, dev, smi)
                                         for c in REMAT_CASES])
         fewshot = phase("fewshot", phase_fewshot, rf, tmp, smi)
@@ -3688,7 +4108,7 @@ def main() -> int:
     print(smi, flush=True)
     print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front,
                                   main_path, train, fused_train, remat, fewshot, md,
-                                  config_cli, ref_ckpt, packs)),
+                                  config_cli, ref_ckpt, packs, analysis)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

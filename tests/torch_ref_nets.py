@@ -11,7 +11,9 @@ Copied from ``tests/test_port.py``: ``TSinc`` :29, ``TSE`` :58, ``TRes`` :69,
 (maze4_fmsl_standardized.py:216-347, the keys adfmsl's ``models/port.py:
 332-353`` maps) from those parts, with ``TMaze7``'s FMSL head (:444-447).
 ``randomize`` draws every weight and BatchNorm statistic from a
-``torch.Generator``.
+``torch.Generator``. ``hf_layout_state_dict`` is a random HF Wav2Vec2
+checkpoint of any encoder arch, for the msgpack export (``chip_smoke.py``'s
+``analysis`` phase, ``tests/test_torch_native_export.py``).
 """
 import math
 
@@ -283,3 +285,40 @@ def randomize(model: tnn.Module, generator: torch.Generator) -> tnn.Module:
             normal_(m.weight, 1.0)
             m.temperature.fill_(1.0)
     return model
+
+
+def hf_layout_state_dict(arch, seed):
+    """A random HF ``Wav2Vec2Model`` state dict of ``arch`` (a ``W2V2Arch``;
+    'group' feature norm, the positional conv's weight_g / weight_v spelling),
+    as ``port_hf_state_dict`` of either package reads it: nothing is
+    downloaded."""
+    g = torch.Generator().manual_seed(seed)
+    h, f = arch.hidden_size, arch.intermediate_size
+    k_pos = arch.num_conv_pos_embeddings
+    shapes = {"feature_projection.layer_norm.weight": (arch.conv_dim[-1],),
+              "feature_projection.layer_norm.bias": (arch.conv_dim[-1],),
+              "feature_projection.projection.weight": (h, arch.conv_dim[-1]),
+              "feature_projection.projection.bias": (h,),
+              "encoder.pos_conv_embed.conv.weight_g": (1, 1, k_pos),
+              "encoder.pos_conv_embed.conv.weight_v":
+                  (h, h // arch.num_conv_pos_embedding_groups, k_pos),
+              "encoder.pos_conv_embed.conv.bias": (h,),
+              "encoder.layer_norm.weight": (h,), "encoder.layer_norm.bias": (h,),
+              "feature_extractor.conv_layers.0.layer_norm.weight": (arch.conv_dim[0],),
+              "feature_extractor.conv_layers.0.layer_norm.bias": (arch.conv_dim[0],)}
+    for i, (c, k) in enumerate(zip(arch.conv_dim, arch.conv_kernel)):
+        shapes[f"feature_extractor.conv_layers.{i}.conv.weight"] = (
+            c, arch.conv_dim[i - 1] if i else 1, k)
+    for i in range(arch.num_layers):
+        e = f"encoder.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            shapes[f"{e}.attention.{proj}.weight"] = (h, h)
+            shapes[f"{e}.attention.{proj}.bias"] = (h,)
+        for norm in ("layer_norm", "final_layer_norm"):
+            shapes[f"{e}.{norm}.weight"] = shapes[f"{e}.{norm}.bias"] = (h,)
+        shapes[f"{e}.feed_forward.intermediate_dense.weight"] = (f, h)
+        shapes[f"{e}.feed_forward.intermediate_dense.bias"] = (f,)
+        shapes[f"{e}.feed_forward.output_dense.weight"] = (h, f)
+        shapes[f"{e}.feed_forward.output_dense.bias"] = (h,)
+    return {k: torch.randn(v, generator=g) * 0.05 for k, v in shapes.items()}
+
