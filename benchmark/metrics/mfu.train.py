@@ -1,0 +1,15 @@
+"""The whole train step's share of the card's bf16 peak: one utterance's
+forward products plus the backward's input and weight products (the
+configuration's reference's ``train_flops``), times the rows of the window's
+steps, over the traced window's seconds and 989 TFLOP/s (H100 SXM, dense
+bf16)."""
+from benchlib.roofline import PEAKS
+
+UNIT = "%"
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.trace.kernels or not ctx.rows or ctx.window_s <= 0:
+        return None
+    flops = ctx.ref.train_flops(ctx.cell.config, ctx.cell.traffic["cut"]) * ctx.rows
+    return 100.0 * flops / ctx.window_s / PEAKS["bf16_flops"]
