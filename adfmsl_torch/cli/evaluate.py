@@ -3,7 +3,7 @@
     python -m adfmsl_torch.cli.evaluate --model_type maze5|main|... --protocol P \
         --data_dir D | --pack PK [--model_path CKPT_DIR] [--fused_frontend] \
         [--device cuda] [--data_parallel N --dist_backend nccl|gloo] \
-        [--dump_embeddings E.npz] ...
+        [--dump_embeddings E.npz] [--profile_dir D] ...
 
 Port of ``adfmsl/cli/evaluate.py``: rebuilds the architecture, loads the
 checkpoint (``model.pt`` written by ``adfmsl_torch.models.save_checkpoint``;
@@ -26,11 +26,18 @@ embeddings of the same forward as the scores: an ``.npz`` of ``utt_ids``,
 weights are broadcast, each rank decodes and scores its row block of every
 batch, and rank 0 writes the score file (and the ``--dump_embeddings`` file), equal to
 the one-process file. Each rank prints a
-``rank_summary`` JSON line (its rows scored and kernel launches).
+``rank_summary`` JSON line (its kernel launches and the port's counters:
+``host_syncs``, ``loader.*``; ``utils/profiling.py``).
+
+``--profile_dir D`` writes a ``torch.profiler`` Chrome trace of the scoring
+(``D/<host>_<pid>.pt.trace.json``, one a rank) that holds the port's spans:
+``stage.model.*``, ``stage.k1.weights``, ``stage.loader.get``,
+``stage.runner.drain``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -73,6 +80,9 @@ def build_parser():
                         "keys): derives the ASV operating point so min_tdcf "
                         "is the OFFICIAL computation")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the scoring pass here, "
+                        "with the port's stage spans")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random init when no --model_path is given")
     p.add_argument("--data_parallel", type=int, default=0,
@@ -134,6 +144,7 @@ def _rank_main(device, argv) -> int:
     """One rank of ``--data_parallel``."""
     from adfmsl_torch.config import MeshConfig
     from adfmsl_torch.parallel import kernel_launches, make_mesh
+    from adfmsl_torch.utils.profiling import totals
 
     logging.basicConfig(level=logging.INFO)
     parser = build_parser()
@@ -141,7 +152,8 @@ def _rank_main(device, argv) -> int:
     mesh = make_mesh(MeshConfig(data_parallel=args.data_parallel), args.data_parallel)
     rc = run(parser, args, device, mesh)
     print("rank_summary " + json.dumps({"rank": mesh.rank, "device": str(device),
-                                        "kernel_launches": kernel_launches()}), flush=True)
+                                        "kernel_launches": kernel_launches(),
+                                        "counters": totals()}), flush=True)
     return rc
 
 
@@ -205,10 +217,15 @@ def run(parser, args, device, mesh=None) -> int:
     if args.smoke_test and not smoke_test(model, exp.data.cut):
         return 1
     out_path = args.output or f"{args.model_type}_scores.txt"
-    # with --dump_embeddings the features ride the same forward as the scores
-    res = evaluate_to_file(model, loader, out_path, labels=proto.labels or None,
-                           asv_scores=args.asv_scores, mesh=mesh,
-                           collect_features=bool(args.dump_embeddings))
+    with contextlib.ExitStack() as stack:
+        if args.profile_dir:
+            from adfmsl_torch.utils import trace
+
+            stack.enter_context(trace(args.profile_dir))
+        # with --dump_embeddings the features ride the same forward as the scores
+        res = evaluate_to_file(model, loader, out_path, labels=proto.labels or None,
+                               asv_scores=args.asv_scores, mesh=mesh,
+                               collect_features=bool(args.dump_embeddings))
     if mesh is not None and mesh.rank != 0:
         return 0
     if res.metrics:

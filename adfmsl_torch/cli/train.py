@@ -40,7 +40,8 @@ is ``nccl`` (one card a rank; more ranks than cards raises) or ``gloo``
 (ranks may share a card, or run on the CPU with ``--device cpu``). The run
 has no time limit; a collective that waits ``--dist_timeout`` seconds fails
 its rank, and a failed rank fails the run. Each rank prints a
-``rank_summary`` JSON line with its kernel launches. Rank 0 alone writes
+``rank_summary`` JSON line with its kernel launches and the port's counters
+(``host_syncs``, ``loader.*``; ``utils/profiling.py``). Rank 0 alone writes
 ``experiment.yaml`` and ``metrics.jsonl``; with ``--profile_dir`` every rank
 writes its own trace (named by host and process id).
 """
@@ -124,13 +125,15 @@ def _rank_main(device, argv) -> None:
     """One rank of ``--data_parallel``."""
     from adfmsl_torch.config import MeshConfig
     from adfmsl_torch.parallel import kernel_launches, make_mesh
+    from adfmsl_torch.utils.profiling import totals
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
     mesh = make_mesh(MeshConfig(data_parallel=args.data_parallel), args.data_parallel)
     run(args, device, mesh)
     print("rank_summary " + json.dumps({"rank": mesh.rank, "device": str(device),
-                                        "kernel_launches": kernel_launches()}), flush=True)
+                                        "kernel_launches": kernel_launches(),
+                                        "counters": totals()}), flush=True)
 
 
 def run(args, device, mesh=None) -> int:

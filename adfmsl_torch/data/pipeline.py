@@ -40,6 +40,7 @@ from adfmsl_torch.data.audio import load_audio
 from adfmsl_torch.data.pad import pad
 from adfmsl_torch.data.protocol import Protocol
 from adfmsl_torch.io_native import batch_decode_pad
+from adfmsl_torch.utils.profiling import annotate, count
 
 log = logging.getLogger(__name__)
 
@@ -259,8 +260,11 @@ class DataLoader:
             return _make_block(self.ds, c, self.batch_size, self.rank, self.world)
 
         if self.prefetch <= 0:
-            for c in chunks:
-                yield make(c)
+            for i, c in enumerate(chunks):
+                _counted_get(0)
+                with annotate("stage.loader.get", i):
+                    batch = make(c)
+                yield batch
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -293,12 +297,21 @@ class DataLoader:
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
-                if item is None:
-                    break
+            # one get a chunk: the worker's closing None is never waited for
+            for i in range(len(chunks)):
+                _counted_get(q.qsize())
+                with annotate("stage.loader.get", i):
+                    item = q.get()
                 if isinstance(item, Exception):
                     raise item
                 yield item
         finally:
             stop.set()
+
+
+def _counted_get(ready: int) -> None:
+    """The loader's counters at a get that found ``ready`` batches queued."""
+    count("loader.gets")
+    count("loader.ready", ready)
+    if not ready:
+        count("loader.empty_gets")

@@ -34,6 +34,7 @@ import torch.distributed as dist
 from adfmsl_torch.data.pipeline import DataLoader
 from adfmsl_torch.evaluation.metrics import compute_all_metrics
 from adfmsl_torch.evaluation.scores import write_score_file
+from adfmsl_torch.utils.profiling import annotate, count_sync
 
 log = logging.getLogger(__name__)
 
@@ -85,6 +86,7 @@ def gather_rows(mesh, blocks: List[torch.Tensor], global_sizes: List[int]) -> np
         buf[start:start + b] = blk.float()
         off += n
     dist.all_reduce(buf, group=mesh.data_group)
+    count_sync(buf)
     return buf.cpu().numpy()
 
 
@@ -92,6 +94,7 @@ def _host_rows(mesh, pending, slot: int) -> List[np.ndarray]:
     """Each batch's ``pending[i][slot]`` on the host as float32: gathered from
     every rank under ``mesh``."""
     if mesh is None:
+        count_sync(pending[0][slot], len(pending))
         return [p[slot].float().cpu().numpy() for p in pending]
     gathered = gather_rows(mesh, [p[slot] for p in pending], [len(p[2]) for p in pending])
     host, off = [], 0
@@ -131,6 +134,16 @@ def produce_scores(model: torch.nn.Module, loader: DataLoader, mesh=None,
             else:
                 scores, feats = _score_with_retry(model, audio, errors, collect_features)
             pending.append((scores, feats, ids, mask))
+    # the span's id: the pass, counted by a DataLoader's epochs
+    epoch = getattr(loader, "epoch", None)
+    with annotate("stage.runner.drain", None if epoch is None else epoch - 1):
+        return _drain(mesh, pending, collect_features)
+
+
+def _drain(mesh, pending, collect_features: bool) -> EvalResult:
+    """The pass's result from its batches' device scores (and features):
+    their copies to the host, the gather under ``mesh``, the assembly in
+    protocol order."""
     host = _host_rows(mesh, pending, 0) if pending else []
     host_feats = (_host_rows(mesh, pending, 1) if pending and collect_features
                   else [None] * len(pending))

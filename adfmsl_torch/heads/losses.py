@@ -14,6 +14,15 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from adfmsl_torch.utils.profiling import count_sync
+
+
+def _class_weights(class_weights, logits: torch.Tensor) -> torch.Tensor:
+    w = torch.as_tensor(class_weights, dtype=logits.dtype, device=logits.device)
+    if not torch.is_tensor(class_weights):
+        count_sync(w)                        # a list's blocking copy to the card
+    return w
+
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
@@ -24,8 +33,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   class_weights: Optional[Sequence[float]] = None) -> torch.Tensor:
     ce = _ce(logits, labels)
     if class_weights is not None:
-        w = torch.as_tensor(class_weights, dtype=logits.dtype, device=logits.device)
-        ce = ce * w[labels.long()]
+        ce = ce * _class_weights(class_weights, logits)[labels.long()]
     return ce
 
 
@@ -63,8 +71,7 @@ def loss_parts(name: str, logits: torch.Tensor, labels: torch.Tensor, *,
     """(numerator sum, denominator sum) with loss = num / denom, so that a
     data-parallel step can sum both over devices (adfmsl :57-91)."""
     if name == "weighted_ce" and class_weights is not None:
-        w = torch.as_tensor(class_weights, dtype=logits.dtype,
-                            device=logits.device)[labels.long()]
+        w = _class_weights(class_weights, logits)[labels.long()]
         per = _ce(logits, labels) * w
         denom_w = w
     elif name in ("ce", "weighted_ce", "fmsl"):

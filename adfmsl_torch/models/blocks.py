@@ -32,6 +32,7 @@ from adfmsl_torch.models.w2v2 import SelfAttention, dense, layer_norm
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
 from adfmsl_torch.ops.resblock_fused import fold_block_params, resblock_eval
+from adfmsl_torch.utils.profiling import annotate
 
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
 
@@ -313,7 +314,8 @@ class ResBlockSE(nn.Module):
     def _fused_eval_body(self, x: torch.Tensor) -> torch.Tensor:
         tensors = dict(self.named_parameters())
         tensors.update(self.named_buffers())
-        pre, w1, b1, w2, bt, skw = fold_block_params(tensors, first=self.first)
+        with annotate("stage.k1.weights"):
+            pre, w1, b1, w2, bt, skw = fold_block_params(tensors, first=self.first)
         y, sums = resblock_eval(x.to(torch.bfloat16).contiguous(),
                                 pre, w1, b1, w2, bt, skw)
         if self.se is not None:

@@ -50,6 +50,7 @@ from adfmsl_torch.models.w2v2 import Wav2Vec2Encoder, arch_for
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
 from adfmsl_torch.ops.specaugment import spec_augment
+from adfmsl_torch.utils.profiling import annotate
 from adfmsl_torch.utils.registry import Registry
 
 
@@ -284,42 +285,60 @@ class MazeModel(nn.Module):
         (B,) feed the FMSL head's losses. In train mode ``rngs`` holds the
         generators of the 'dropout', 'specaugment' and 'lsa' streams that the
         configuration draws from (adfmsl's rng collections)."""
-        train = self.training
         rngs = rngs or {}
-        if self.spec.frontend == "rawnet":
-            pooled = self.encoder(x)                         # (B, D) f32
+        rawnet = self.spec.frontend == "rawnet"
+        with annotate("stage.model.frontend"):
+            h = self.encoder(x) if rawnet else self._frontend(x, rngs)
+        if not rawnet:
+            with annotate("stage.model.trunk"):
+                h = self.trunk(h, rngs.get("dropout"))
+        with annotate("stage.model.head"):
+            pooled = h if rawnet else self._pool(h, rngs)
+            return self._head(pooled, labels, mask, rngs)
+
+    def _frontend(self, x: torch.Tensor, rngs: Mapping[str, torch.Generator]
+                  ) -> torch.Tensor:
+        """The waveform to the trunk's input (B, T, C)."""
+        train, spec = self.training, self.spec
+        if spec.frontend == "sinc":
+            h = self.sinc(x)                                 # (B, T', C) f32
         else:
-            spec = self.spec
-            if spec.frontend == "sinc":
-                h = self.sinc(x)                             # (B, T', C) f32
-            else:
-                with torch.set_grad_enabled(torch.is_grad_enabled()
-                                            and not self.cfg.wav2vec2.freeze):
-                    h = self._w2v2_features(x)               # a stop-gradient if frozen
-            if spec.proj_dim:
-                h = self.proj(h, self.dtype)
-            if spec.first_bn_act:
-                # front-end glue at trunk width: bf16 in, BN in f32, bf16 out
-                act = F.selu if spec.first_bn_act == "selu" else F.relu
-                h = act(bn_forward(h.to(self.dtype), self.first_bn, self.dtype, train))
-            sa = self.cfg.spec_augment
-            if sa.enabled and train:
-                # (B, T, C): C is the frequency / channel axis
-                h = spec_augment(h, rngs["specaugment"], sa.freq_mask_param,
-                                 sa.time_mask_param, sa.n_freq_masks, sa.n_time_masks,
-                                 sa.semantics, channels_last=True)
-            if spec.conv_fmsl:
-                h = self.conv_fmsl(h, rngs.get("dropout"))   # f32 out
-            h = self.trunk(h, rngs.get("dropout"))
-            if spec.transformer:
-                if spec.transformer_plain:                   # its BN has no dtype: f32 out
-                    h = bn_forward(h, self.bn_before_transformer, torch.float32, train)
-                h = self.transformer(h, rngs.get("dropout"))
-            if spec.pooling == "asp":
-                pooled = self.asp(h)                         # f32
-            else:
-                # mean over time with f32 accumulation, rounded to h's dtype
-                pooled = h.float().mean(dim=1).to(h.dtype).float()
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not self.cfg.wav2vec2.freeze):
+                h = self._w2v2_features(x)                   # a stop-gradient if frozen
+        if spec.proj_dim:
+            h = self.proj(h, self.dtype)
+        if spec.first_bn_act:
+            # front-end glue at trunk width: bf16 in, BN in f32, bf16 out
+            act = F.selu if spec.first_bn_act == "selu" else F.relu
+            h = act(bn_forward(h.to(self.dtype), self.first_bn, self.dtype, train))
+        sa = self.cfg.spec_augment
+        if sa.enabled and train:
+            # (B, T, C): C is the frequency / channel axis
+            h = spec_augment(h, rngs["specaugment"], sa.freq_mask_param,
+                             sa.time_mask_param, sa.n_freq_masks, sa.n_time_masks,
+                             sa.semantics, channels_last=True)
+        if spec.conv_fmsl:
+            h = self.conv_fmsl(h, rngs.get("dropout"))       # f32 out
+        return h
+
+    def _pool(self, h: torch.Tensor, rngs: Mapping[str, torch.Generator]) -> torch.Tensor:
+        """The trunk's output to the pooled (B, D) f32: the transformer, pooling."""
+        spec = self.spec
+        if spec.transformer:
+            if spec.transformer_plain:                       # its BN has no dtype: f32 out
+                h = bn_forward(h, self.bn_before_transformer, torch.float32, self.training)
+            h = self.transformer(h, rngs.get("dropout"))
+        if spec.pooling == "asp":
+            return self.asp(h)                               # f32
+        # mean over time with f32 accumulation, rounded to h's dtype
+        return h.float().mean(dim=1).to(h.dtype).float()
+
+    def _head(self, pooled: torch.Tensor, labels: Optional[torch.Tensor],
+              mask: Optional[torch.Tensor], rngs: Mapping[str, torch.Generator]
+              ) -> Dict[str, torch.Tensor]:
+        """The pooled features to the output dict: fc1, the FMSL head, fc2."""
+        train = self.training
         fc_drop = self.cfg.architecture.fc_dropout
         out = {}
         mode = self.cfg.fmsl.mode if self.cfg.fmsl is not None else None

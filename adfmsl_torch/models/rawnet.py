@@ -26,6 +26,7 @@ from adfmsl_torch.models.blocks import GRU, conv_nhc
 from adfmsl_torch.models.sincnet import SincConv
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
 from adfmsl_torch.ops.resblock_fused import fold_block_params, resblock_eval
+from adfmsl_torch.utils.profiling import annotate
 
 
 def max_pool3(x: torch.Tensor) -> torch.Tensor:
@@ -69,7 +70,8 @@ class RawNetBlock(nn.Module):
         if self.fused_eval and self.dtype == torch.bfloat16 and not train:
             tensors = dict(self.named_parameters())
             tensors.update(self.named_buffers())
-            ops = fold_block_params(tensors, first=self.first)
+            with annotate("stage.k1.weights"):
+                ops = fold_block_params(tensors, first=self.first)
             y, _ = resblock_eval(x.to(torch.bfloat16).contiguous(), *ops,
                                  act="leaky", pool=3)
             return y

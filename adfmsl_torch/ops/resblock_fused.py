@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from adfmsl_torch.ops.sinc import max_pool3_nhc
+from adfmsl_torch.utils.profiling import annotate
 
 _ACTS = {"relu": 0, "leaky": 1}
 # (Cin, Cout, 1x1 skip) the kernel is instantiated for
@@ -191,14 +192,17 @@ def _launch(x, pre, w1, b1, w2, bt, skw, act, pool):
     _check("bt", bt, (cout,), dev)
     if pre is not None:
         _check("pre", pre, (2, cin), dev)
-        pre = pre.float().contiguous()
     if skw is not None:
         _check("skw", skw, (cin, cout), dev)
-        skw = kernel_weight_layout(skw)
-    w1 = kernel_weight_layout(w1)
-    w2 = kernel_weight_layout(w2)
-    b1 = b1.float().contiguous()
-    bt = bt.float().contiguous()
+    with annotate("stage.k1.weights"):
+        if pre is not None:
+            pre = pre.float().contiguous()
+        if skw is not None:
+            skw = kernel_weight_layout(skw)
+        w1 = kernel_weight_layout(w1)
+        w2 = kernel_weight_layout(w2)
+        b1 = b1.float().contiguous()
+        bt = bt.float().contiguous()
     if x.data_ptr() % 16:                # the bulk copy moves 16-byte aligned rows
         raise ValueError("resblock_eval: x is not 16-byte aligned")
 

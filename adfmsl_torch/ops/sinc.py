@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from adfmsl_torch.ops.mel import hz_to_mel, mel_to_hz
 from adfmsl_torch.ops.window import hann
+from adfmsl_torch.utils.profiling import count_sync
 
 
 def sinc_init(out_channels: int, sample_rate: int = 16000, min_low_hz: float = 50.0,
@@ -77,6 +78,8 @@ def sinc_filters(low_hz: torch.Tensor, band_hz: torch.Tensor, kernel_size: int,
     dev = low_hz.device
     n = (torch.arange(kernel_size, dtype=torch.float32, device=dev) - half) / sample_rate
     window = torch.from_numpy(hann(kernel_size, periodic=False)).to(dev)
+    # the window's copy and the two bounds' new_tensor copies block the host
+    count_sync(low_hz, 3)
 
     low = min_low_hz + abs_jax(low_hz)                                   # (C,)
     # jnp.clip's gradient: minimum(maximum(.)), which halves the gradient at a

@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from adfmsl_torch.config.base import MeshConfig
+from adfmsl_torch.utils.profiling import count_sync
 
 
 def mesh_shape(cfg: Optional[MeshConfig], n: int) -> Tuple[int, int]:
@@ -156,4 +157,5 @@ def broadcast_floats(values: Sequence[float], device: torch.device) -> List[floa
     alike: the plateau scale, early stopping)."""
     t = torch.tensor([float(v) for v in values], dtype=torch.float64, device=device)
     dist.broadcast(t, src=0)
+    count_sync(t, 2)                         # the copy in and the copy out
     return [float(v) for v in t.cpu()]

@@ -41,6 +41,8 @@ import time
 
 import torch
 
+from adfmsl_torch.utils.profiling import is_span
+
 
 def build(model_name: str, args, device: torch.device):
     from adfmsl_torch.cli.evaluate import set_fused_extras
@@ -189,7 +191,7 @@ def stage_device_times(model, x, reps: int, names=None) -> dict:
     # device events: the kernels and copies, and the ranges' device-side spans
     on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     kernels = [(e.time_range.start, e.time_range.end) for e in on_device
-               if not e.key.startswith("stage.")]
+               if not is_span(e.key)]
     device = union_ms(kernels) / reps
     out = {}
     for n in names:
@@ -215,13 +217,14 @@ def kernel_times(model, x, reps: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():           # device events only: no double count
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and not is_span(ev.key)):
             rows.append((ev.key, ev.self_device_time_total / 1e3 / reps,
                          ev.count // reps))
     rows.sort(key=lambda r: -r[1])
     # concurrent kernels (a grouped conv's groups) count once in the union
     busy = union_ms((e.time_range.start, e.time_range.end) for e in prof.events()
-                    if e.device_type == DeviceType.CUDA) / reps
+                    if e.device_type == DeviceType.CUDA and not is_span(e.key)) / reps
     return {"wall_ms_per_forward": wall_ms / reps, "device_ms_per_forward": busy,
             "kernel_ms_sum_per_forward": sum(r[1] for r in rows),
             "device_busy_share": busy * reps / wall_ms if wall_ms else None,

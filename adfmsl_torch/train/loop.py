@@ -58,7 +58,7 @@ from adfmsl_torch.train.early_stop import EarlyStopper
 from adfmsl_torch.train.optim import Optimizer, PlateauTracker
 from adfmsl_torch.train.state import TrainState
 from adfmsl_torch.train.steps import make_eval_step, make_train_step
-from adfmsl_torch.utils.profiling import StepTimer
+from adfmsl_torch.utils.profiling import StepTimer, annotate, count_sync
 from adfmsl_torch.utils.rng import set_global_seed
 
 if TYPE_CHECKING:
@@ -137,14 +137,17 @@ class Trainer:
         self.epochs_run = epoch + 1
         return epoch
 
-    def _place(self, batch: Batch):
+    def _place(self, batch: Batch, index: Optional[int] = None):
         """Host batch -> device tensors (under the mesh the loader's batch is
         this rank's rows of the global batch, padded to the data axis with
-        masked rows)."""
+        masked rows); the label and mask copies block the host."""
         dev = self.device
-        return (torch.from_numpy(batch.audio).to(dev, non_blocking=True),
-                torch.from_numpy(batch.label).to(dev).long(),
-                torch.from_numpy(batch.mask).to(dev))
+        with annotate("train_step.place", index):
+            audio = torch.from_numpy(batch.audio).to(dev, non_blocking=True)
+            label = torch.from_numpy(batch.label).to(dev).long()
+            mask = torch.from_numpy(batch.mask).to(dev)
+            count_sync(label, 2)
+        return audio, label, mask
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         loss_sum = acc_sum = skip_sum = None
@@ -158,7 +161,7 @@ class Trainer:
             if batch is None:
                 break
             with self.timer.phase("train_step"):
-                audio, label, mask = self._place(batch)
+                audio, label, mask = self._place(batch, i)
                 m = self.train_step(self.state, audio, label, mask,
                                     self.state.generators(epoch, i, shard))
             if loss_sum is None:
@@ -169,6 +172,7 @@ class Trainer:
                 skip_sum = skip_sum + m["skipped"]
             i += 1
             if self.exp.train.log_every_steps and i % self.exp.train.log_every_steps == 0:
+                count_sync(m["loss"], 2)
                 log.info("epoch %d step %d loss %.4f acc %.3f", epoch, i,
                          float(m["loss"]), float(m["acc"]))
         n = max(i, 1)
@@ -176,6 +180,8 @@ class Trainer:
         if in_s > 0 and i > 0:
             log.info("epoch %d input wait: %.2fs (%.0f utt/s consumer-side)",
                      epoch, in_s, i * self.train_loader.batch_size / in_s)
+        if loss_sum is not None:
+            count_sync(loss_sum, 3)
         return {"loss": float(loss_sum) / n if loss_sum is not None else 0.0,
                 "acc": float(acc_sum) / n if acc_sum is not None else 0.0,
                 "skipped": int(skip_sum) if skip_sum is not None else 0}
@@ -200,6 +206,7 @@ class Trainer:
         correct = count = 0.0
         scores, labels = [], []
         for dc, dn, ds, batch in pending:
+            count_sync(dc, 3)
             correct += float(dc)
             count += float(dn)
             s = ds.float().cpu().numpy()

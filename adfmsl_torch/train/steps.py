@@ -12,7 +12,9 @@ model's own for FMSL modes 'replace' / 'integrated', else
 adfmsl decides that with a select on the device. The forward here updates the
 BN buffers in place, so they are snapshotted first (a few KB) and restored on
 a skip, and the update is skipped: that takes one host sync on
-``isfinite(loss)`` per step. The metrics stay on the device.
+``isfinite(loss)`` per step (``train_step.guard_sync``), and the ``skipped``
+flag's copy to the device another; both count in ``host_syncs``
+(``utils/profiling.py``). The other metrics stay on the device.
 
 With ``train.remat`` the model forward runs through ``ops/remat.py:
 checkpoint`` (adfmsl :51, :82-86): the whole forward is recomputed in the
@@ -26,9 +28,9 @@ augment_waveform``, from ``rngs['augment']``) under ``no_grad``, before the
 forward and outside ``train.remat``'s checkpoint, so a recompute never
 draws again; every later part of the step sees the augmented audio.
 
-The step's three parts run under ``torch.profiler.record_function`` labels
-(``STEP_LABELS``), so a profile of the real step splits its device time into
-forward, backward and update.
+The step's three parts run under the port's spans (``STEP_LABELS``,
+``utils/profiling.py:annotate``, their id the step), so a profile of the real
+step splits its device time into forward, backward and update.
 
 With a ``mesh`` (``parallel/mesh.py``) each rank takes its row block of the
 global batch, and the step is adfmsl's global-batch (GSPMD) step:
@@ -57,7 +59,6 @@ from typing import Callable, Dict, Mapping, Optional
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from adfmsl_torch.config.base import ExperimentConfig
 from adfmsl_torch.data.augment import augment_waveform
@@ -66,6 +67,7 @@ from adfmsl_torch.ops.remat import checkpoint
 from adfmsl_torch.parallel.collectives import all_reduce_flat, data_parallel
 from adfmsl_torch.train.optim import global_norm
 from adfmsl_torch.train.state import TrainState
+from adfmsl_torch.utils.profiling import annotate, count_sync
 
 STEP_LABELS = ("train_step.forward", "train_step.backward", "train_step.update")
 
@@ -112,7 +114,7 @@ def make_train_step(exp: ExperimentConfig, mesh=None, local_bn: bool = False,
                                          dcfg.augment_noise_prob, dcfg.augment_reverb_prob,
                                          dcfg.augment_snr_db_min, dcfg.augment_snr_db_max)
         with data_parallel(None if local_bn else group):
-            with record_function(STEP_LABELS[0]):
+            with annotate(STEP_LABELS[0], state.step):
                 model.train()
                 buffers = {k: v.clone() for k, v in model.named_buffers()}
                 if use_remat:
@@ -154,7 +156,7 @@ def make_train_step(exp: ExperimentConfig, mesh=None, local_bn: bool = False,
                     else:
                         gden = torch.clamp(sums[1], min=1e-8)
                         loss, root = sums[0] / gden, num / gden
-            with record_function(STEP_LABELS[1]):
+            with annotate(STEP_LABELS[1], state.step):
                 opt.zero_grad()
                 root.backward()
                 for p in opt.params:
@@ -165,8 +167,14 @@ def make_train_step(exp: ExperimentConfig, mesh=None, local_bn: bool = False,
                 for p in opt.params:
                     p.grad.masked_fill_(~torch.isfinite(p.grad), 0.0)
                 grad_norm = grad_global_norm(opt.params, mesh)
-        with record_function(STEP_LABELS[2]):
-            good = bool(torch.isfinite(loss))       # the step's one host sync
+        with annotate(STEP_LABELS[2], state.step):
+            finite = torch.isfinite(loss)
+            # the span holds the sync alone: the profiler gives a kernel to the
+            # innermost open range, and the update's device span starts at the
+            # isfinite kernel
+            with annotate("train_step.guard_sync", state.step):
+                good = bool(finite)                 # the guard's host sync
+            count_sync(loss)
             if good:
                 opt.clip_(grad_norm)
                 opt.step()
@@ -184,8 +192,9 @@ def make_train_step(exp: ExperimentConfig, mesh=None, local_bn: bool = False,
             state.step += 1
             loss_out = (loss.detach().float() if good
                         else torch.zeros((), device=loss.device))
-        return {"loss": loss_out, "acc": acc,
-                "skipped": torch.tensor(0.0 if good else 1.0, device=loss.device),
+        skipped = torch.tensor(0.0 if good else 1.0, device=loss.device)   # a blocking copy
+        count_sync(skipped)
+        return {"loss": loss_out, "acc": acc, "skipped": skipped,
                 "grad_norm": grad_norm.detach()}
 
     return step

@@ -2995,6 +2995,7 @@ from adfmsl_torch.cli import fewshot
 from adfmsl_torch.ops import resblock_fused as rf
 from adfmsl_torch.profile_eval import union_ms
 from adfmsl_torch.train import fewshot as fs
+from adfmsl_torch.utils.profiling import is_span
 
 seen, rec = {}, {}
 init, adapt, score_protocol = (fs.FewshotTrainer.__init__, fs.FewshotTrainer.adapt,
@@ -3040,7 +3041,8 @@ with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     tr.fit(n)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
-events = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+events = [e for e in prof.events()
+          if str(e.device_type).endswith("CUDA") and not is_span(e.name)]
 device = union_ms((e.time_range.start, e.time_range.end) for e in events) / n
 rec["profile"] = {"steps": n, "wall_ms_per_step": wall, "device_ms_per_step": device,
                   "device_busy_share": device / wall,
@@ -3551,6 +3553,7 @@ def profile_steps(step, st, batch_args, first, steps=3, tops=False):
 
     from adfmsl_torch.profile_eval import union_ms
     from adfmsl_torch.train.steps import STEP_LABELS
+    from adfmsl_torch.utils.profiling import is_span
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3575,15 +3578,15 @@ def profile_steps(step, st, batch_args, first, steps=3, tops=False):
     # its range on the calling thread
     labels = {e.key: device_us(e, total=True) / 1e3 / steps for e in on_host
               if e.key in STEP_LABELS}
-    # device events are the kernels and copies (the labels' device-side spans
-    # are left out); host events (aten ops) carry the device time of the
-    # kernels they launched, counted a second time
-    kernels = [e for e in on_device if device_us(e) > 0 and e.key not in STEP_LABELS]
+    # device events are the kernels and copies (the spans' device-side
+    # annotations are left out); host events (aten ops) carry the device time
+    # of the kernels they launched, counted a second time
+    kernels = [e for e in on_device if device_us(e) > 0 and not is_span(e.key)]
     # kernels that run at once (cuDNN's grouped conv runs its groups so) count
     # once in the union of their intervals
     union = union_ms((e.time_range.start, e.time_range.end) for e in prof.events()
-                     if str(e.device_type).endswith("CUDA") and e.key not in STEP_LABELS)
-    ops = [e for e in on_host if device_us(e) > 0 and e.key not in STEP_LABELS]
+                     if str(e.device_type).endswith("CUDA") and not is_span(e.key))
+    ops = [e for e in on_host if device_us(e) > 0 and not is_span(e.key)]
     device_ms = sum(device_us(e) for e in kernels) / 1e3 / steps
     fwd, bwd, upd = (labels.get(k, 0.0) for k in STEP_LABELS)
     rec = {"profiled_steps": steps, "wall_ms_per_step": wall_ms,

@@ -137,6 +137,9 @@ def test_evaluate_cli_data_parallel_writes_the_one_process_file(fixture_dir, tmp
     summaries = [json.loads(ln.split(" ", 1)[1]) for ln in capfd.readouterr().out.splitlines()
                  if ln.startswith("rank_summary ")]
     assert sorted(s["rank"] for s in summaries) == [0, 1]
+    # the port's counters: batches taken from the loader, no CUDA sync on the CPU
+    assert all(s["counters"]["loader.gets"] > 0 and "host_syncs" not in s["counters"]
+               for s in summaries)
 
 
 class _OOMAbove(torch.nn.Module):

@@ -107,3 +107,6 @@ def test_cli_train_data_parallel_one_epoch(tmp_path, capfd):
     summaries = [json.loads(ln.split(" ", 1)[1]) for ln in capfd.readouterr().out.splitlines()
                  if ln.startswith("rank_summary ")]
     assert sorted(s["rank"] for s in summaries) == [0, 1]
+    # the port's counters: batches taken from the loader, no CUDA sync on the CPU
+    assert all(s["counters"]["loader.gets"] > 0 and "host_syncs" not in s["counters"]
+               for s in summaries)

@@ -13,7 +13,9 @@ checkpoint's own values, ``experiment.yaml`` loads in adfmsl to the tree the
 run used, the trace holds the train step's labels, an ``--eval`` run leaves
 ``experiment.yaml`` as it was, and ``cli.evaluate --model_path`` takes its
 config from ``experiment.yaml`` (and from ``model.pt`` without it) to the
-same score file.
+same score file. ``cli.evaluate --profile_dir`` writes a Chrome trace that
+holds the port's spans: one drain a pass, a loader get, the model's three
+stages a batch, and K1's weight folding a block.
 """
 import dataclasses
 import glob
@@ -208,3 +210,24 @@ def test_cli_train_config_log_dir_profile_dir(fixture, tmp_path, monkeypatch, ca
         lines = a.read()
         assert lines == b.read()
     assert [ln.split()[0] for ln in lines.splitlines()] == ev["utt_ids"]
+
+
+def test_cli_evaluate_profile_dir_writes_the_port_spans(fixture, tmp_path):
+    from adfmsl_torch.cli import evaluate
+
+    ev, prof = fixture["eval"], str(tmp_path / "prof")
+    out = str(tmp_path / "scores.txt")
+    assert evaluate.main(["--model_type", "maze5", "--protocol", ev["protocol"], "--data_dir",
+                          ev["audio_dir"], "--output", out, "--cut", str(CUT), "--batch_size",
+                          "4", "--device", "cpu", "--profile_dir", prof]) == 0
+    with open(out) as fh:
+        assert [ln.split()[0] for ln in fh] == ev["utt_ids"]
+    (path,) = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    names = [e.get("name") for e in json.load(open(path))["traceEvents"]]
+    batches = len(ev["utt_ids"]) // 4
+    assert {n: names.count(n) for n in ("stage.runner.drain", "stage.loader.get",
+                                        "stage.model.frontend", "stage.model.trunk",
+                                        "stage.model.head", "stage.k1.weights")} == {
+        "stage.runner.drain": 1, "stage.loader.get": batches, "stage.model.frontend": batches,
+        "stage.model.trunk": batches, "stage.model.head": batches,
+        "stage.k1.weights": 5 * batches}
