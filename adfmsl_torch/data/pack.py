@@ -101,7 +101,9 @@ class PackedDataset:
     def load_batch(self, ids: Sequence[str]):
         idx = np.asarray([self._index[u] for u in ids], dtype=np.int64)
         labels = np.asarray([self._labels.get(u, 0) for u in ids], dtype=np.int32)
-        order = np.argsort(idx)              # sorted reads are sequential on disk
         audio = np.empty((len(ids), self.cut), dtype=np.float32)
-        audio[order] = self._audio[idx[order]]
+        # one copy a row, straight into its place, in file order (sorted reads
+        # are sequential on disk)
+        for j in np.argsort(idx):
+            audio[j] = self._audio[idx[j]]
         return audio, labels

@@ -174,12 +174,17 @@ class AsvspoofDataset:
 
 
 def _make_batch(ds: AsvspoofDataset, ids: Sequence[str], batch_size: int) -> Batch:
-    audio = np.zeros((batch_size, ds.cut), dtype=np.float32)
     label = np.zeros(batch_size, dtype=np.int32)
     mask = np.zeros(batch_size, dtype=bool)
+    a = np.zeros((0, ds.cut), dtype=np.float32)
     if ids:
         a, y = ds.load_batch(ids)
-        audio[: len(ids)], label[: len(ids)], mask[: len(ids)] = a, y, True
+        label[: len(ids)], mask[: len(ids)] = y, True
+    if a.shape == (batch_size, ds.cut) and a.dtype == np.float32:
+        audio = a                                   # a full batch: no padded copy
+    else:
+        audio = np.zeros((batch_size, ds.cut), dtype=np.float32)
+        audio[: len(ids)] = a
     return Batch(audio, label, mask, list(ids) + [""] * (batch_size - len(ids)))
 
 

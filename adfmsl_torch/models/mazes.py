@@ -5,7 +5,8 @@ mode: the sinc front end, the RawNet encoder branch (:102-115), the Wav2Vec2
 front end (:116-138, with ``wav2vec2.freeze`` as a stop-gradient, the
 encoder's ``remat_layers`` / ``remat_extractor`` checkpointing and maze6's
 ``fusion_layers`` taps concatenated), the 1x1 ``proj`` conv (:142-143), the
-front-end BN + act, SpecAugment (:155-163), maze8's ``ConvFMSLLayer``
+front-end BN + act (at eval, with the sinc conv in kernel K5 where
+``_k5_operands`` allows), SpecAugment (:155-163), maze8's ``ConvFMSLLayer``
 (:165-166), the SE-ResBlock trunk, the transformer (:178-194: maze2's and
 maze6's plain encoder behind a BatchNorm, maze3_fmsl's projected stack),
 mean or attentive-stats pooling (:196-199), the classifier with its fc
@@ -48,7 +49,8 @@ from adfmsl_torch.models.resnet import ResNet18
 from adfmsl_torch.models.sincnet import SincConv
 from adfmsl_torch.models.w2v2 import Wav2Vec2Encoder, arch_for
 from adfmsl_torch.ops.dropout import dropout
-from adfmsl_torch.ops.norm import batch_norm, bn_forward
+from adfmsl_torch.ops import sinc_bn_act
+from adfmsl_torch.ops.norm import batch_norm, bn_forward, eval_affine
 from adfmsl_torch.ops.specaugment import spec_augment
 from adfmsl_torch.utils.profiling import annotate
 from adfmsl_torch.utils.registry import Registry
@@ -300,15 +302,17 @@ class MazeModel(nn.Module):
                   ) -> torch.Tensor:
         """The waveform to the trunk's input (B, T, C)."""
         train, spec = self.training, self.spec
+        bn_act = None
         if spec.frontend == "sinc":
-            h = self.sinc(x)                                 # (B, T', C) f32
+            bn_act = self._k5_operands(x)
+            h = self.sinc(x, bn_act)        # (B, T', C) f32; with K5 the trunk's bf16 input
         else:
             with torch.set_grad_enabled(torch.is_grad_enabled()
                                         and not self.cfg.wav2vec2.freeze):
                 h = self._w2v2_features(x)                   # a stop-gradient if frozen
         if spec.proj_dim:
             h = self.proj(h, self.dtype)
-        if spec.first_bn_act:
+        if spec.first_bn_act and bn_act is None:
             # front-end glue at trunk width: bf16 in, BN in f32, bf16 out
             act = F.selu if spec.first_bn_act == "selu" else F.relu
             h = act(bn_forward(h.to(self.dtype), self.first_bn, self.dtype, train))
@@ -321,6 +325,21 @@ class MazeModel(nn.Module):
         if spec.conv_fmsl:
             h = self.conv_fmsl(h, rngs.get("dropout"))       # f32 out
         return h
+
+    def _k5_operands(self, x: torch.Tensor):
+        """first_bn's (mean, mul, bias) where kernel K5 takes the sinc conv, first_bn
+        and SELU together (``ops/sinc_bn_act.py``), else None. K5 computes what
+        the composition does at eval in a bf16 model on a card, whose sinc conv
+        runs in cuDNN's TF32: so not in training (batch statistics), not with
+        grad enabled (K5 has no backward), not in a float32 model (exact f32),
+        not on the CPU, not with cuDNN's TF32 off, and only at widths K5 takes."""
+        taps = self.sinc.kernel_size | 1            # sinc_filters makes an even length odd
+        if (self.training or torch.is_grad_enabled() or self.spec.first_bn_act != "selu"
+                or self.dtype != torch.bfloat16 or not x.is_cuda
+                or not torch.backends.cudnn.allow_tf32
+                or not sinc_bn_act.takes(self.sinc.out_channels, taps)):
+            return None
+        return eval_affine(self.first_bn)
 
     def _pool(self, h: torch.Tensor, rngs: Mapping[str, torch.Generator]) -> torch.Tensor:
         """The trunk's output to the pooled (B, D) f32: the transformer, pooling."""

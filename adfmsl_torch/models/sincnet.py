@@ -8,6 +8,10 @@ adfmsl's dispatch (:82-107): with ``fused_train`` in train mode, or
 kernel K3 (``ops/sinc_fused.py``; in train mode through ``sinc_abs_pool``,
 whose backward recomputes the composition), otherwise the f32 composition
 (``ops/sinc.py:sinc_abs_pool3_nhc``).
+
+With ``post='none'``, ``forward``'s ``bn_act`` (the eval BatchNorm's operands
+after the conv, ``ops/norm.py:eval_affine``) runs the conv, that BatchNorm and
+SELU together as kernel K5 (``ops/sinc_bn_act.py``); ``MazeModel`` decides when.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from torch import nn
 
 from adfmsl_torch.ops.sinc import (conv_precision, sinc_abs_pool3_nhc, sinc_conv_nhc,
                                    sinc_filters, sinc_init)
+from adfmsl_torch.ops.sinc_bn_act import sinc_bn_act_fused
 from adfmsl_torch.ops.sinc_fused import sinc_abs_pool, sinc_abs_pool_fused
 
 
@@ -56,10 +61,14 @@ class SincConv(nn.Module):
                             self.sample_rate, self.min_low_hz, self.min_band_hz,
                             self.formula)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_act=None) -> torch.Tensor:
         """(B, T) f32 waveform -> (B, T-K+1, C) f32, or (B, (T-K+1)//3, C)
-        with ``post='abs_pool3'``."""
+        with ``post='abs_pool3'``. With ``bn_act``, the (mean, mul, bias) of
+        the eval BatchNorm that follows, -> SELU of that BatchNorm of the
+        conv, (B, T-K+1, C) bf16, through K5."""
         filt = self.filters()
+        if bn_act is not None:
+            return sinc_bn_act_fused(x.contiguous(), filt, *bn_act)
         if self.post == "abs_pool3":
             fused = self.fused_train if self.training else self.fused_eval
             if fused and x.shape[0] <= self.fused_max_batch:

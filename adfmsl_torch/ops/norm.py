@@ -41,17 +41,29 @@ def batch_norm(c: int) -> nn.BatchNorm1d:
     return nn.BatchNorm1d(c, eps=1e-5, momentum=1.0 - MOMENTUM)
 
 
+def affine(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``_normalize`` from its per-channel operands: (x - mean) * mul +
+    bias in f32 (three roundings, no fused multiply-add), cast to ``dtype``."""
+    return ((x.float() - mean) * mul + bias).to(dtype)
+
+
 def _normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Tensor:
     """flax's ``_normalize``: (x - mean) * (rsqrt(var+eps) * scale) + bias in
     f32, cast to ``dtype``."""
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return ((x.float() - mean) * mul + bn.bias).to(dtype)
+    return affine(x, mean, torch.rsqrt(var + bn.eps) * bn.weight, bn.bias, dtype)
+
+
+def eval_affine(bn: nn.BatchNorm1d):
+    """The eval BatchNorm's (mean, mul, bias), f32 (C,) each, as ``bn_eval``
+    computes them: its ``affine`` operands."""
+    return bn.running_mean, torch.rsqrt(bn.running_var + bn.eps) * bn.weight, bn.bias
 
 
 def bn_eval(x: torch.Tensor, bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Tensor:
     """Eval BatchNorm over the last axis from the running statistics."""
-    return _normalize(x, bn.running_mean, bn.running_var, bn, dtype)
+    return affine(x, *eval_affine(bn), dtype)
 
 
 def bn_train(x: torch.Tensor, bn: nn.BatchNorm1d, dtype: torch.dtype) -> torch.Tensor:

@@ -65,6 +65,14 @@ Phases, each printing its own lines:
    with cuDNN's defaults as the bf16 models run it, its forward and backward
    times, the plain versions', the composition's forward + backward
    (information only) and both bounds;
+3e. kernel K5 (maze5's eval front end: the TF32 sinc conv, first_bn and SELU,
+   ``ops/sinc_bn_act.py``) against its plain version, the composition the
+   model ran before K5, under cuDNN's TF32 as the bf16 models run it: batch 16
+   and 128 at cut 64600, C 128, K 251, one count a call, every element within
+   ``composition_gap``'s bound and at least ``K5_EQUAL_SHARE_FLOOR`` of them
+   equal bit for bit; the
+   kernel's and the composition's times beside the bound (the TF32 products
+   or the bytes, the larger), and K5's registers and spills from build.log;
 4. the main path, for maze5, maze5_fmsl, main, main_fmsl, lcnn_lfcc,
    lcnn1d_lfcc and resnet18_logmel: a synthetic
    ASVspoof fixture with 40 eval utterances goes through
@@ -73,9 +81,10 @@ Phases, each printing its own lines:
    hold one finite score per protocol utterance in protocol order, the EER
    must be printed, and the kernels must have launched as the path says: K1
    5 times per batch for maze5 and 6 for RawNet, K3 once per RawNet batch,
-   none of them for the LFCC / log-mel models, and K4 on no evaluate path
-   (the models' front end is the composition, as in adfmsl). Every count is
-   set to 0 just before a path and read just after it;
+   K5 once per maze5 and maze5_fmsl batch, none of them for the LFCC /
+   log-mel models, and K4 on no evaluate path (the models' front end is the
+   composition, as in adfmsl). Every count is set to 0 (K5's always-on
+   counter read) just before a path and read just after it;
 4a. the Wav2Vec2 models' main path (``w2v2_main_path``): all ten of them,
    maze7, maze7_fmsl, maze3, maze2, maze2_fmsl, maze3_fmsl, maze6,
    maze6_fmsl, maze8 and maze8_fmsl, at full width (the base encoder, for
@@ -87,8 +96,8 @@ Phases, each printing its own lines:
    (``W2V2_PATHS``; T 201 frames into the trunk);
 4c. native audio IO (``native_io``): the fixture's eval split written again
    as FLAC (FIXED subframes, ``adfmsl_torch/data/flac.py``), maze5 through
-   the evaluate CLI over the FLAC split and over the WAV one, whose score
-   files must be byte for byte the same; then the loader's host rate: 256
+   the evaluate CLI over the FLAC split and over the WAV one (K1 5 and K5 1
+   a batch), whose score files must be byte for byte the same; then the loader's host rate: 256
    utterances of 4 s as FLAC and as 16-bit WAV, decoded and padded a batch of
    128 at a time by ``AsvspoofDataset.load_batch`` (``batch_decode_pad`` at 1,
    2, 4 and 8 native threads; the numpy WAV reader), the median of 3 passes
@@ -133,9 +142,9 @@ Phases, each printing its own lines:
    step, 4 and then 8 steps and updates, every parameter and BN running
    statistic moved, K3 never launched (the CLI sets no fused training front
    end, as adfmsl's); then ``cli.evaluate --model_path`` on it with the flags
-   and launch counts of the model's main path (K1 5 a batch for maze5, 6 and
-   K3 1 a batch for RawNet with ``--fused_frontend``, none for the LFCC /
-   log-mel models);
+   and launch counts of the model's main path (K1 5 and K5 1 a batch for
+   maze5, 6 and K3 1 a batch for RawNet with ``--fused_frontend``, none for
+   the LFCC / log-mel models);
 7a. ``w2v2_train``: the same for maze7 and maze2 (the encoder frozen, as
    their configs say) and maze6_fmsl (the large encoder unfrozen with
    ``unfreeze_last_n`` 2, its plateau scheduler on dev accuracy): every
@@ -219,7 +228,7 @@ Phases, each printing its own lines:
    (``input`` once more an epoch: the wait that finds the loader's end); (b)
    maze5 from ``configs/maze5.yaml`` for one epoch, then ``cli.train --config
    --eval --restore`` from a copy with ``model.extra.fused_eval_trunk``: K1 5
-   a batch, ``experiment.yaml`` left as it was, and the score file against
+   and K5 1 a batch on both paths, ``experiment.yaml`` left as it was, and the score file against
    ``cli.evaluate --model_path`` (its config from ``experiment.yaml``) at the
    same batch within 3e-2 * max(1, |score|). A line a part gives the
    launches, the seconds and the trace's bytes;
@@ -233,7 +242,7 @@ Phases, each printing its own lines:
    ``cli.evaluate --model_path``; the score file must lie within atol 5e-4,
    rtol 1e-3 (adfmsl's promise for these checkpoints) of the torch model run
    on the card with TF32 off, on the audio as the CLI loads it, with no K1,
-   K3 or K3-bwd launch; beside it, the converted model's in-process gap with
+   K3, K3-bwd or K5 launch (the converted models are f32); beside it, the converted model's in-process gap with
    TF32 off in cuDNN (the CLI's trunk convs take cuDNN's TF32 default); (b) the
    converted main's ``experiment.yaml`` with ``fused_train_frontend`` and
    batch 12: ``cli.train --restore --eval`` scores the restored weights
@@ -248,7 +257,7 @@ Phases, each printing its own lines:
 7h. packs (``packs``, run after 7g) on the same fixture at cut 64600: (a)
    ``python -m adfmsl_torch.cli.pack`` packs the eval split from its WAV
    files and from its FLAC twin (equal arrays), and maze5 scored by
-   ``cli.evaluate --pack`` (K1 5 a batch) writes the ``--data_dir`` run's
+   ``cli.evaluate --pack`` (K1 5 and K5 1 a batch, as from the files) writes the ``--data_dir`` run's
    score file byte for byte (the largest score difference printed); (b)
    RawNet main from a YAML with ``fused_train_frontend`` through ``cli.train
    --train_pack --dev_pack`` at batch 12 for 2 epochs (K3 and K3-bwd once a
@@ -312,7 +321,8 @@ Phases, each printing its own lines:
    models' card eval utt/s at batch 128;
 10. a ``kernels`` line: every ported kernel with its launches on the main
    paths (K2's on its entry point, K4's as lcnn1d_lfcc's front end, K3's and
-   its backward kernel's in the fused train steps too), its max error, its
+   its backward kernel's in the fused train steps too, K5's on every evaluate
+   path above that counts it), its max error, its
    time at the main path's shapes beside its plain version's time, its bound
    and the library call's time (none exists); K1's also summed over maze7's,
    maze3's, maze2's and maze6's blocks at batch 128, and its cases at the
@@ -438,7 +448,12 @@ K3_BWD_CASES = [("jax_case", 2, 8000, SINC_C, SINC_K), ("ragged", 3, 8001, SINC_
                 ("c256_k129", 3, 5000, 256, 129), ("c16_k7", 3, 5000, 16, 7),
                 ("ties", 2, 8000, SINC_C, SINC_K)]
 K3_BWD_TOL = {"tf32": 2e-3, "3xtf32": 1e-4}
+K5_CASES = [(f"b{EVAL_BATCH}_cut{CUT}", EVAL_BATCH, CUT),   # name, B, T
+            (f"b{BENCH_BATCH}_cut{CUT}", BENCH_BATCH, CUT)]
 K3_BWD_PASSES = {"tf32": 1, "3xtf32": 3}
+# the least share of K5's outputs equal bit for bit to the composition's on
+# random audio (the H100 reads 0.9997; operands rounded to bf16 read 0.631)
+K5_EQUAL_SHARE_FLOOR = 0.99
 PEAK_TF32_FLOPS = 495e12          # H100 SXM data sheet, dense TF32
 # models trained through cli.train: (model, evaluate flags, K1 and K3 launches
 # per batch evaluating the checkpoint), as MAIN_PATHS gives them
@@ -464,20 +479,21 @@ HOST_BOUND_TRAIN = SPECTRAL_MODELS + ("maze7",)
 # adfmsl's own bounds for the fused training front end against the
 # composition (tests/test_models.py:327-337)
 FUSED_TRAIN_LOSS_REL, FUSED_TRAIN_GRAD_COS = 5e-2, 0.85
-# (model, extra CLI flags, K1, K3 and K4 launches per batch); the LFCC / log-mel
-# models' front end is the composition (ops/lfcc.py), as in adfmsl
-MAIN_PATHS = [("maze5", [], 5, 0, 0), ("maze5_fmsl", [], 5, 0, 0),
-              ("main", ["--fused_frontend"], 6, 1, 0),
-              ("main_fmsl", ["--fused_frontend"], 6, 1, 0),
-              ("lcnn_lfcc", [], 0, 0, 0), ("lcnn1d_lfcc", [], 0, 0, 0),
-              ("resnet18_logmel", [], 0, 0, 0)]
+# (model, extra CLI flags, K1, K3, K4 and K5 launches per batch); the LFCC /
+# log-mel models' front end is the composition (ops/lfcc.py), as in adfmsl;
+# maze5's eval front end is K5 (a bf16 model, cuDNN's TF32 on)
+MAIN_PATHS = [("maze5", [], 5, 0, 0, 1), ("maze5_fmsl", [], 5, 0, 0, 1),
+              ("main", ["--fused_frontend"], 6, 1, 0, 0),
+              ("main_fmsl", ["--fused_frontend"], 6, 1, 0, 0),
+              ("lcnn_lfcc", [], 0, 0, 0, 0), ("lcnn1d_lfcc", [], 0, 0, 0, 0),
+              ("resnet18_logmel", [], 0, 0, 0, 0)]
 # the Wav2Vec2 models' main path (the same fields): K1 on their trunks, maze2's
 # and maze6's wide stack heads included
-W2V2_PATHS = [("maze7", [], 5, 0, 0), ("maze7_fmsl", [], 5, 0, 0), ("maze3", [], 3, 0, 0),
-              ("maze2", [], 6, 0, 0), ("maze2_fmsl", [], 3, 0, 0),
-              ("maze3_fmsl", [], 3, 0, 0), ("maze6", [], 5, 0, 0),
-              ("maze6_fmsl", [], 3, 0, 0), ("maze8", [], 5, 0, 0),
-              ("maze8_fmsl", [], 5, 0, 0)]
+W2V2_PATHS = [("maze7", [], 5, 0, 0, 0), ("maze7_fmsl", [], 5, 0, 0, 0),
+              ("maze3", [], 3, 0, 0, 0), ("maze2", [], 6, 0, 0, 0),
+              ("maze2_fmsl", [], 3, 0, 0, 0), ("maze3_fmsl", [], 3, 0, 0, 0),
+              ("maze6", [], 5, 0, 0, 0), ("maze6_fmsl", [], 3, 0, 0, 0),
+              ("maze8", [], 5, 0, 0, 0), ("maze8_fmsl", [], 5, 0, 0, 0)]
 W2V2_K1 = {"maze7": 5, "maze3": 3, "maze2": 6, "maze6": 5}   # K1 launches a forward
 # trained through cli.train: maze7 (frozen encoder), maze2 (frozen, SpecAugment,
 # the transformer), maze6_fmsl (the large encoder in autograd with its last two
@@ -928,11 +944,66 @@ def k3_bwd_case(sf, name, b, t, c, k, precision, seed, dev):
     return rec
 
 
+def k5_bound(b, t, c, k):
+    """(ops_ms, bytes_ms): the correlation's 2*B*T'*C*K products at the TF32
+    tensor-core peak, and x and the filters read once and the bf16 output
+    written once at the HBM rate. The bound is the larger of the two."""
+    t_out = t - k + 1
+    flops = 2.0 * b * t_out * c * k
+    nbytes = 4 * b * t + 4 * c * k + 2 * b * t_out * c
+    return flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def k5_launches():
+    """K5's calls so far (the always-on ``sinc.fused_bn_act`` counter)."""
+    from adfmsl_torch.utils.profiling import totals
+
+    return totals().get("sinc.fused_bn_act", 0)
+
+
+def k5_case(filters, name, b, t, seed, dev):
+    """K5 against the composition (its plain version) under cuDNN's TF32: one
+    count a call, within ``composition_gap``'s bound and at least
+    ``K5_EQUAL_SHARE_FLOOR`` of the outputs bit for bit; both times beside the
+    bound."""
+    from adfmsl_torch.ops import sinc_bn_act as k5
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.1 * torch.randn((b, t), generator=g, device=dev)
+    c = filters.shape[0]
+    scale = float(F.conv1d(x[:1, None], filters[:, None]).std())
+    bn = (0.1 * scale * torch.randn(c, generator=g, device=dev),
+          (1 + torch.rand(c, generator=g, device=dev)) / scale,
+          0.5 * torch.randn(c, generator=g, device=dev))
+    before = k5_launches()
+    out = k5.sinc_bn_act_fused(x, filters, *bn)
+    torch.cuda.synchronize()
+    counted = k5_launches() - before
+    gap = k5.composition_gap(out, x, filters, *bn)
+    del out
+    ms = cuda_ms(lambda: k5.sinc_bn_act_fused(x, filters, *bn))
+    composition_ms = cuda_ms(lambda: k5.sinc_bn_act_plain(x, filters, *bn))
+    ops_ms, bytes_ms = k5_bound(b, t, *filters.shape)
+    rec = {"case": name, "B": b, "T": t, "C": c, "K": filters.shape[1], **gap,
+           "counted": counted, "kernel_ms": ms, "plain_ms": composition_ms, "composition_ms": composition_ms,
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print("K5 " + json.dumps(rec), flush=True)
+    check(counted == 1, f"K5 {name}: one call counted {counted} times")
+    check(gap["max_gap_over_bound"] <= 1.0, f"K5 {name}: gap over bound {gap}")
+    check(gap["equal_share"] >= K5_EQUAL_SHARE_FLOOR,
+          f"K5 {name}: {gap['equal_share']} of the outputs bit for bit, under "
+          f"{K5_EQUAL_SHARE_FLOOR}")
+    del x
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels(rf, sf, lf, dev):
     """K1, K3 and K4 against their plain versions, TF32 off so those are f32
     (K4's plain version rounds its operands to bf16 itself at 'high' and
     'default', where TF32 products are exact); then K3's backward kernel at
-    both precisions (``k3_bwd_case``)."""
+    both precisions (``k3_bwd_case``) and K5 under cuDNN's TF32 (``k5_case``)."""
     from adfmsl_torch.ops.mel import linear_filterbank
 
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -953,9 +1024,12 @@ def phase_kernels(rf, sf, lf, dev):
             torch.backends.cuda.matmul.allow_tf32 = old
     k3b = [k3_bwd_case(sf, *c, precision=p, seed=30 + i, dev=dev)
            for i, c in enumerate(K3_BWD_CASES) for p in K3_BWD_TOL]
+    filters = sinc_filters_at_init(dev)
+    k5 = [k5_case(filters, *c, seed=50 + i, dev=dev) for i, c in enumerate(K5_CASES)]
     figs = {**build_report("sinc_abs_pool", "sinc_abs_pool_kernel"),
-            **build_report("sinc_abs_pool_bwd", "sinc_bwd_kernel")}
-    return k1, k3, k3b, k4, figs
+            **build_report("sinc_abs_pool_bwd", "sinc_bwd_kernel"),
+            **build_report("sinc_bn_act", "sinc_bn_act_kernel")}
+    return k1, k3, k3b, k4, k5, figs
 
 
 def k3_train_bound(b, t, c, k, peak_flops):
@@ -1045,8 +1119,8 @@ def phase_k3_train(sf, dev):
             for i, c in enumerate(K3_TRAIN_CASES)]
 
 
-def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, rf, sf, lf,
-                    fixture, tmp):
+def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, k5_per_batch,
+                    rf, sf, lf, fixture, tmp):
     """Drive the evaluate CLI on the card; returns the run's record."""
     from adfmsl_torch.cli import evaluate
 
@@ -1060,6 +1134,7 @@ def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, rf, s
     rf.resblock_eval.launches = 0
     sf.sinc_abs_pool_fused.launches = 0
     lf.lfcc_fused.launches = 0
+    k5_before = k5_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = evaluate.main(argv)
@@ -1068,6 +1143,7 @@ def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, rf, s
     k1_launches = rf.resblock_eval.launches
     k3_launches = sf.sinc_abs_pool_fused.launches
     k4_launches = lf.lfcc_fused.launches
+    k5 = k5_launches() - k5_before
     text = buf.getvalue()
     check(rc == 0, f"{name}: evaluate exited {rc}")
     metrics = [ast.literal_eval(ln) for ln in text.splitlines() if ln.startswith("{")]
@@ -1085,9 +1161,11 @@ def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, rf, s
           f"{name}: K3 launched {k3_launches} times, expected {k3_per_batch * n_batches}")
     check(k4_launches == k4_per_batch * n_batches,
           f"{name}: K4 launched {k4_launches} times, expected {k4_per_batch * n_batches}")
+    check(k5 == k5_per_batch * n_batches,
+          f"{name}: K5 launched {k5} times, expected {k5_per_batch * n_batches}")
     rec = {"model": name, "flags": flags, "utterances": len(ids), "batch": EVAL_BATCH,
            "batches": n_batches, "k1_launches": k1_launches,
-           "k3_launches": k3_launches, "k4_launches": k4_launches,
+           "k3_launches": k3_launches, "k4_launches": k4_launches, "k5_launches": k5,
            "eer": metrics[-1]["eer"], "wall_s": wall_s}
     print("main_path " + json.dumps(rec), flush=True)
     return rec
@@ -1095,8 +1173,8 @@ def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, rf, s
 
 def phase_native_io(rf, fixture, tmp):
     """The fixture's eval split as FLAC (FIXED subframes) against its WAV
-    twin through maze5's evaluate CLI (identical score files, K1 5 times a
-    batch), then the loader's host rate (``LOADER_*``); returns the record."""
+    twin through maze5's evaluate CLI (identical score files, K1 5 times and
+    K5 once a batch), then the loader's host rate (``LOADER_*``); returns the record."""
     from adfmsl_torch.cli import evaluate
     from adfmsl_torch.data import AsvspoofDataset, parse_protocol
     from adfmsl_torch.data.flac import flac_twin
@@ -1111,15 +1189,19 @@ def phase_native_io(rf, fixture, tmp):
     for fmt, d in (("wav", ev["audio_dir"]), ("flac", flac_dir)):
         out = os.path.join(tmp, f"maze5_{fmt}_scores.txt")
         rf.resblock_eval.launches = 0
+        k5_before = k5_launches()
         with contextlib.redirect_stdout(io.StringIO()):
             rc = evaluate.main(["--model_type", "maze5", "--protocol", ev["protocol"],
                                 "--data_dir", d, "--output", out, "--batch_size",
                                 str(EVAL_BATCH), "--cut", str(CUT), "--device", "cuda",
                                 "--seed", "0"])
         torch.cuda.synchronize()
+        k5 = k5_launches() - k5_before
         check(rc == 0, f"maze5 over the {fmt} eval split: evaluate exited {rc}")
         check(rf.resblock_eval.launches == 5 * n_batches,
               f"maze5 over {fmt}: K1 launched {rf.resblock_eval.launches} times")
+        check(k5 == n_batches, f"maze5 over {fmt}: K5 launched {k5} times")
+        rec[f"k5_launches_{fmt}"] = k5
         with open(out, "rb") as fh:
             scores[fmt] = fh.read()
     check(scores["wav"] == scores["flac"],
@@ -1632,10 +1714,11 @@ def phase_train(name, rf, k2, sf, fixture, tmp, dev):
 
     ev = fixture["eval"]
     out = os.path.join(tmp, f"{name}_trained_scores.txt")
-    _, flags, k1_per_batch, k3_per_batch, _ = next(p for p in MAIN_PATHS + W2V2_PATHS
-                                                   if p[0] == name)
+    _, flags, k1_per_batch, k3_per_batch, _, k5_per_batch = next(
+        p for p in MAIN_PATHS + W2V2_PATHS if p[0] == name)
     rf.resblock_eval.launches = 0
     sf.sinc_abs_pool_fused.launches = 0
+    k5_before = k5_launches()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = evaluate.main(["--model_type", name, "--model_path", ck, "--protocol",
@@ -1643,6 +1726,7 @@ def phase_train(name, rf, k2, sf, fixture, tmp, dev):
                             "--batch_size", str(EVAL_BATCH), "--device", dev.type, *flags])
     torch.cuda.synchronize()
     k1_eval, k3_eval = rf.resblock_eval.launches, sf.sinc_abs_pool_fused.launches
+    k5_eval = k5_launches() - k5_before
     check(rc == 0, f"{name}: evaluate of the checkpoint exited {rc}")
     with open(out) as fh:
         lines = [ln.split() for ln in fh.read().splitlines()]
@@ -1656,12 +1740,16 @@ def phase_train(name, rf, k2, sf, fixture, tmp, dev):
     check(k3_eval == k3_per_batch * n_batches,
           f"{name}: K3 launched {k3_eval} times evaluating the checkpoint, expected "
           f"{k3_per_batch * n_batches}")
+    check(k5_eval == k5_per_batch * n_batches,
+          f"{name}: K5 launched {k5_eval} times evaluating the checkpoint, expected "
+          f"{k5_per_batch * n_batches}")
     rec = {"model": name, "cut": CUT, "batch": TRAIN_BATCH, "train_utts": TRAIN_UTTS,
            "dev_utts": DEV_UTTS, "epochs": hist, "steps": 2 * steps_per_epoch,
            "retained_epochs": mgr.all_epochs(), "k1_launches_training": k1_train,
            "k2_launches_training": k2_train, "k3_launches_training": k3_train,
            "evaluate_flags": flags, "k1_launches_evaluate": k1_eval,
-           "k3_launches_evaluate": k3_eval, "frozen_parameters": len(frozen),
+           "k3_launches_evaluate": k3_eval, "k5_launches_evaluate": k5_eval,
+           "frozen_parameters": len(frozen),
            "idle_parameters": sorted(idle),
            "trained_encoder_layers": trained_layers, "wall_s": wall_s}
     print("train " + json.dumps(rec), flush=True)
@@ -1926,6 +2014,7 @@ def phase_config_cli(rf, sf, fixture, tmp, card):
     save_yaml(fused, fused_cfg)
     outs = {k: os.path.join(root, f"maze5_{k}_scores.txt") for k in ("train_eval", "evaluate")}
     rf.resblock_eval.launches = 0
+    k5_before = k5_launches()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli_train.main(["--config", fused_cfg, *data, "--eval", "--restore",
                              "--checkpoint_dir", ck2, "--eval_protocol", ev["protocol"],
@@ -1933,17 +2022,20 @@ def phase_config_cli(rf, sf, fixture, tmp, card):
                              outs["train_eval"], "--device", "cuda"])
     torch.cuda.synchronize()
     k1_train_eval = rf.resblock_eval.launches
+    k5_train_eval = k5_launches() - k5_before
     check(rc == 0, f"config_cli (b): cli.train --eval exited {rc}")
     with open(os.path.join(ck2, "experiment.yaml")) as fh:
         check(fh.read() == saved_text, "config_cli (b): --eval overwrote experiment.yaml")
     batch = fused.train.eval_batch_size
     rf.resblock_eval.launches = 0
+    k5_before = k5_launches()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = evaluate.main(["--model_type", "maze5", "--model_path", ck2, "--protocol",
                             ev["protocol"], "--data_dir", ev["audio_dir"], "--output",
                             outs["evaluate"], "--batch_size", str(batch), "--device", "cuda"])
     torch.cuda.synchronize()
     k1_evaluate = rf.resblock_eval.launches
+    k5_evaluate = k5_launches() - k5_before
     wall_b = time.perf_counter() - t0
     check(rc == 0, f"config_cli (b): evaluate exited {rc}")
     scores = {}
@@ -1957,12 +2049,16 @@ def phase_config_cli(rf, sf, fixture, tmp, card):
     check(k1_train_eval == K1_MAZE5 * n_batches and k1_evaluate == K1_MAZE5 * n_batches,
           f"config_cli (b): K1 {k1_train_eval} (cli.train --eval) and {k1_evaluate} "
           f"(cli.evaluate) launches, expected {K1_MAZE5 * n_batches}")
+    check(k5_train_eval == n_batches and k5_evaluate == n_batches,
+          f"config_cli (b): K5 {k5_train_eval} (cli.train --eval) and {k5_evaluate} "
+          f"(cli.evaluate) launches, expected {n_batches}")
     err = float(np.abs(scores["train_eval"] - scores["evaluate"]).max())
     tol = FEWSHOT_SCORE_TOL * max(1.0, float(np.abs(scores["evaluate"]).max()))
     rec_b = {"model": "maze5", "config": "configs/maze5.yaml",
              "train_steps": TRAIN_UTTS // fused.train.batch_size,
              "eval_batch": batch, "eval_batches": n_batches,
              "k1_launches_train_eval": k1_train_eval, "k1_launches_evaluate": k1_evaluate,
+             "k5_launches_train_eval": k5_train_eval, "k5_launches_evaluate": k5_evaluate,
              "scores_max_abs_diff": err, "scores_tol": tol, "wall_s": wall_b, "card": card}
     print("config_cli_b " + json.dumps(rec_b), flush=True)
     check(err <= tol, f"config_cli (b): scores {err} apart, tolerance {tol}")
@@ -2043,20 +2139,24 @@ def phase_packs(rf, sf, fixture, tmp, card, native=None):
     check(np.array_equal(np.load(prefix["wav"] + ".npy"), np.load(prefix["flac"] + ".npy")),
           "packs (a): the FLAC twin's pack differs from the WAV split's")
     outs = {k: os.path.join(root, f"maze5_{k}_scores.txt") for k in ("data_dir", "pack")}
-    k1 = {}
+    k1, k5 = {}, {}
     for k, src in (("data_dir", ["--data_dir", ev["audio_dir"], "--cut", str(CUT)]),
                    ("pack", ["--pack", prefix["flac"]])):
         rf.resblock_eval.launches = 0
+        k5_before = k5_launches()
         with contextlib.redirect_stdout(io.StringIO()):
             rc = evaluate.main(["--model_type", "maze5", "--protocol", ev["protocol"], *src,
                                 "--output", outs[k], "--batch_size", str(EVAL_BATCH),
                                 "--device", "cuda", "--seed", "0"])
         torch.cuda.synchronize()
         k1[k] = rf.resblock_eval.launches
+        k5[k] = k5_launches() - k5_before
         check(rc == 0, f"packs (a): maze5 evaluate from the {k} exited {rc}")
     n_batches = -(-EVAL_UTTS // EVAL_BATCH)
     check(k1["pack"] == K1_MAZE5 * n_batches,
           f"packs (a): K1 launched {k1['pack']} times, expected {K1_MAZE5 * n_batches}")
+    check(k5["pack"] == k5["data_dir"] == n_batches,
+          f"packs (a): K5 launched {k5} times, expected {n_batches} each")
     (ids_d, s_d), (ids_p, s_p) = _read_scores(outs["data_dir"]), _read_scores(outs["pack"])
     check(ids_d == ids_p == ev["utt_ids"] and bool(np.isfinite(s_p).all()),
           "packs (a): score file ids or values")
@@ -2065,7 +2165,7 @@ def phase_packs(rf, sf, fixture, tmp, card, native=None):
     rec["a"] = {"wall_s": time.perf_counter() - t_phase,
                 "model": "maze5", "batch": EVAL_BATCH, "batches": n_batches,
                 "pack_lines": lines, "k1_launches": k1["pack"],
-                "k1_launches_data_dir": k1["data_dir"],
+                "k1_launches_data_dir": k1["data_dir"], "k5_launches": k5,
                 "scores_max_abs_diff": float(np.abs(s_p - s_d).max()),
                 "score_files_identical": same}
     print("packs_a " + json.dumps(rec["a"]), flush=True)
@@ -2149,8 +2249,8 @@ def phase_packs(rf, sf, fixture, tmp, card, native=None):
             lambda mod, args: seen.append(args[0].detach().clone()) if mod.training else None)
         place, step = trainer._place, trainer.train_step
 
-        def placed(batch, place=place, loaded=loaded):
-            out = place(batch)
+        def placed(batch, index=None, place=place, loaded=loaded):
+            out = place(batch, index)
             loaded.append(out[0].clone())
             return out
 
@@ -2731,13 +2831,16 @@ def phase_reference_ckpt(rf, sf, tmp, dev, card):
                                                    n_eval=REF_EVAL_UTTS))
     tr, dv, ev = fixture["train"], fixture["dev"], fixture["eval"]
 
+    k5_base = [k5_launches()]
+
     def counts():
         return {"k1": rf.resblock_eval.launches, "k3": sf.sinc_abs_pool_fused.launches,
-                "k3_bwd": sf.sinc_abs_pool_bwd.launches}
+                "k3_bwd": sf.sinc_abs_pool_bwd.launches, "k5": k5_launches() - k5_base[0]}
 
     def zero():
         rf.resblock_eval.launches = sf.sinc_abs_pool_fused.launches = 0
         sf.sinc_abs_pool_bwd.launches = 0
+        k5_base[0] = k5_launches()
 
     # (a)
     recs, converted, audio_cache = [], {}, {}
@@ -2764,7 +2867,7 @@ def phase_reference_ckpt(rf, sf, tmp, dev, card):
         torch.cuda.synchronize()
         launched = counts()
         check(rc == 0, f"reference_ckpt (a) {name}: evaluate exited {rc}")
-        check(launched == {"k1": 0, "k3": 0, "k3_bwd": 0},
+        check(launched == {"k1": 0, "k3": 0, "k3_bwd": 0, "k5": 0},
               f"reference_ckpt (a) {name}: kernels launched {launched}")
         got = _score_file(out, ev["utt_ids"])
         exp, port_sd = load_checkpoint(ck)
@@ -3702,10 +3805,11 @@ def _k1_instantiations(k1):
     return out
 
 
-def kernels_phase_line(k1, k3, k3b, k4, figs):
+def kernels_phase_line(k1, k3, k3b, k4, k5, figs):
     """The ``kernels_phase`` record of ``--only kernels``: K1 summed over
     maze5's and main's blocks with its figures, K3, K3's backward (both
-    precisions) and K4 at their main-path shapes, K3's build figures."""
+    precisions), K4 and K5 at their main-path shapes, K3's and K5's build
+    figures."""
     return {"kernels_phase": {
         "K1": {"maze5_blocks": _summed([r for r in k1 if r["case"].startswith("maze5_block")]),
                "main_blocks": _summed([r for r in k1 if r["case"].startswith("main_block")]),
@@ -3722,7 +3826,10 @@ def kernels_phase_line(k1, k3, k3b, k4, figs):
                              "composition_ms": r["stft_composition_ms"]}
                for b, p in ((BENCH_BATCH, "high"), (384, "high"), (BENCH_BATCH, "default"))
                for r in [_k4_main(k4, b, p)]},
-        "K4_max_err_over_tol": max(r["err_over_tol"] for r in k4)}}
+        "K4_max_err_over_tol": max(r["err_over_tol"] for r in k4),
+        **{f"K5_b{r['B']}": {**_summed([r]), "composition_ms": r["composition_ms"],
+                             "equal_share": r["equal_share"],
+                             "max_gap_over_bound": r["max_gap_over_bound"]} for r in k5}}}
 
 
 K4_FIGURE_KEYS = ("tile_frames", "cta_frames", "smem_bytes_per_cta", "stages",
@@ -3741,8 +3848,9 @@ def _k3_bwd_main(k3b, precision):
                 and r["T"] == CUT)
 
 
-def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, train,
-                 fused_train, remat, fewshot, md, config_cli, ref_ckpt, packs, analysis):
+def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, k5, main_path, native,
+                 train, fused_train, remat, fewshot, md, config_cli, ref_ckpt, packs,
+                 analysis):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -3773,7 +3881,11 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     train CLI and augmented through the ``Trainer`` (K3, K3-bwd). The analysis
     phase's: maze5 and maze5_fmsl through ``cli.evaluate --dump_embeddings``
     (K1), and ``cli.batch``'s maze5 (K1 on its dev and eval batches) and main
-    (K3, K3-bwd in its train steps, K1 on its dev and eval batches)."""
+    (K3, K3-bwd in its train steps, K1 on its dev and eval batches). K5: its
+    launches on every evaluate path that counts it (once a maze5 batch, none on
+    the other models, in training or on the f32 converted checkpoints), its
+    largest gap over bound and least bit-for-bit share, and its times at batch
+    128 (batch 16 beside them) against the composition it replaced."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
     k4_main = _k4_main(k4, BENCH_BATCH, "high")
     k4_big = _k4_main(k4, 384, "high")
@@ -3846,6 +3958,19 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
     k3b_analysis = {"main cli.batch (fused_train_frontend)": batch_k["main"]["k3_bwd"]}
     k3b_main = {p: _k3_bwd_main(k3b, p) for p in K3_BWD_TOL}
     k3t_main = next(r for r in k3_train if r["B"] == TRAIN_BATCH and r["T"] == CUT)
+    k5_main = next(r for r in k5 if r["B"] == BENCH_BATCH)
+    k5_small = next(r for r in k5 if r["B"] == EVAL_BATCH)
+    k5_paths = {**{r["model"]: r["k5_launches"] for r in main_path},
+                **{f"maze5 over the {fmt} eval split": native[f"k5_launches_{fmt}"]
+                   for fmt in ("wav", "flac")},
+                **{f"{r['model']} trained checkpoint": r["k5_launches_evaluate"]
+                   for r in train},
+                "maze5 cli.train --config --eval": cfg_b["k5_launches_train_eval"],
+                "maze5 cli.evaluate --model_path (experiment.yaml)":
+                    cfg_b["k5_launches_evaluate"],
+                **{k: v["k5"] for k, v in ref_eval.items()},
+                **{f"maze5 cli.evaluate --{k}": n
+                   for k, n in packs["a"]["k5_launches"].items()}}
     return {"kernels": [{
         "id": "K1", "name": "resblock_eval", "route": "cuda",
         "source": "adfmsl_torch/csrc/resblock_eval.cu",
@@ -3970,6 +4095,21 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, main_path, t
                       "filterbank ('high', 'default'; 'highest' keeps the CUDA-core form)",
         "figures": {p: {k: next(r for r in k4 if r["precision"] == p)[k]
                         for k in K4_FIGURE_KEYS} for p in K4_KERNELS},
+    }, {
+        "id": "K5", "name": "sinc_bn_act", "route": "cuda",
+        "source": "adfmsl_torch/csrc/sinc_bn_act.cu",
+        "replaces": None,
+        "replaces_note": "the port's own kernel: adfmsl leaves maze5's eval front end to XLA",
+        "launches": sum(k5_paths.values()),
+        "launches_by_path": k5_paths,
+        "max_gap_over_bound": max(r["max_gap_over_bound"] for r in k5),
+        "min_equal_share": min(r["equal_share"] for r in k5),
+        **_summed([k5_main]),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes it; plain_ms is the composition "
+                        "it replaced (cuDNN's TF32 conv, the bf16 casts, BN, SELU)",
+        "shapes": f"batch {BENCH_BATCH}, cut {CUT}, C {SINC_C}, K {SINC_K}",
+        f"b{EVAL_BATCH}": _summed([k5_small]),
     }]}
 
 
@@ -4055,12 +4195,12 @@ def main() -> int:
                                              "total": time.perf_counter() - t_start}))
         print(smi, flush=True)
         return 0
-    k1, k3, k3b, k4, figs = phase("kernels", phase_kernels, rf, sf, lf, dev)
+    k1, k3, k3b, k4, k5, figs = phase("kernels", phase_kernels, rf, sf, lf, dev)
     if args.only == "kernels":
         print("phase_seconds " + json.dumps({**phase_s,
                                              "total": time.perf_counter() - t_start}))
         print(smi, flush=True)
-        print(json.dumps(kernels_phase_line(k1, k3, k3b, k4, figs)), flush=True)
+        print(json.dumps(kernels_phase_line(k1, k3, k3b, k4, k5, figs)), flush=True)
         return 0
     k3_train = phase("k3_train", phase_k3_train, sf, dev)
     k2_recs, k2_entry = phase("k2", phase_k2, k2, dev)
@@ -4109,9 +4249,9 @@ def main() -> int:
     print("phase_seconds " + json.dumps({**phase_s,
                                          "total": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
-    print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front,
-                                  main_path, train, fused_train, remat, fewshot, md,
-                                  config_cli, ref_ckpt, packs, analysis)),
+    print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front, k5,
+                                  main_path, native, train, fused_train, remat, fewshot,
+                                  md, config_cli, ref_ckpt, packs, analysis)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

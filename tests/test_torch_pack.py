@@ -11,6 +11,8 @@ utterances), exactly (``np.array_equal``, byte-equal files, ``torch.equal``):
   adfmsl-written one in the port's, with equal arrays and metadata;
 - labels come from the caller's protocol ('spoof1'), and a protocol id
   missing from the pack raises ``KeyError`` naming the count and the ids;
+- a full batch is the pack's rows in the asked order, copied once; a short
+  one is padded with zero rows;
 - ``DataLoader(rank=r, world=2)`` over a pack reads only its own row block
   of each global batch, and the two blocks make the world-of-one batch;
 - ``cli.pack`` writes adfmsl's ``cli.pack`` arrays and prints its line;
@@ -137,6 +139,25 @@ def test_caller_protocol_gives_labels_and_missing_ids_raise(fixture, packs, tmp_
     with pytest.raises(KeyError, match=r"2 protocol utterances missing from pack "
                                        r"\(first: \['LA_T_extra1', 'LA_T_extra2'\]\)"):
         PackedDataset(packs["train"], parse_protocol(str(extra)))
+
+
+def test_full_batches_hand_on_the_loaded_rows_and_short_ones_pad(fixture, packs):
+    """``load_batch`` copies each row once into its place in the asked order; a
+    full batch is that array (writable, C-contiguous), a short one its rows
+    padded with zero rows."""
+    from adfmsl_torch.data.pipeline import _make_batch
+
+    f = fixture["train"]
+    ds = PackedDataset(packs["train"], parse_protocol(f["protocol"]))
+    rows = np.load(packs["train"] + ".npy")
+    order = [5, 0, 11, 3, 7, 2, 9, 1]
+    full = _make_batch(ds, [f["utt_ids"][i] for i in order], 8)
+    assert np.array_equal(full.audio, rows[order]) and full.mask.all()
+    assert full.audio.flags.writeable and full.audio.flags.c_contiguous
+    short = _make_batch(ds, [f["utt_ids"][i] for i in order[:3]], 8)
+    assert short.audio.shape == (8, CUT) and not short.audio[3:].any()
+    assert np.array_equal(short.audio[:3], rows[order[:3]])
+    assert short.mask.tolist() == [True] * 3 + [False] * 5
 
 
 def test_rank_blocks_read_only_their_rows(fixture, packs):
