@@ -110,7 +110,9 @@ def _count(tree: Mapping[str, Any]) -> int:
 def _flat_attention(tree: Mapping[str, Any]) -> Mapping[str, Any]:
     """flax ``MultiHeadDotProductAttention``'s DenseGeneral projections as
     plain Dense ones: query / key / value kernels (H, heads, hd) -> (H, H)
-    with biases (heads, hd) -> (H,), the out kernel (heads, hd, H) -> (H, H)."""
+    with biases (heads, hd) -> (H,), the out kernel (heads, hd, H) -> (H, H).
+    An attention's other leaves (WavLM's gate and bucket table) pass as they
+    are."""
     out = {}
     for name, node in tree.items():
         if not isinstance(node, Mapping):
@@ -118,6 +120,9 @@ def _flat_attention(tree: Mapping[str, Any]) -> Mapping[str, Any]:
         elif name in ("attention", "self_attn") and "query" in node:
             flat = {}
             for proj, d in node.items():
+                if proj not in ("query", "key", "value", "out"):
+                    flat[proj] = d
+                    continue
                 k = np.asarray(d["kernel"])
                 k = k.reshape(-1, k.shape[-1]) if proj == "out" else k.reshape(k.shape[0], -1)
                 flat[proj] = {"kernel": k, "bias": np.reshape(d["bias"], (-1,))}

@@ -7,6 +7,17 @@ feature projection -> convolutional positional embedding (kernel 128, 16
 groups, pad 64 a side, the last step trimmed for an even kernel) ->
 transformer layers (post-LN, or pre-LN with ``do_stable_layer_norm``).
 
+WavLM (Chen et al. 2021, HF ``modeling_wavlm.py``; ``num_buckets`` > 0) is
+the same encoder with a gated relative-position bias in every layer's
+scores. Layer 0's attention owns the bucket table ``rel_attn_embed``
+(buckets, heads); the encoder builds the (heads, T', T') bias from it once a
+forward, from ``relative_position_bucket(j - i)``, and passes it to every
+layer, broadcast over the batch. Each layer scales it by a gate of its own,
+per head and query frame, computed from its pre-LN input split into heads
+(not from the query): ``g = a * (b * gru_rel_pos_const - 1) + 2`` with ``a, b``
+the sigmoids of ``gru_rel_pos_linear``'s (head dim -> 8) output summed in two
+groups of four, and adds ``g * bias`` to its scores before the softmax.
+
 Numerics follow flax's rounding points, so the bf16 model matches adfmsl's:
 convs and dense layers run in the model's dtype (input, kernel and bias cast
 to it, the bias added after the product); LayerNorm / GroupNorm compute their
@@ -14,6 +25,10 @@ statistics in f32 (``E[x^2] - E[x]^2``, flax's fast variance) and return f32,
 as flax's norms without ``dtype`` do for a bf16 input and f32 parameters;
 attention is flax's ``MultiHeadDotProductAttention``: the query divided by
 sqrt(head dim) in the compute dtype, the softmax in it, the weights in it.
+WavLM's gate product (head dim -> 8) is a dense in the compute dtype too;
+the bias, the gate, its sum with the scores (the product q.k rounded to the
+compute dtype) and the softmax are f32, and the weights are rounded to the
+compute dtype for the weighted sum.
 Attention is written as explicit products; adfmsl computes it outside any
 Pallas kernel, so these are library products. The extractor runs in (B, C, T),
 the rest in adfmsl's (B, T, C).
@@ -43,7 +58,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from adfmsl_torch.ops.dropout import dropout
-from adfmsl_torch.ops.remat import checkpoint
+from adfmsl_torch.ops.remat import checkpoint, recomputing
+from adfmsl_torch.utils.profiling import annotate, count
 
 
 @dataclass(frozen=True)
@@ -60,6 +76,8 @@ class W2V2Arch:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    num_buckets: int = 0                 # WavLM's relative-position buckets; 0: no bias
+    max_bucket_distance: int = 0
 
     @staticmethod
     def base() -> "W2V2Arch":
@@ -78,14 +96,43 @@ class W2V2Arch:
                         intermediate_size=128, conv_dim=(32, 32),
                         conv_kernel=(10, 3), conv_stride=(5, 2))
 
+    @staticmethod
+    def wavlm_large() -> "W2V2Arch":
+        """microsoft/wavlm-large (its ``config.json``): 24 pre-LN layers,
+        'layer' feature norm, no conv bias, 320 buckets up to distance 800."""
+        return W2V2Arch(hidden_size=1024, num_layers=24, num_heads=16,
+                        intermediate_size=4096, feat_extract_norm="layer",
+                        do_stable_layer_norm=True, num_buckets=320,
+                        max_bucket_distance=800)
+
+    @staticmethod
+    def tiny_wavlm() -> "W2V2Arch":
+        """For tests: ``tiny``'s convs and 2 layers, 4 heads, 32 buckets up to
+        distance 64 (the buckets saturate from distance 50 on)."""
+        return W2V2Arch(hidden_size=64, num_layers=2, num_heads=4,
+                        intermediate_size=128, conv_dim=(32, 32),
+                        conv_kernel=(10, 3), conv_stride=(5, 2),
+                        feat_extract_norm="layer", do_stable_layer_norm=True,
+                        num_buckets=32, max_bucket_distance=64)
+
+
+WAVLM_ARCHS = {"microsoft/wavlm-large": W2V2Arch.wavlm_large,
+               "tiny_wavlm": W2V2Arch.tiny_wavlm}
+
 
 def arch_for(cfg) -> W2V2Arch:
     """The encoder of a ``Wav2Vec2Config`` (adfmsl ``mazes.py:_w2v2_arch``):
-    'tiny' / 'tiny4' by name, else large from ``output_dim`` 1024, else base."""
+    'tiny' / 'tiny4' by name, WavLM by name (``WAVLM_ARCHS``; any other name
+    with 'wavlm' in it raises), else large from ``output_dim`` 1024, else base."""
     if cfg.model_name == "tiny":
         return W2V2Arch.tiny()
     if cfg.model_name == "tiny4":
         return W2V2Arch.tiny(num_heads=4)
+    if cfg.model_name in WAVLM_ARCHS:
+        return WAVLM_ARCHS[cfg.model_name]()
+    if "wavlm" in cfg.model_name.lower():
+        raise ValueError(f"unsupported WavLM model {cfg.model_name!r}; supported: "
+                         f"{sorted(WAVLM_ARCHS)}")
     if cfg.output_dim >= 1024:
         return W2V2Arch.large_960h()
     return W2V2Arch.base()
@@ -101,6 +148,19 @@ def flax_norm(x: torch.Tensor, dims, weight: torch.Tensor, bias: torch.Tensor,
     mean = xf.mean(dims, keepdim=True)
     var = torch.clamp((xf * xf).mean(dims, keepdim=True) - mean * mean, min=0.0)
     return (xf - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
+def relative_position_bucket(rel: torch.Tensor, num_buckets: int,
+                             max_distance: int) -> torch.Tensor:
+    """WavLM's bucket (int64) of each relative position ``rel`` = j - i, as HF
+    ``WavLMAttention._relative_positions_bucket`` computes it: half the
+    buckets for j > i; distances under a quarter of them exact, longer ones
+    log-spaced up to ``max_distance``, then the last bucket of the half."""
+    n = num_buckets // 2
+    e = n // 2
+    r = rel.abs()
+    large = (e + torch.log(r.float() / e) / math.log(max_distance / e) * (n - e)).long()
+    return (rel > 0).long() * n + torch.where(r < e, r, torch.clamp(large, max=n - 1))
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -204,47 +264,93 @@ class SelfAttention(nn.Module):
     DenseGeneral projections held as (H, H) linears. In train mode with a
     ``dropout_rate`` the attention weights take dropout from ``generator``.
     Split for tensor parallelism (``parallel/tp.py``: ``tp_group`` set) it
-    holds ``heads`` of the heads, and ``out`` is row-parallel."""
+    holds ``heads`` of the heads, from head ``head0`` on, and ``out`` is
+    row-parallel.
 
-    def __init__(self, hidden: int, heads: int):
+    WavLM's form (``gated``) owns ``gru_rel_pos_linear`` and
+    ``gru_rel_pos_const``, and with ``num_buckets`` (layer 0) the bucket table
+    ``rel_attn_embed``; its forward takes the encoder's (heads, T, T) ``bias``."""
+
+    def __init__(self, hidden: int, heads: int, gated: bool = False, num_buckets: int = 0):
         super().__init__()
         self.heads = heads
         self.head_dim = hidden // heads
+        self.head0 = 0
         self.tp_group = None
         for name in ("query", "key", "value", "out"):
             self.add_module(name, nn.Linear(hidden, hidden))
+        if gated:
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, heads, 1, 1))
+            self.gru_rel_pos_linear = nn.Linear(self.head_dim, 8)
+        if num_buckets:
+            self.rel_attn_embed = nn.Embedding(num_buckets, heads)
+
+    def gate(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """WavLM's gate (B, heads, T, 1), f32, of the layer's pre-LN input
+        ``x`` (B, T, H) split into heads: the head dim -> 8 product in
+        ``dtype``, then in f32 its two groups of four summed, their sigmoids
+        ``a, b`` and ``a * (b * gru_rel_pos_const - 1) + 2``. Under tensor
+        parallelism the linear's weights enter the split region through
+        Megatron's f, so each rank's gradient of them is summed over the heads
+        of every rank."""
+        b, t, _ = x.shape
+        hd = self.head_dim
+        xh = x[..., self.head0 * hd:(self.head0 + self.heads) * hd].reshape(
+            b, t, self.heads, hd).transpose(1, 2)
+        lin = self.gru_rel_pos_linear
+        w, bias = (_enter_model_parallel(p, self.tp_group) for p in (lin.weight, lin.bias))
+        p = torch.matmul(xh.to(dtype), w.to(dtype).t()) + bias.to(dtype)
+        ga, gb = torch.sigmoid(p.float().view(b, self.heads, t, 2, 4).sum(-1)).unbind(-1)
+        return (ga * (gb * self.gru_rel_pos_const.view(1, self.heads, 1) - 1.0)
+                + 2.0)[..., None]
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype, dropout_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, _ = x.shape
         hd = self.head_dim
         x = _enter_model_parallel(x, self.tp_group)
         q, k, v = (dense(x, getattr(self, n), dtype).view(b, t, self.heads, hd)
                    .transpose(1, 2) for n in ("query", "key", "value"))
         q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype)
-        w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
-        w = dropout(w, dropout_rate, generator, self.training)
-        o = torch.matmul(w, v).transpose(1, 2).reshape(b, t, self.heads * hd)
+        if bias is None:
+            w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+            w = dropout(w, dropout_rate, generator, self.training)
+            o = torch.matmul(w, v)
+        else:
+            if not recomputing():
+                count("w2v2.gated_layers")
+            with annotate("stage.w2v2.attention"):
+                s = torch.matmul(q, k.transpose(-1, -2))
+                with annotate("stage.w2v2.gate"):
+                    s = torch.addcmul(s.float(), self.gate(x, dtype), bias)
+                w = torch.softmax(s, dim=-1).to(dtype)
+                w = dropout(w, dropout_rate, generator, self.training)
+                o = torch.matmul(w, v)
+        o = o.transpose(1, 2).reshape(b, t, self.heads * hd)
         if self.tp_group is not None:
             return row_parallel_dense(o, self.out, dtype, self.tp_group)
         return dense(o, self.out, dtype)
 
 
 class _EncoderLayer(nn.Module):
-    def __init__(self, arch: W2V2Arch):
+    def __init__(self, arch: W2V2Arch, index: int = 0):
         super().__init__()
         h, eps = arch.hidden_size, arch.layer_norm_eps
         self.pre = arch.do_stable_layer_norm
-        self.attention = SelfAttention(h, arch.num_heads)
+        gated = arch.num_buckets > 0
+        self.attention = SelfAttention(h, arch.num_heads, gated=gated,
+                                       num_buckets=arch.num_buckets if index == 0 else 0)
         self.layer_norm = nn.LayerNorm(h, eps=eps)
         self.intermediate_dense = nn.Linear(h, arch.intermediate_size)
         self.output_dense = nn.Linear(arch.intermediate_size, h)
         self.final_layer_norm = nn.LayerNorm(h, eps=eps)
         self.tp_group = None        # set by parallel/tp.py: the FFN is split
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = layer_norm(x, self.layer_norm) if self.pre else x
-        x = x + self.attention(h, dtype)
+        x = x + self.attention(h, dtype, bias=bias)
         if not self.pre:
             x = layer_norm(x, self.layer_norm)
         h = layer_norm(x, self.final_layer_norm) if self.pre else x
@@ -266,7 +372,11 @@ class Wav2Vec2Encoder(nn.Module):
     layer's output (HF's ``hidden_states``). ``normalize_input`` applies the
     Wav2Vec2Processor's per-utterance normalisation, var + 1e-7.
     ``remat_layers`` / ``remat_extractor`` checkpoint the transformer layers /
-    the conv feature extractor in training."""
+    the conv feature extractor in training. With WavLM's bias the forward
+    counts ``w2v2.relpos_bias`` once and ``w2v2.gated_layers`` once a layer
+    (not again in a recompute), inside the spans ``stage.w2v2.relpos`` (the
+    bias table), ``stage.w2v2.attention`` (each layer's scores to its
+    weighted sum) and ``stage.w2v2.gate`` (in it: the gate and ``g * bias``)."""
 
     def __init__(self, arch: W2V2Arch = W2V2Arch(), normalize_input: bool = True,
                  dtype: torch.dtype = torch.float32, remat_layers: bool = False,
@@ -281,7 +391,17 @@ class Wav2Vec2Encoder(nn.Module):
         self.pos_conv_embed = _PositionalConvEmbedding(arch)
         self.encoder_layer_norm = nn.LayerNorm(h, eps=eps)
         for i in range(arch.num_layers):
-            self.add_module(f"layers_{i}", _EncoderLayer(arch))
+            self.add_module(f"layers_{i}", _EncoderLayer(arch, i))
+
+    def position_bias(self, t: int) -> torch.Tensor:
+        """WavLM's relative-position bias (heads, t, t), f32: layer 0's
+        ``rel_attn_embed`` row of ``relative_position_bucket(j - i)`` for
+        query frame i and key frame j."""
+        a, table = self.arch, self.layers_0.attention.rel_attn_embed.weight
+        pos = torch.arange(t, device=table.device)
+        bucket = relative_position_bucket(pos[None, :] - pos[:, None], a.num_buckets,
+                                          a.max_bucket_distance)
+        return table.float()[bucket].permute(2, 0, 1).contiguous()
 
     def forward(self, x: torch.Tensor, output_hidden_states: bool = False
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, List[torch.Tensor]]]:
@@ -299,10 +419,15 @@ class Wav2Vec2Encoder(nn.Module):
         if not a.do_stable_layer_norm:
             h = layer_norm(h, self.encoder_layer_norm)
         hidden_states = [h]
+        bias = None
+        if a.num_buckets:
+            with annotate("stage.w2v2.relpos"):
+                bias = self.position_bias(h.shape[1])
+            count("w2v2.relpos_bias")
         remat = self.remat_layers and self.training
         for i in range(a.num_layers):
             layer = getattr(self, f"layers_{i}")
-            h = checkpoint(layer, h, dt) if remat else layer(h, dt)
+            h = checkpoint(layer, h, dt, bias) if remat else layer(h, dt, bias)
             hidden_states.append(h)
         if a.do_stable_layer_norm:
             h = layer_norm(h, self.encoder_layer_norm)
@@ -319,12 +444,16 @@ def _t(x):
 
 
 def port_hf_state_dict(sd: dict, arch: W2V2Arch) -> dict:
-    """Map a HF torch Wav2Vec2Model state_dict (numpy values, keys under
-    'feature_extractor'/'feature_projection'/'encoder', optionally prefixed
-    'wav2vec2.') to adfmsl's flax param tree of the encoder, as numpy arrays
-    (adfmsl ``w2v2.py:205``). ``state_dict_from_flax`` turns the tree into
-    the port's state dict."""
-    sd = {(k[len("wav2vec2."):] if k.startswith("wav2vec2.") else k): v
+    """Map a HF torch Wav2Vec2Model or WavLMModel state_dict (numpy values,
+    keys under 'feature_extractor'/'feature_projection'/'encoder', optionally
+    prefixed 'wav2vec2.' or 'wavlm.') to adfmsl's flax param tree of the
+    encoder, as numpy arrays (adfmsl ``w2v2.py:205``). ``state_dict_from_flax``
+    turns the tree into the port's state dict. WavLM's leaves (``num_buckets``
+    > 0), which adfmsl has no tree for, go under each layer's ``attention``:
+    ``gru_rel_pos_linear`` as a Dense, ``gru_rel_pos_const`` bare, and layer
+    0's ``rel_attn_embed`` as ``{"weight": (buckets, heads)}``."""
+    prefixes = ("wav2vec2.", "wavlm.")
+    sd = {next((k[len(p):] for p in prefixes if k.startswith(p)), k): v
           for k, v in sd.items()}
 
     def norm(key):
@@ -391,6 +520,16 @@ def port_hf_state_dict(sd: dict, arch: W2V2Arch) -> dict:
             },
             "final_layer_norm": norm(f"{e}.final_layer_norm"),
         }
+        if arch.num_buckets:
+            att = p[f"layers_{i}"]["attention"]
+            a = f"{e}.attention"
+            att["gru_rel_pos_linear"] = {
+                "kernel": _t(sd[f"{a}.gru_rel_pos_linear.weight"]).T,
+                "bias": _t(sd[f"{a}.gru_rel_pos_linear.bias"]),
+            }
+            att["gru_rel_pos_const"] = _t(sd[f"{a}.gru_rel_pos_const"])
+            if i == 0:
+                att["rel_attn_embed"] = {"weight": _t(sd[f"{a}.rel_attn_embed.weight"])}
     return p
 
 

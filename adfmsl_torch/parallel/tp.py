@@ -9,6 +9,11 @@ adfmsl's rules (:22-38) split, over the mesh's model axis, inside the
 - the attention's ``out`` kernel on the heads (row-parallel), its bias whole;
 - ``intermediate_dense`` on its output width (column-parallel), and
   ``output_dense`` on its input width (row-parallel), its bias whole;
+- WavLM's per-head leaves with the heads: layer 0's bucket table
+  ``rel_attn_embed`` on its columns and each layer's ``gru_rel_pos_const``
+  (dim 1), so each rank builds the bias of its own heads; the gate's
+  ``gru_rel_pos_linear``, shared by the heads, stays whole and each rank
+  applies it to its heads' slice of the layer's input (``head0``);
 - everything else replicated.
 
 In the port's (out, in) ``nn.Linear`` layout a column-parallel weight splits
@@ -34,11 +39,15 @@ from adfmsl_torch.parallel.mesh import Mesh
 _SPLIT = re.compile(r"^wav2vec2\.layers_\d+\.(attention\.(query|key|value|out)|"
                     r"intermediate_dense|output_dense)\.(weight|bias)$")
 _ROW_PARALLEL = ("attention.out", "output_dense")
+_HEAD_COLUMNS = re.compile(r"^wav2vec2\.layers_\d+\.attention\."
+                           r"(rel_attn_embed\.weight|gru_rel_pos_const)$")
 
 
 def param_spec(name: str) -> Optional[int]:
     """The dim of parameter ``name`` split over the model axis (``None``:
     replicated)."""
+    if _HEAD_COLUMNS.match(name):
+        return 1
     m = _SPLIT.match(name)
     if m is None:
         return None
@@ -71,6 +80,7 @@ def shard_params_tp(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
             if mod.heads % mp:
                 raise ValueError(f"{mod.heads} heads do not split over {mp} ranks")
             mod.heads //= mp
+            mod.head0 = r * mod.heads
     with torch.no_grad():
         for name, p in model.named_parameters():
             dim = param_spec(name)

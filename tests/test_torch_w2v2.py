@@ -37,6 +37,12 @@ def _arch(kind):
                                do_stable_layer_norm=stable)
 
 
+def ref_arch(arch):
+    """adfmsl's arch of the port's: its fields only (the port's adds WavLM's
+    ``num_buckets`` / ``max_bucket_distance``, which adfmsl has no encoder for)."""
+    return RefArch(**{f.name: getattr(arch, f.name) for f in dataclasses.fields(RefArch)})
+
+
 def _np(tree):
     return jax.tree.map(lambda a: np.array(a, dtype=np.float32), tree)
 
@@ -47,7 +53,7 @@ def test_encoder_and_taps_match_adfmsl(kind, dtype):
     arch = _arch(kind)
     x = np.random.default_rng(7).standard_normal((2, 4000)).astype(np.float32) * 3 + 0.5
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
-    ref_enc = RefEncoder(arch=RefArch(**dataclasses.asdict(arch)), dtype=jdt)
+    ref_enc = RefEncoder(arch=ref_arch(arch), dtype=jdt)
     params = _np(ref_enc.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"])
     ref, ref_hs = ref_enc.apply({"params": params}, jnp.asarray(x), output_hidden_states=True)
     enc = Wav2Vec2Encoder(arch, dtype=getattr(torch, dtype))
@@ -101,7 +107,7 @@ def test_load_pretrained_matches_hf_and_adfmsl(kind, fmt, tmp_path):
         torch.save(_old_weight_norm_spelling(sd) if "weight_g" in fmt else sd, path)
     arch = _arch(kind)
     loaded = load_pretrained(path, arch)
-    ref = flax_tree_to_state_dict(ref_load_pretrained(path, RefArch(**dataclasses.asdict(arch))))
+    ref = flax_tree_to_state_dict(ref_load_pretrained(path, ref_arch(arch)))
     assert loaded.keys() == ref.keys()
     for k in ref:
         assert torch.equal(loaded[k], ref[k]), k
