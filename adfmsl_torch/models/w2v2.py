@@ -10,9 +10,14 @@ transformer layers (post-LN, or pre-LN with ``do_stable_layer_norm``).
 WavLM (Chen et al. 2021, HF ``modeling_wavlm.py``; ``num_buckets`` > 0) is
 the same encoder with a gated relative-position bias in every layer's
 scores. Layer 0's attention owns the bucket table ``rel_attn_embed``
-(buckets, heads); the encoder builds the (heads, T', T') bias from it once a
-forward, from ``relative_position_bucket(j - i)``, and passes it to every
-layer, broadcast over the batch. Each layer scales it by a gate of its own,
+(buckets, heads); the encoder builds the per-distance row (heads, 2T' - 1)
+from it once a forward, from ``relative_position_bucket(j - i)``, and, where
+the composition runs, the (heads, T', T') bias gathered from that row; it
+passes one of them to every layer, broadcast over the batch. At eval in a
+bf16 model on a card (``SelfAttention.fused``) each layer's attention core is
+kernel K6 (``ops/wavlm_attention.py``), which adds the bias from the row
+inside its tiles, and the (heads, T', T') table is never built. Each layer
+scales the bias by a gate of its own,
 per head and query frame, computed from its pre-LN input split into heads
 (not from the query): ``g = a * (b * gru_rel_pos_const - 1) + 2`` with ``a, b``
 the sigmoids of ``gru_rel_pos_linear``'s (head dim -> 8) output summed in two
@@ -57,6 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adfmsl_torch.ops import wavlm_attention as k6
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.remat import checkpoint, recomputing
 from adfmsl_torch.utils.profiling import annotate, count
@@ -269,7 +275,9 @@ class SelfAttention(nn.Module):
 
     WavLM's form (``gated``) owns ``gru_rel_pos_linear`` and
     ``gru_rel_pos_const``, and with ``num_buckets`` (layer 0) the bucket table
-    ``rel_attn_embed``; its forward takes the encoder's (heads, T, T) ``bias``."""
+    ``rel_attn_embed``; its forward takes the encoder's (heads, T, T) ``bias``
+    for the composition, or where ``fused`` holds its per-distance ``row``
+    (heads, 2T - 1) for kernel K6."""
 
     def __init__(self, hidden: int, heads: int, gated: bool = False, num_buckets: int = 0):
         super().__init__()
@@ -285,8 +293,18 @@ class SelfAttention(nn.Module):
         if num_buckets:
             self.rel_attn_embed = nn.Embedding(num_buckets, heads)
 
+    def fused(self, x: torch.Tensor, dtype: torch.dtype) -> bool:
+        """Whether kernel K6 computes this layer's gated attention for the
+        input ``x``: WavLM's form at eval (so no dropout) with grad disabled
+        (K6 has no backward) in a bf16 model on a card, at K6's head dim.
+        Elsewhere (training and remat, dropout, grad on, f32, the CPU,
+        wav2vec2's bias-free form) the composition runs."""
+        return (hasattr(self, "gru_rel_pos_linear") and x.is_cuda
+                and dtype == torch.bfloat16 and not torch.is_grad_enabled()
+                and not self.training and self.head_dim == k6.HEAD_DIM)
+
     def gate(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """WavLM's gate (B, heads, T, 1), f32, of the layer's pre-LN input
+        """WavLM's gate (B, heads, T), f32, of the layer's pre-LN input
         ``x`` (B, T, H) split into heads: the head dim -> 8 product in
         ``dtype``, then in f32 its two groups of four summed, their sigmoids
         ``a, b`` and ``a * (b * gru_rel_pos_const - 1) + 2``. Under tensor
@@ -301,33 +319,40 @@ class SelfAttention(nn.Module):
         w, bias = (_enter_model_parallel(p, self.tp_group) for p in (lin.weight, lin.bias))
         p = torch.matmul(xh.to(dtype), w.to(dtype).t()) + bias.to(dtype)
         ga, gb = torch.sigmoid(p.float().view(b, self.heads, t, 2, 4).sum(-1)).unbind(-1)
-        return (ga * (gb * self.gru_rel_pos_const.view(1, self.heads, 1) - 1.0)
-                + 2.0)[..., None]
+        return ga * (gb * self.gru_rel_pos_const.view(1, self.heads, 1) - 1.0) + 2.0
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype, dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                row: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, _ = x.shape
         hd = self.head_dim
         x = _enter_model_parallel(x, self.tp_group)
-        q, k, v = (dense(x, getattr(self, n), dtype).view(b, t, self.heads, hd)
-                   .transpose(1, 2) for n in ("query", "key", "value"))
-        q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype)
-        if bias is None:
-            w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
-            w = dropout(w, dropout_rate, generator, self.training)
-            o = torch.matmul(w, v)
-        else:
+        q, k, v = (dense(x, getattr(self, n), dtype) for n in ("query", "key", "value"))
+        if row is not None:
+            if not self.fused(x, dtype):
+                raise ValueError("SelfAttention: the bias row is K6's operand; K6 does not "
+                                 "take this call (SelfAttention.fused)")
+            count("w2v2.gated_layers")
+            with annotate("stage.w2v2.attention"):
+                with annotate("stage.w2v2.gate"):
+                    g = self.gate(x, dtype)
+                o = k6.wavlm_attention(q, k, v, g, row)
+        elif bias is not None:
+            q = k6.scale_query(q, hd)
             if not recomputing():
                 count("w2v2.gated_layers")
             with annotate("stage.w2v2.attention"):
-                s = torch.matmul(q, k.transpose(-1, -2))
                 with annotate("stage.w2v2.gate"):
-                    s = torch.addcmul(s.float(), self.gate(x, dtype), bias)
-                w = torch.softmax(s, dim=-1).to(dtype)
-                w = dropout(w, dropout_rate, generator, self.training)
-                o = torch.matmul(w, v)
-        o = o.transpose(1, 2).reshape(b, t, self.heads * hd)
+                    g = self.gate(x, dtype)
+                o = k6.attention_composition(q, k, v, g, bias, dropout_rate, generator,
+                                             self.training)
+        else:
+            q, k, v = (y.view(b, t, self.heads, hd).transpose(1, 2)
+                       for y in (k6.scale_query(q, hd), k, v))
+            w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+            w = dropout(w, dropout_rate, generator, self.training)
+            o = torch.matmul(w, v).transpose(1, 2).reshape(b, t, self.heads * hd)
         if self.tp_group is not None:
             return row_parallel_dense(o, self.out, dtype, self.tp_group)
         return dense(o, self.out, dtype)
@@ -348,9 +373,10 @@ class _EncoderLayer(nn.Module):
         self.tp_group = None        # set by parallel/tp.py: the FFN is split
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                row: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = layer_norm(x, self.layer_norm) if self.pre else x
-        x = x + self.attention(h, dtype, bias=bias)
+        x = x + self.attention(h, dtype, bias=bias, row=row)
         if not self.pre:
             x = layer_norm(x, self.layer_norm)
         h = layer_norm(x, self.final_layer_norm) if self.pre else x
@@ -374,9 +400,11 @@ class Wav2Vec2Encoder(nn.Module):
     ``remat_layers`` / ``remat_extractor`` checkpoint the transformer layers /
     the conv feature extractor in training. With WavLM's bias the forward
     counts ``w2v2.relpos_bias`` once and ``w2v2.gated_layers`` once a layer
-    (not again in a recompute), inside the spans ``stage.w2v2.relpos`` (the
-    bias table), ``stage.w2v2.attention`` (each layer's scores to its
-    weighted sum) and ``stage.w2v2.gate`` (in it: the gate and ``g * bias``)."""
+    (not again in a recompute), and ``w2v2.fused_attention`` once a K6 launch,
+    inside the spans ``stage.w2v2.relpos`` (the per-distance row, and where
+    the composition runs the bias table gathered from it),
+    ``stage.w2v2.attention`` (each layer's scores to its weighted sum: K6, or
+    the composition) and ``stage.w2v2.gate`` (in it: the gate alone)."""
 
     def __init__(self, arch: W2V2Arch = W2V2Arch(), normalize_input: bool = True,
                  dtype: torch.dtype = torch.float32, remat_layers: bool = False,
@@ -393,15 +421,20 @@ class Wav2Vec2Encoder(nn.Module):
         for i in range(arch.num_layers):
             self.add_module(f"layers_{i}", _EncoderLayer(arch, i))
 
-    def position_bias(self, t: int) -> torch.Tensor:
-        """WavLM's relative-position bias (heads, t, t), f32: layer 0's
-        ``rel_attn_embed`` row of ``relative_position_bucket(j - i)`` for
-        query frame i and key frame j."""
+    def relative_position_row(self, t: int) -> torch.Tensor:
+        """WavLM's bias by distance (heads, 2t - 1), f32: entry t - 1 + d is
+        layer 0's ``rel_attn_embed`` row of ``relative_position_bucket(d)``,
+        for d = j - i from 1 - t to t - 1."""
         a, table = self.arch, self.layers_0.attention.rel_attn_embed.weight
-        pos = torch.arange(t, device=table.device)
-        bucket = relative_position_bucket(pos[None, :] - pos[:, None], a.num_buckets,
-                                          a.max_bucket_distance)
-        return table.float()[bucket].permute(2, 0, 1).contiguous()
+        rel = torch.arange(1 - t, t, device=table.device)
+        bucket = relative_position_bucket(rel, a.num_buckets, a.max_bucket_distance)
+        return table.float()[bucket].t().contiguous()
+
+    def position_bias(self, t: int) -> torch.Tensor:
+        """WavLM's relative-position bias (heads, t, t), f32, for query frame
+        i and key frame j: ``relative_position_row``'s entry t - 1 + j - i,
+        so the composition adds the values K6 adds."""
+        return k6.bias_from_row(self.relative_position_row(t), t)
 
     def forward(self, x: torch.Tensor, output_hidden_states: bool = False
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, List[torch.Tensor]]]:
@@ -419,15 +452,18 @@ class Wav2Vec2Encoder(nn.Module):
         if not a.do_stable_layer_norm:
             h = layer_norm(h, self.encoder_layer_norm)
         hidden_states = [h]
-        bias = None
+        bias = row = None
         if a.num_buckets:
             with annotate("stage.w2v2.relpos"):
-                bias = self.position_bias(h.shape[1])
+                if self.layers_0.attention.fused(h, dt):
+                    row = self.relative_position_row(h.shape[1])
+                else:
+                    bias = self.position_bias(h.shape[1])
             count("w2v2.relpos_bias")
         remat = self.remat_layers and self.training
         for i in range(a.num_layers):
             layer = getattr(self, f"layers_{i}")
-            h = checkpoint(layer, h, dt, bias) if remat else layer(h, dt, bias)
+            h = checkpoint(layer, h, dt, bias) if remat else layer(h, dt, bias, row)
             hidden_states.append(h)
         if a.do_stable_layer_norm:
             h = layer_norm(h, self.encoder_layer_norm)

@@ -34,7 +34,8 @@ LIBRARIES = {"resblock_eval": ("resblock_eval.cu",),
              "sinc_abs_pool": ("sinc_abs_pool.cu",),
              "sinc_abs_pool_bwd": ("sinc_abs_pool_bwd.cu",),
              "sinc_bn_act": ("sinc_bn_act.cu",),
-             "lfcc_fused": ("lfcc_fused.cu",)}
+             "lfcc_fused": ("lfcc_fused.cu",),
+             "wavlm_attention": ("wavlm_attention.cu",)}
 # Host libraries (built with the C++ compiler, not nvcc): name -> sources.
 # adfmsl's io_native/src/Makefile flags, without -march=native: the cache key
 # does not name the host.

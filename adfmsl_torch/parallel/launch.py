@@ -42,21 +42,24 @@ COLLECTIVE_TIMEOUT = 1800.0      # seconds a collective may wait for its peers
 
 def kernel_launches() -> Dict[str, int]:
     """This process's launch counts of the port's CUDA kernels."""
-    from adfmsl_torch.ops import bn_relu_bwd, lfcc_fused, resblock_fused, sinc_fused
+    from adfmsl_torch.ops import (bn_relu_bwd, lfcc_fused, resblock_fused, sinc_fused,
+                                  wavlm_attention)
 
     return {"K1": resblock_fused.resblock_eval.launches,
             "K2": bn_relu_bwd.bn_relu_bwd.launches,
             "K3": sinc_fused.sinc_abs_pool_fused.launches,
             "K3-bwd": sinc_fused.sinc_abs_pool_bwd.launches,
-            "K4": lfcc_fused.lfcc_fused.launches}
+            "K4": lfcc_fused.lfcc_fused.launches,
+            "K6": wavlm_attention.wavlm_attention.launches}
 
 
 def reset_kernel_launches() -> None:
-    from adfmsl_torch.ops import bn_relu_bwd, lfcc_fused, resblock_fused, sinc_fused
+    from adfmsl_torch.ops import (bn_relu_bwd, lfcc_fused, resblock_fused, sinc_fused,
+                                  wavlm_attention)
 
     for f in (resblock_fused.resblock_eval, bn_relu_bwd.bn_relu_bwd,
               sinc_fused.sinc_abs_pool_fused, sinc_fused.sinc_abs_pool_bwd,
-              lfcc_fused.lfcc_fused):
+              lfcc_fused.lfcc_fused, wavlm_attention.wavlm_attention):
         f.launches = 0
 
 

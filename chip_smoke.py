@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch port (``adfmsl_torch``) on one CUDA card.
 
     python3 chip_smoke.py                   # every phase below
-    python3 chip_smoke.py --only kernels    # phases 1 and 2-3d only
+    python3 chip_smoke.py --only kernels    # phases 1 and 2-3f only
     python3 chip_smoke.py --only k2         # K2's library and cases only
     python3 chip_smoke.py --only multidevice   # the build and phase 7e only
     python3 chip_smoke.py --only config_cli    # the build and phase 7f only
     python3 chip_smoke.py --only reference_ckpt   # the build and phase 7g only
     python3 chip_smoke.py --only packs      # the build and phase 7h only
     python3 chip_smoke.py --only analysis   # the build and phase 7i only
+    python3 chip_smoke.py --only wavlm      # the build and phase 4d only
 
 Phases, each printing its own lines:
 
@@ -73,6 +74,15 @@ Phases, each printing its own lines:
    equal bit for bit; the
    kernel's and the composition's times beside the bound (the TF32 products
    or the bytes, the larger), and K5's registers and spills from build.log;
+3f. kernel K6 (WavLM's gated relative-position attention core at eval,
+   ``ops/wavlm_attention.py``) at the WavLM cell's shape (batch 16, 16 heads
+   of 64, T' 1,499): one count a call, every element within
+   ``composition_gap``'s bound of its plain version, the gap of each to the
+   exact (f32) attention; the kernel's time beside the bound (the products
+   at the bf16 peak, ``benchmark/benchlib/attention_roofline.py``'s), the
+   plain version's (which gathers the bias table from the row each call) and
+   the composition's as the model ran it (the table built once a forward);
+   K6's registers and spills from build.log;
 4. the main path, for maze5, maze5_fmsl, main, main_fmsl, lcnn_lfcc,
    lcnn1d_lfcc and resnet18_logmel: a synthetic
    ASVspoof fixture with 40 eval utterances goes through
@@ -94,6 +104,16 @@ Phases, each printing its own lines:
    and maze8_fmsl, 6 for maze2 (its 768 -> 128 stack head included; maze6's
    is 1024 -> 128) and 3 for maze3, maze2_fmsl, maze3_fmsl and maze6_fmsl
    (``W2V2_PATHS``; T 201 frames into the trunk);
+4d. maze6 on WavLM-Large (``wavlm_main_path``), built as the benchmark's
+   ``maze6_wavlm`` cell builds it (``make_experiment('maze6')`` with
+   ``WAVLM_OVERRIDES``, random init from seed 0) and saved as a checkpoint,
+   through ``adfmsl_torch.cli.evaluate --model_path`` on the fixture at the
+   cell's 30 s cut and batch 16, on two gloo ranks sharing the card: each
+   rank's ``rank_summary`` (a fresh process, its counts from 0) must read K6,
+   ``w2v2.fused_attention`` and ``w2v2.gated_layers`` 24 times a forward it
+   ran, and the score file one finite score an utterance in protocol order;
+   then the model in training (one forward with grad), after
+   ``reset_kernel_launches``, launches no K6 and adds nothing to the counter;
 4c. native audio IO (``native_io``): the fixture's eval split written again
    as FLAC (FIXED subframes, ``adfmsl_torch/data/flac.py``), maze5 through
    the evaluate CLI over the FLAC split and over the WAV one (K1 5 and K5 1
@@ -335,7 +355,7 @@ Phases, each printing its own lines:
 
 Each phase prints its seconds, and a ``phase_seconds`` line the total. The
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises
-before it. ``--only kernels`` runs the build and phases 2-3d, ends with a
+before it. ``--only kernels`` runs the build and phases 2-3f, ends with a
 ``kernels_phase`` line (K1's times summed over maze5's and main's blocks, K3's,
 its backward's and K4's main-path records) and prints no ``{"ok": ...}`` line: it is the quick
 loop for kernel work, not a smoke run. ``--only k2`` builds K2's library
@@ -448,6 +468,14 @@ K3_BWD_CASES = [("jax_case", 2, 8000, SINC_C, SINC_K), ("ragged", 3, 8001, SINC_
                 ("c256_k129", 3, 5000, 256, 129), ("c16_k7", 3, 5000, 16, 7),
                 ("ties", 2, 8000, SINC_C, SINC_K)]
 K3_BWD_TOL = {"tf32": 2e-3, "3xtf32": 1e-4}
+# K6 at the WavLM cell's shape: name, B, heads, T' (30 s at 16 kHz)
+K6_CASES = [("cell_b16_t1499", 16, 16, 1499)]
+K6_LAYERS = 24                    # WavLM-Large's transformer layers: K6 launches a forward
+# maze6 on WavLM-Large as benchmark/configs/maze6_wavlm.json builds it, at its cell's cut
+# (30 s at 16 kHz); the two ranks' time limit
+WAVLM_OVERRIDES = {"model.wav2vec2.model_name": "microsoft/wavlm-large"}
+WAVLM_CUT = 480000
+WAVLM_LIMIT = 600.0
 K5_CASES = [(f"b{EVAL_BATCH}_cut{CUT}", EVAL_BATCH, CUT),   # name, B, T
             (f"b{BENCH_BATCH}_cut{CUT}", BENCH_BATCH, CUT)]
 K3_BWD_PASSES = {"tf32": 1, "3xtf32": 3}
@@ -999,6 +1027,49 @@ def k5_case(filters, name, b, t, seed, dev):
     return rec
 
 
+def k6_case(name, b, heads, t, seed, dev):
+    """K6 against its plain version: one count a call, within
+    ``composition_gap``'s bound, each side's gap to the exact attention; the
+    kernel's, the plain version's and the composition's times (the last with
+    the bias table built beforehand, as the model built it once a forward)
+    beside the bound of one layer."""
+    from adfmsl_torch.ops import wavlm_attention as k6
+
+    sys.path.insert(0, str(ROOT / "benchmark"))
+    from benchlib.attention_roofline import attention_bound_ms
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (s * torch.randn(b, t, heads * k6.HEAD_DIM, generator=g, device=dev)
+               .bfloat16() for s in (2.0, 0.25, 1.0))
+    gate = 1 + torch.rand(b, heads, t, generator=g, device=dev)
+    row = torch.randn(heads, 2 * t - 1, generator=g, device=dev)
+    before = k6.wavlm_attention.launches
+    out = k6.wavlm_attention(q, k, v, gate, row)
+    torch.cuda.synchronize()
+    counted = k6.wavlm_attention.launches - before
+    gap = k6.composition_gap(out, q, k, v, gate, row)
+    del out
+    bias = k6.bias_from_row(row, t)
+    qs = k6.scale_query(q, k6.HEAD_DIM)
+    ms = cuda_ms(lambda: k6.wavlm_attention(q, k, v, gate, row))
+    plain_ms = cuda_ms(lambda: k6.wavlm_attention_plain(q, k, v, gate, row), reps=2)
+    composition_ms = cuda_ms(lambda: k6.attention_composition(qs, k, v, gate, bias), reps=2)
+    bound = attention_bound_ms(b, t, heads, k6.HEAD_DIM, 1)
+    flops = 4.0 * b * heads * t * t * k6.HEAD_DIM
+    rec = {"case": name, "B": b, "heads": heads, "T": t, **gap, "counted": counted,
+           "kernel_ms": ms, "plain_ms": plain_ms, "composition_ms": composition_ms,
+           "ops_ms": flops / PEAK_BF16_FLOPS * 1e3,
+           "bytes_ms": 8.0 * b * t * heads * k6.HEAD_DIM / PEAK_BYTES * 1e3,
+           "bound_ms": bound, "roofline_pct": 100 * bound / ms,
+           "tflop_per_s": flops / ms / 1e9}
+    print("K6 " + json.dumps(rec), flush=True)
+    check(counted == 1, f"K6 {name}: one call counted {counted} times")
+    check(gap["max_gap_over_bound"] <= 1.0, f"K6 {name}: gap over bound {gap}")
+    del q, qs, k, v, gate, row, bias
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels(rf, sf, lf, dev):
     """K1, K3 and K4 against their plain versions, TF32 off so those are f32
     (K4's plain version rounds its operands to bf16 itself at 'high' and
@@ -1026,10 +1097,12 @@ def phase_kernels(rf, sf, lf, dev):
            for i, c in enumerate(K3_BWD_CASES) for p in K3_BWD_TOL]
     filters = sinc_filters_at_init(dev)
     k5 = [k5_case(filters, *c, seed=50 + i, dev=dev) for i, c in enumerate(K5_CASES)]
+    k6 = [k6_case(*c, seed=60 + i, dev=dev) for i, c in enumerate(K6_CASES)]
     figs = {**build_report("sinc_abs_pool", "sinc_abs_pool_kernel"),
             **build_report("sinc_abs_pool_bwd", "sinc_bwd_kernel"),
-            **build_report("sinc_bn_act", "sinc_bn_act_kernel")}
-    return k1, k3, k3b, k4, k5, figs
+            **build_report("sinc_bn_act", "sinc_bn_act_kernel"),
+            **build_report("wavlm_attention", "wavlm_attention_kernel")}
+    return k1, k3, k3b, k4, k5, k6, figs
 
 
 def k3_train_bound(b, t, c, k, peak_flops):
@@ -1168,6 +1241,78 @@ def phase_main_path(name, flags, k1_per_batch, k3_per_batch, k4_per_batch, k5_pe
            "k3_launches": k3_launches, "k4_launches": k4_launches, "k5_launches": k5,
            "eer": metrics[-1]["eer"], "wall_s": wall_s}
     print("main_path " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_wavlm_main_path(fixture, tmp, dev):
+    """maze6 on WavLM-Large through the evaluate CLI on two ranks, then in
+    training (phase 4d); returns the record."""
+    from adfmsl_torch.config import apply_overrides, make_experiment
+    from adfmsl_torch.models import build_model, save_checkpoint
+    from adfmsl_torch.parallel import kernel_launches, reset_kernel_launches
+    from adfmsl_torch.utils.profiling import totals
+
+    exp = make_experiment("maze6")
+    apply_overrides(exp, WAVLM_OVERRIDES)
+    exp.data.cut = WAVLM_CUT
+    model = build_model(exp.model, device=dev, seed=0)
+    ck = os.path.join(tmp, "maze6_wavlm_ck")
+    save_checkpoint(ck, exp, model)
+    ev = fixture["eval"]
+    out = os.path.join(tmp, "maze6_wavlm_scores.txt")
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-m", "adfmsl_torch.cli.evaluate",
+                          "--model_type", "maze6", "--model_path", ck,
+                          "--protocol", ev["protocol"], "--data_dir", ev["audio_dir"],
+                          "--output", out, "--batch_size", str(EVAL_BATCH),
+                          "--cut", str(WAVLM_CUT), "--device", "cuda",
+                          "--data_parallel", "2", "--dist_backend", "gloo",
+                          "--dist_timeout", str(WAVLM_LIMIT)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         cwd=str(ROOT), start_new_session=True)
+    try:
+        stdout, stderr = p.communicate(timeout=WAVLM_LIMIT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)      # the CLI and the ranks it spawned
+        p.communicate()
+        raise
+    wall_s = time.perf_counter() - t0
+    check(p.returncode == 0, f"wavlm: evaluate exited {p.returncode}: {stderr[-3000:]}")
+    ranks = []
+    for ln in stdout.splitlines():
+        if ln.startswith("rank_summary "):
+            print(ln, flush=True)
+            ranks.append(json.loads(ln.split(" ", 1)[1]))
+    with open(out) as fh:
+        lines = [ln.split() for ln in fh.read().splitlines()]
+    check([ln[0] for ln in lines] == ev["utt_ids"],
+          "wavlm: score file ids differ from the protocol")
+    check(bool(np.isfinite([float(ln[1]) for ln in lines]).all()), "wavlm: non-finite scores")
+    # each rank scores its row block of every batch: one forward a batch
+    want = K6_LAYERS * -(-EVAL_UTTS // EVAL_BATCH)
+    counts = [{"K6": r["kernel_launches"]["K6"],
+               **{c: r["counters"].get(c, 0) for c in ("w2v2.fused_attention",
+                                                       "w2v2.gated_layers")}}
+              for r in ranks]
+    check(len(ranks) == 2 and all(set(c.values()) == {want} for c in counts),
+          f"wavlm: rank counts {counts}, expected {want} each")
+
+    model.train()
+    reset_kernel_launches()
+    before = totals().get("w2v2.fused_attention", 0)
+    x = 0.1 * torch.randn(2, 32000, generator=torch.Generator().manual_seed(0)).to(dev)
+    model(x, rngs={n: torch.Generator(device=dev).manual_seed(i)
+                   for i, n in enumerate(("dropout", "specaugment", "lsa"))})
+    torch.cuda.synchronize()
+    train = {"K6": kernel_launches()["K6"],
+             "w2v2.fused_attention": totals().get("w2v2.fused_attention", 0) - before}
+    check(train == {"K6": 0, "w2v2.fused_attention": 0}, f"wavlm: training counted {train}")
+    rec = {"model": "maze6", "overrides": WAVLM_OVERRIDES, "cut": WAVLM_CUT,
+           "batch": EVAL_BATCH, "utterances": len(lines), "ranks": counts,
+           "expected_each": want, "train_forward": train, "wall_s": wall_s}
+    print("wavlm_main_path " + json.dumps(rec), flush=True)
+    del model, x
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3805,11 +3950,18 @@ def _k1_instantiations(k1):
     return out
 
 
-def kernels_phase_line(k1, k3, k3b, k4, k5, figs):
+def _k6_record(k6):
+    """K6's figures at the WavLM cell's shape."""
+    return {r["case"]: {**_summed([r]), **{k: r[k] for k in (
+        "composition_ms", "roofline_pct", "tflop_per_s", "max_gap_over_bound", "f32_gap",
+        "plain_f32_gap")}} for r in k6}
+
+
+def kernels_phase_line(k1, k3, k3b, k4, k5, k6, figs):
     """The ``kernels_phase`` record of ``--only kernels``: K1 summed over
     maze5's and main's blocks with its figures, K3, K3's backward (both
-    precisions), K4 and K5 at their main-path shapes, K3's and K5's build
-    figures."""
+    precisions), K4, K5 and K6 at their main-path shapes, K3's, K5's and K6's
+    build figures."""
     return {"kernels_phase": {
         "K1": {"maze5_blocks": _summed([r for r in k1 if r["case"].startswith("maze5_block")]),
                "main_blocks": _summed([r for r in k1 if r["case"].startswith("main_block")]),
@@ -3829,7 +3981,8 @@ def kernels_phase_line(k1, k3, k3b, k4, k5, figs):
         "K4_max_err_over_tol": max(r["err_over_tol"] for r in k4),
         **{f"K5_b{r['B']}": {**_summed([r]), "composition_ms": r["composition_ms"],
                              "equal_share": r["equal_share"],
-                             "max_gap_over_bound": r["max_gap_over_bound"]} for r in k5}}}
+                             "max_gap_over_bound": r["max_gap_over_bound"]} for r in k5},
+        "K6": _k6_record(k6)}}
 
 
 K4_FIGURE_KEYS = ("tile_frames", "cta_frames", "smem_bytes_per_cta", "stages",
@@ -3848,9 +4001,9 @@ def _k3_bwd_main(k3b, precision):
                 and r["T"] == CUT)
 
 
-def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, k5, main_path, native,
-                 train, fused_train, remat, fewshot, md, config_cli, ref_ckpt, packs,
-                 analysis):
+def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, k5, k6, main_path,
+                 wavlm, native, train, fused_train, remat, fewshot, md, config_cli, ref_ckpt,
+                 packs, analysis):
     """The ``kernels`` record. K1: main-path launches (the evaluate paths and
     the evaluation of each trained checkpoint) and errors over all cases;
     times and bound summed over the five maze5 blocks, i.e. per maze5 forward
@@ -3885,7 +4038,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, k5, main_pat
     launches on every evaluate path that counts it (once a maze5 batch, none on
     the other models, in training or on the f32 converted checkpoints), its
     largest gap over bound and least bit-for-bit share, and its times at batch
-    128 (batch 16 beside them) against the composition it replaced."""
+    128 (batch 16 beside them) against the composition it replaced. K6: its
+    launches on each rank of the WavLM maze6 evaluate path and in its
+    training forward, its gaps and its times at the WavLM cell's shape
+    against the composition it replaced."""
     k3_main = next(r for r in k3 if r["B"] == EVAL_BATCH and r["T"] == CUT)
     k4_main = _k4_main(k4, BENCH_BATCH, "high")
     k4_big = _k4_main(k4, 384, "high")
@@ -4110,18 +4266,30 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, k5, main_pat
                         "it replaced (cuDNN's TF32 conv, the bf16 casts, BN, SELU)",
         "shapes": f"batch {BENCH_BATCH}, cut {CUT}, C {SINC_C}, K {SINC_K}",
         f"b{EVAL_BATCH}": _summed([k5_small]),
+    }, {
+        "id": "K6", "name": "wavlm_attention", "route": "cuda",
+        "source": "adfmsl_torch/csrc/wavlm_attention.cu",
+        "replaces": None,
+        "replaces_note": "the port's own kernel: adfmsl has no WavLM and computes attention "
+                         "outside any Pallas kernel",
+        "library_ms": None,
+        "library_note": "SDPA is no kernel of the port (and refuses an f32 bias under bf16 "
+                        "operands); plain_ms is the plain version, composition_ms the "
+                        "composition K6 replaced",
+        **_k6_record(k6), "wavlm_main_path": {k: wavlm[k] for k in (
+            "ranks", "expected_each", "train_forward")},
     }]}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernels", "k2", "multidevice", "config_cli",
-                                       "reference_ckpt", "packs", "analysis"],
+                                       "reference_ckpt", "packs", "analysis", "wavlm"],
                     default=None,
                     help="kernels: only the build and the kernels phase; k2: only "
                          "K2's library and cases; multidevice / config_cli / "
-                         "reference_ckpt / packs / analysis: only the build and that "
-                         "phase (none of them ends in an {\"ok\": ...} line)")
+                         "reference_ckpt / packs / analysis / wavlm: only the build and "
+                         "that phase (none of them ends in an {\"ok\": ...} line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4174,16 +4342,20 @@ def main() -> int:
               "build_s": phase_s["build"], "libraries": sorted(libs)}
     print("device " + json.dumps(device), flush=True)
 
-    if args.only in ("multidevice", "config_cli", "reference_ckpt", "packs", "analysis"):
+    if args.only in ("multidevice", "config_cli", "reference_ckpt", "packs", "analysis",
+                     "wavlm"):
         with tempfile.TemporaryDirectory() as tmp:
             if args.only == "reference_ckpt":
                 phase("reference_ckpt", phase_reference_ckpt, rf, sf, tmp, dev, smi)
             elif args.only == "analysis":
                 phase("analysis", phase_analysis, rf, sf, tmp, smi)
-            elif args.only == "multidevice":
+            elif args.only in ("multidevice", "wavlm"):
                 fixture = generate_fixture(tmp, SyntheticSpec(n_train=2, n_dev=2,
                                                               n_eval=EVAL_UTTS))
-                phase("multidevice", phase_multidevice, fixture, tmp, dev, smi)
+                if args.only == "wavlm":
+                    phase("wavlm_main_path", phase_wavlm_main_path, fixture, tmp, dev)
+                else:
+                    phase("multidevice", phase_multidevice, fixture, tmp, dev, smi)
             else:
                 fixture = generate_fixture(tmp, SyntheticSpec(
                     n_train=TRAIN_UTTS, n_dev=DEV_UTTS, n_eval=EVAL_UTTS))
@@ -4195,12 +4367,12 @@ def main() -> int:
                                              "total": time.perf_counter() - t_start}))
         print(smi, flush=True)
         return 0
-    k1, k3, k3b, k4, k5, figs = phase("kernels", phase_kernels, rf, sf, lf, dev)
+    k1, k3, k3b, k4, k5, k6, figs = phase("kernels", phase_kernels, rf, sf, lf, dev)
     if args.only == "kernels":
         print("phase_seconds " + json.dumps({**phase_s,
                                              "total": time.perf_counter() - t_start}))
         print(smi, flush=True)
-        print(json.dumps(kernels_phase_line(k1, k3, k3b, k4, k5, figs)), flush=True)
+        print(json.dumps(kernels_phase_line(k1, k3, k3b, k4, k5, k6, figs)), flush=True)
         return 0
     k3_train = phase("k3_train", phase_k3_train, sf, dev)
     k2_recs, k2_entry = phase("k2", phase_k2, k2, dev)
@@ -4211,6 +4383,7 @@ def main() -> int:
             phase_main_path(*p, rf, sf, lf, fixture, tmp) for p in MAIN_PATHS])
         main_path += phase("w2v2_main_path", lambda: [
             phase_main_path(*p, rf, sf, lf, fixture, tmp) for p in W2V2_PATHS])
+        wavlm = phase("wavlm_main_path", phase_wavlm_main_path, fixture, tmp, dev)
         native = phase("native_io", phase_native_io, rf, fixture, tmp)
         train = phase("train", lambda: [phase_train(n, rf, k2, sf, fixture, tmp, dev)
                                         for n in TRAIN_MODELS])
@@ -4250,8 +4423,8 @@ def main() -> int:
                                          "total": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps(kernels_line(k1, k2_recs, k2_entry, k3, k3b, k3_train, k4, k4_front, k5,
-                                  main_path, native, train, fused_train, remat, fewshot,
-                                  md, config_cli, ref_ckpt, packs, analysis)),
+                                  k6, main_path, wavlm, native, train, fused_train, remat,
+                                  fewshot, md, config_cli, ref_ckpt, packs, analysis)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -204,9 +204,10 @@ def test_train_step_gives_the_bias_gradients():
         torch.testing.assert_close(g, grads[False][n], rtol=1e-5, atol=1e-9)
 
 
-def _attention_before_wavlm(self, x, dtype, dropout_rate=0.0, generator=None, bias=None):
+def _attention_before_wavlm(self, x, dtype, dropout_rate=0.0, generator=None, bias=None,
+                            row=None):
     """``SelfAttention.forward`` as it was before the relative-position path,
-    verbatim (``bias`` taken and unused)."""
+    verbatim (``bias`` and ``row`` taken and unused)."""
     b, t, _ = x.shape
     hd = self.head_dim
     q, k, v = (dense(x, getattr(self, n), dtype).view(b, t, self.heads, hd)
