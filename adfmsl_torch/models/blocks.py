@@ -72,14 +72,6 @@ def conv_nhc(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype,
     return y.transpose(1, 2)
 
 
-class ConvNHC(nn.Conv1d):
-    """An ``nn.Conv1d`` called on (B, T, C) tensors in ``dtype`` (``conv_nhc``),
-    as a module call, so that forward hooks see it (``profile_eval``)."""
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return conv_nhc(x, self, dtype)
-
-
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     """flax / XLA 'SAME' padding (lo, hi) of one axis: ceil(size/stride) outputs,
     the total split with the odd sample on the high side (asymmetric at

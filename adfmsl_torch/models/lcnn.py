@@ -28,6 +28,8 @@ from adfmsl_torch.ops.cmvn import cmvn
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.lfcc import lfcc, logmel
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
+from adfmsl_torch.utils.profiling import annotate
+
 
 def mfm(x: torch.Tensor) -> torch.Tensor:
     """Max-Feature-Map: split the last (channel) axis in halves, take the max."""
@@ -88,9 +90,13 @@ class SpectralModel(nn.Module):
     def classify(self, feats: torch.Tensor,
                  rngs: Optional[Mapping[str, torch.Generator]] = None
                  ) -> Dict[str, torch.Tensor]:
-        """Features -> the output dict; in train mode ``rngs['dropout']``
-        feeds the head's dropout."""
-        return self.head(self.trunk(feats), (rngs or {}).get("dropout"))
+        """Features -> the output dict, the trunk and the head each under its
+        ``stage.model.*`` span; in train mode ``rngs['dropout']`` feeds the
+        head's dropout."""
+        with annotate("stage.model.trunk"):
+            pooled = self.trunk(feats)
+        with annotate("stage.model.head"):
+            return self.head(pooled, (rngs or {}).get("dropout"))
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
@@ -98,8 +104,11 @@ class SpectralModel(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """(B, T) f32 waveform -> the output dict. ``labels`` and ``mask`` are
         taken as ``MazeModel.forward`` takes them, and unused: the loss is the
-        configuration's (adfmsl's models ignore them too)."""
-        return self.classify(self.features(x), rngs)
+        configuration's (adfmsl's models ignore them too). The front end runs
+        under the ``stage.model.frontend`` span."""
+        with annotate("stage.model.frontend"):
+            feats = self.features(x)
+        return self.classify(feats, rngs)
 
     @staticmethod
     def outputs(logits: torch.Tensor, feats: torch.Tensor) -> Dict[str, torch.Tensor]:

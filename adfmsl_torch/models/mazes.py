@@ -41,8 +41,8 @@ from adfmsl_torch.config.base import ModelConfig
 from adfmsl_torch.device import resolve_device
 from adfmsl_torch.heads.fmsl import FMSLHead
 from adfmsl_torch.models.blocks import (GRU, AttentiveStatsPooling, ConvFMSLLayer,
-                                       ConvNHC, PlainTransformerEncoder, ResStack,
-                                       TransformerEncoderStack, init_like_flax_)
+                                       PlainTransformerEncoder, ResStack,
+                                       TransformerEncoderStack, conv_nhc, init_like_flax_)
 from adfmsl_torch.models.lcnn import LCNN, LCNN1D
 from adfmsl_torch.models.rawnet import RawNetEncoder
 from adfmsl_torch.models.resnet import ResNet18
@@ -211,7 +211,7 @@ class MazeModel(nn.Module):
                                                 remat_extractor=w.remat_extractor)
                 feat_dim = self.wav2vec2.arch.hidden_size * len(spec.fusion_layers or (0,))
             if spec.proj_dim:
-                self.proj = ConvNHC(feat_dim, spec.proj_dim, 1)
+                self.proj = nn.Conv1d(feat_dim, spec.proj_dim, 1)
                 feat_dim = spec.proj_dim
             if spec.first_bn_act:
                 self.first_bn = batch_norm(feat_dim)
@@ -311,7 +311,7 @@ class MazeModel(nn.Module):
                                         and not self.cfg.wav2vec2.freeze):
                 h = self._w2v2_features(x)                   # a stop-gradient if frozen
         if spec.proj_dim:
-            h = self.proj(h, self.dtype)
+            h = conv_nhc(h, self.proj, self.dtype)
         if spec.first_bn_act and bn_act is None:
             # front-end glue at trunk width: bf16 in, BN in f32, bf16 out
             act = F.selu if spec.first_bn_act == "selu" else F.relu

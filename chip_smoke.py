@@ -127,13 +127,14 @@ Phases, each printing its own lines:
    with exactly one K4 launch (the count set to 0 just before); then both
    front ends' times and both forwards' utt/s: the median and spread of four
    windows of about 3 s each, taken in turns;
-5. throughput: maze5 and maze5_fmsl folded vs unfolded trunk at batch 128
-   (logits held against each other on 4 clips first); main at batch 16 with
-   the K3 front end and with the composition (logits held against each other
-   first), and at batch 128 (composition front end, K1 trunk); lcnn1d_lfcc at
-   batch 128 and 384, lcnn_lfcc and resnet18_logmel at 128 (the median and
-   spread of three windows of about 3 s each), each with the front end / trunk
-   / head split of a forward (``profile_eval``, the median of 5);
+4e. folded vs unfolded (``folded_vs_unfolded``), untimed: maze5, maze5_fmsl,
+   maze7, maze3, maze2 and maze6 built twice with the same weights, the
+   folded (K1) bf16 trunk's logits on 4 clips against the unfolded trunk's
+   within 3e-2 * max(1, |logits|), K1 launched a forward as the model's path
+   says (``MAIN_PATHS`` / ``W2V2_PATHS``) and never unfolded; then main with
+   the K1 trunk: K3's logits against the composition front end's at batch 16
+   (K3 once), and the composition front end at batch 128, as adfmsl's
+   dispatch picks there, with finite scores and K1 6 times;
 6. kernel K2 (the BN + ReLU train backward, one cooperative launch) against
    its plain version: the CPU tests' (2, 700, 128) f32 and (3, 1000, 128)
    bf16 cases, maze5's block0 at batch 16 and 128 and block4's bn2 at batch
@@ -202,8 +203,7 @@ Phases, each printing its own lines:
    without the 10 support utterances, the EER, K1 5 times a maze5 eval
    forward (15: the adaptation and two scoring batches); the scores against
    the unfolded trunk's from the same trained weights within 3e-2 * max(1,
-   |score|); the meta steps' seconds, the scoring rate and a
-   ``torch.profiler`` pass over two more meta steps (device ms, busy share);
+   |score|); the meta steps' seconds and the scoring rate;
    then the CLI again with ``--no_fused_trunk`` (K1 no launch);
 7e. multi-device (``multidevice``; ranks started by
    ``adfmsl_torch.parallel.launch``, every count of kernel launches set to 0
@@ -313,32 +313,6 @@ Phases, each printing its own lines:
    within 1e-4 relative, gradients as in tests/test_torch_train_step.py
    (cosine >= 0.999, norm within 1 % for leaves of 1 % of the global norm or
    more);
-9. train throughput (bf16, the configurations' randomness on) of maze5 and
-   maze5_fmsl at batch 12 and 32; of main and main_fmsl at batch 12 with the
-   composition front end and with K3, and at batch 32 with the composition;
-   of lcnn_lfcc, lcnn1d_lfcc and resnet18_logmel at batch 12 and 32; of
-   maze7 at batch 12 and 32 (the frozen encoder outside autograd); of maze2
-   (frozen encoder, its transformer) and maze6_fmsl (the large encoder in
-   autograd, its last two layers trained) at batch 12. utt/s
-   over 5 timed steps after 2 warm ones, ending in a synchronize (the LFCC /
-   log-mel models and maze7, host-bound: the median and spread of three
-   windows of about 3 s), with the peak memory; then ``torch.profiler`` over
-   3 more steps: the device's busy share (also from the union of the
-   kernels' intervals), the step's device time split by its
-   forward / backward / update labels (``train/steps.py``), and the
-   operators and kernels with the most device time and the operators with
-   the most host time;
-9b. Wav2Vec2 eval throughput (``throughput_w2v2``): maze7, maze3, maze2 and
-   maze6 folded vs unfolded trunk at batch 128 (logits held against each
-   other on 4 clips first, and K1's launches a forward counted: 5, 3, 6 and
-   5), utt/s, the peak memory, the device ms of the encoder, maze6's fusion
-   ``proj``, the trunk, the transformer, the ASP pooling and the head from a
-   ``torch.profiler`` pass (``profile_eval.stage_device_times``), and each
-   conv layer, the positional conv, each encoder layer, each block and each
-   layer of the transformer after the trunk by CUDA events
-   (``profile_eval.stage_times``, the median of 3); then a ``host_feed``
-   line: the loader's host utt/s beside maze5's, main's and those four
-   models' card eval utt/s at batch 128;
 10. a ``kernels`` line: every ported kernel with its launches on the main
    paths (K2's on its entry point, K4's as lcnn1d_lfcc's front end, K3's and
    its backward kernel's in the fused train steps too, K5's on every evaluate
@@ -416,6 +390,10 @@ MAZE2_BLOCKS = [(201, 768, 128, False, True), (101, 128, 128, True, False),
                 (51, 128, 128, True, False), (26, 128, 128, True, False),
                 (13, 128, 256, True, True), (7, 256, 256, True, False)]
 MAZE6_BLOCKS = [(201, 1024, 128, False, True)] + MAZE7_BLOCKS[1:]
+# the Wav2Vec2 models whose trunk blocks K1 is timed at (phase 2) and whose
+# folded trunk is held against the unfolded one (phase 4e)
+W2V2_K1_BLOCKS = (("maze7", MAZE7_BLOCKS), ("maze3", MAZE3_BLOCKS),
+                  ("maze2", MAZE2_BLOCKS), ("maze6", MAZE6_BLOCKS))
 K1_CASES = [  # name, B, T, Cin, Cout, pre, skip, act, pool
     ("head", 2, 100, 128, 128, False, False, "relu", 1),
     ("ragged", 2, 300, 128, 128, True, False, "relu", 1),
@@ -432,9 +410,7 @@ K1_CASES = [  # name, B, T, Cin, Cout, pre, skip, act, pool
 ] + [(f"main_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip,
      "leaky", 3) for i, (t, cin, cout, pre, skip) in enumerate(MAIN_BLOCKS)
 ] + [(f"{m}_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip, "relu", 1)
-     for m, blocks in (("maze7", MAZE7_BLOCKS), ("maze3", MAZE3_BLOCKS),
-                       ("maze2", MAZE2_BLOCKS), ("maze6", MAZE6_BLOCKS))
-     for i, (t, cin, cout, pre, skip) in enumerate(blocks)]
+     for m, blocks in W2V2_K1_BLOCKS for i, (t, cin, cout, pre, skip) in enumerate(blocks)]
 K3_CASES = [  # name, B, T
     ("jax_case", 2, 8000), ("ragged", 3, 8001),
     (f"b{EVAL_BATCH}_cut{CUT}", EVAL_BATCH, CUT),
@@ -449,7 +425,7 @@ PEAK_F32_FLOPS = 67e12            # H100 SXM data sheet, f32 outside the tensor 
 K2_OPS_PER_ELEMENT = 20           # f32 operations of both passes, per element
 K2_MEASURE_ITERS = 10
 TRAIN_UTTS, DEV_UTTS, TRAIN_BATCH = 48, 24, 12
-THROUGHPUT_BATCHES, WARM_STEPS, TIMED_STEPS = (12, 32), 2, 5
+WARM_STEPS, TIMED_STEPS = 2, 5
 # the multidevice phase's global train batch and a data-parallel rank's rows of
 # it on two ranks (phase 7e (c), (d))
 MD_BATCH = TRAIN_BATCH
@@ -487,23 +463,8 @@ PEAK_TF32_FLOPS = 495e12          # H100 SXM data sheet, dense TF32
 # per batch evaluating the checkpoint), as MAIN_PATHS gives them
 TRAIN_MODELS = ["maze5", "maze5_fmsl", "main", "main_fmsl", "lcnn_lfcc", "lcnn1d_lfcc",
                 "resnet18_logmel"]
-# train throughput: (model, label, batch, model extras); the LFCC / log-mel
-# models' steps take a few ms and are host-bound, so their utt/s is the
-# median of SPECTRAL_WINDOWS windows of about SPECTRAL_WINDOW_S seconds
+# the model extras of RawNet's fused training front end (K3 and its backward kernel)
 K3_TRAIN = {"fused_train_frontend": True}
-TRAIN_THROUGHPUT = (
-    [(n, f"b{b}", b, {}) for n in ("maze5", "maze5_fmsl") for b in THROUGHPUT_BATCHES]
-    + [(n, label, b, extra) for n in ("main", "main_fmsl")
-       for label, b, extra in ((f"b{TRAIN_BATCH}_composition", TRAIN_BATCH, {}),
-                               (f"b{TRAIN_BATCH}_k3", TRAIN_BATCH, K3_TRAIN),
-                               ("b32_composition", 32, {}))]
-    + [(n, f"b{b}", b, {}) for n in ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")
-       for b in THROUGHPUT_BATCHES]
-    + [("maze7", f"b{b}", b, {}) for b in THROUGHPUT_BATCHES]
-    + [(n, f"b{TRAIN_BATCH}", TRAIN_BATCH, {}) for n in ("maze2", "maze6_fmsl")])
-SPECTRAL_MODELS = ("lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel")
-# train steps that the host sets the pace of (busy under 0.35): timed in windows
-HOST_BOUND_TRAIN = SPECTRAL_MODELS + ("maze7",)
 # adfmsl's own bounds for the fused training front end against the
 # composition (tests/test_models.py:327-337)
 FUSED_TRAIN_LOSS_REL, FUSED_TRAIN_GRAD_COS = 5e-2, 0.85
@@ -522,7 +483,6 @@ W2V2_PATHS = [("maze7", [], 5, 0, 0, 0), ("maze7_fmsl", [], 5, 0, 0, 0),
               ("maze2_fmsl", [], 3, 0, 0, 0), ("maze3_fmsl", [], 3, 0, 0, 0),
               ("maze6", [], 5, 0, 0, 0), ("maze6_fmsl", [], 3, 0, 0, 0),
               ("maze8", [], 5, 0, 0, 0), ("maze8_fmsl", [], 5, 0, 0, 0)]
-W2V2_K1 = {"maze7": 5, "maze3": 3, "maze2": 6, "maze6": 5}   # K1 launches a forward
 # trained through cli.train: maze7 (frozen encoder), maze2 (frozen, SpecAugment,
 # the transformer), maze6_fmsl (the large encoder in autograd with its last two
 # layers trained, ASP, the plateau scheduler)
@@ -557,13 +517,11 @@ K4_CASES = [(f"{name}_{p}", b, t, p)       # name, B, T, precision tier
             ] + [(f"b{b}_cut{CUT}_high", b, CUT, "high") for b in (BENCH_BATCH, 384)
                  ] + [(f"b{BENCH_BATCH}_cut{CUT}_default", BENCH_BATCH, CUT, "default")]
 K4_TC_PASSES = {"high": 3, "default": 1, "highest": 0}    # bf16 DFT passes per tier
-# eval throughput of the LFCC / log-mel models: (model, batches)
-SPECTRAL_THROUGHPUT = [("lcnn1d_lfcc", (BENCH_BATCH, 384)), ("lcnn_lfcc", (BENCH_BATCH,)),
-                       ("resnet18_logmel", (BENCH_BATCH,))]
-# their forwards take a few ms and the shared host's launches set much of the
-# pace, which drifts between and within runs: their utt/s is the median of
-# several windows of a few seconds each, reported with its spread
-SPECTRAL_WINDOW_S, SPECTRAL_WINDOWS = 3.0, 3
+# lcnn1d_lfcc's forward (phase 4b) takes a few ms and the shared host's
+# launches set much of its pace, which drifts between and within runs: its
+# utt/s is the median of several windows of a few seconds each, taken in turns
+# (K4_FRONTEND_TURNS) and reported with its spread
+SPECTRAL_WINDOW_S = 3.0
 K4_FRONTEND_TURNS = ("composition", "k4", "k4", "composition") * 2
 # the multidevice phase: its train steps, the tensor-parallel forward's batch,
 # the bounds of its f32 steps against one process ((c) and (d)'s f32 witness),
@@ -1441,97 +1399,70 @@ def windowed_rates(fns, x, order):
                 "windows": r, "reps": reps[k]} for k, r in rates.items()}
 
 
-def phase_throughput_main(dev, card):
-    """RawNet main: at batch 16 the K3 front end against the composition
-    (logits held against each other first), and at batch 128 (composition
-    front end, as adfmsl's dispatch picks there) with the K1 trunk."""
+def phase_folded_vs_unfolded(rf, sf, dev):
+    """Untimed: the folded (K1) bf16 trunk against the unfolded one on 4 clips
+    for maze5, maze5_fmsl and the ``W2V2_K1_BLOCKS`` models, K1 launched a
+    forward as the model's path says and not at all unfolded; then main's K3
+    front end against the composition at batch ``EVAL_BATCH`` and main's
+    composition front end at batch ``BENCH_BATCH`` (adfmsl's dispatch there),
+    both with the K1 trunk. Logits within 3e-2 * max(1, |logits|). Returns the
+    records."""
     from adfmsl_torch.config import make_experiment
     from adfmsl_torch.models import build_model
 
-    models = {}
-    for frontend in (True, False):
-        exp = make_experiment("main")
-        exp.model.extra.update(fused_eval_trunk=True, fused_eval_frontend=frontend)
-        models[frontend] = build_model(exp.model, device=dev, seed=0)
-    g = torch.Generator(device=dev).manual_seed(2)
-    x = 0.1 * torch.randn((BENCH_BATCH, CUT), generator=g, device=dev)
-    xs = x[:EVAL_BATCH].contiguous()
-    with torch.inference_mode():
-        lk = models[True](xs)["logits"].float()
-        lc = models[False](xs)["logits"].float()
-    err = (lk - lc).abs().max().item()
-    tol = 3e-2 * max(1.0, lc.abs().max().item())
-    rec = {"model": "main", "card": card, "cut": CUT,
-           f"logits_k3_vs_composition_b{EVAL_BATCH}_max_abs_err": err, "tol": tol}
-    check(math.isfinite(err) and err <= tol,
-          f"main: K3 logits differ from the composition's by {err} > {tol}")
-    for frontend, key in ((True, "k3"), (False, "composition")):
-        rate, ms = forward_rate(models[frontend], xs)
-        rec[f"utt_per_s_b{EVAL_BATCH}_{key}"] = rate
-        rec[f"forward_ms_b{EVAL_BATCH}_{key}"] = ms
-    rate, ms = forward_rate(models[False], x)
-    rec[f"utt_per_s_b{BENCH_BATCH}"] = rate
-    rec[f"forward_ms_b{BENCH_BATCH}"] = ms
-    print("throughput " + json.dumps(rec), flush=True)
-    del models, x, xs
-    torch.cuda.empty_cache()
-    return rec
-
-
-def phase_throughput(name, dev, card, rf=None):
-    """Folded (K1) vs unfolded bf16 trunk: logits agreement on 4 clips, then
-    eval utt/s at batch 128 on random audio. With ``rf`` (the Wav2Vec2
-    models): K1's launches a forward checked (``W2V2_K1``), and the device ms
-    of each stage of a forward from a ``torch.profiler`` pass. Returns the
-    record."""
-    from adfmsl_torch.config import make_experiment
-    from adfmsl_torch.models import build_model
-    from adfmsl_torch.profile_eval import stage_device_times, stage_times
-
-    models = {}
-    for fused in (True, False):
+    def built(name, **extra):
         exp = make_experiment(name)
-        exp.model.extra["fused_eval_trunk"] = fused
-        models[fused] = build_model(exp.model, device=dev, seed=0)
-    models[False].load_state_dict(models[True].state_dict())
+        exp.model.extra.update(extra)
+        return build_model(exp.model, device=dev, seed=0)
+
+    def run(model, x):
+        rf.resblock_eval.launches = 0
+        sf.sinc_abs_pool_fused.launches = 0
+        with torch.inference_mode():
+            out = model(x)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out["scores"]).all()), "non-finite scores")
+        return out["logits"].float(), rf.resblock_eval.launches, sf.sinc_abs_pool_fused.launches
+
+    def held(name, key, got, want):
+        err = (got - want).abs().max().item()
+        tol = 3e-2 * max(1.0, want.abs().max().item())
+        check(math.isfinite(err) and err <= tol,
+              f"{name}: {key} logits differ by {err} > {tol}")
+        return {f"logits_{key}_max_abs_err": err, "tol": tol}
+
     g = torch.Generator(device=dev).manual_seed(1)
     x = 0.1 * torch.randn((BENCH_BATCH, CUT), generator=g, device=dev)
-    with torch.inference_mode():
-        lf = models[True](x[:4])["logits"].float()
-        lu = models[False](x[:4])["logits"].float()
-    err = (lf - lu).abs().max().item()
-    tol = 3e-2 * max(1.0, lu.abs().max().item())
-    rec = {"model": name, "card": card, "batch": BENCH_BATCH, "cut": CUT,
-           "logits_folded_vs_unfolded_max_abs_err": err, "tol": tol}
-    check(math.isfinite(err) and err <= tol,
-          f"{name}: folded logits differ from the unfolded trunk by {err} > {tol}")
-    for fused, key in ((True, "utt_per_s_k1"), (False, "utt_per_s_unfolded")):
-        rec[key], rec[key.replace("utt_per_s", "forward_ms")] = forward_rate(models[fused], x)
-    if rf is not None:
-        with torch.inference_mode():
-            torch.cuda.reset_peak_memory_stats(dev)
-            rf.resblock_eval.launches = 0
-            models[True](x)
-            torch.cuda.synchronize()
-            rec["k1_launches_per_forward"] = rf.resblock_eval.launches
-            check(rec["k1_launches_per_forward"] == W2V2_K1[name],
-                  f"{name}: K1 launched {rec['k1_launches_per_forward']} times a forward")
-            rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-            st = stage_device_times(models[True], x, 3)
-            named = [k for k in st if k not in ("device_ms_per_forward", "rest",
-                                                 "device_busy_share")]
-            check(st["wav2vec2"] > 0 and st["trunk"] > 0
-                  and all(st[k] > 0 for k in ("proj", "transformer", "asp") if k in st)
-                  and sum(st[k] for k in named) <= 1.001 * st["device_ms_per_forward"],
-                  f"{name}: the profiler's stage split {st}")
-            rec["stages_profiler_ms"] = st
-            splits = [stage_times(models[True], x) for _ in range(3)]
-            rec["stages_events_ms"] = {k: float(np.median([sp[k] for sp in splits]))
-                                       for k in splits[0]}
-    print("throughput " + json.dumps(rec), flush=True)
-    del models, x
+    recs = []
+    for name in ("maze5", "maze5_fmsl", *(m for m, _ in W2V2_K1_BLOCKS)):
+        folded = built(name, fused_eval_trunk=True)
+        unfolded = built(name, fused_eval_trunk=False)
+        unfolded.load_state_dict(folded.state_dict())
+        lf, k1, _ = run(folded, x[:4])
+        lu, k1_unfolded, _ = run(unfolded, x[:4])
+        want = next(p[2] for p in MAIN_PATHS + W2V2_PATHS if p[0] == name)
+        check(k1 == want and k1_unfolded == 0,
+              f"{name}: K1 launched {k1} times folded, {k1_unfolded} unfolded, "
+              f"expected {want} and 0")
+        recs.append({"model": name, "clips": 4, "cut": CUT, "k1_launches": k1,
+                     **held(name, "folded_vs_unfolded", lf, lu)})
+        del folded, unfolded
+    k3_front = built("main", fused_eval_trunk=True, fused_eval_frontend=True)
+    composition = built("main", fused_eval_trunk=True, fused_eval_frontend=False)
+    lk, k1, k3 = run(k3_front, x[:EVAL_BATCH])
+    lc, _, k3_composition = run(composition, x[:EVAL_BATCH])
+    check(k1 == 6 and k3 == 1 and k3_composition == 0,
+          f"main: K1 {k1} and K3 {k3} / {k3_composition} launches at batch {EVAL_BATCH}")
+    _, k1, k3 = run(composition, x)
+    check(k1 == 6 and k3 == 0, f"main: K1 {k1} and K3 {k3} launches at batch {BENCH_BATCH}")
+    recs.append({"model": "main", "batch": EVAL_BATCH, "cut": CUT,
+                 **held("main", f"k3_vs_composition_b{EVAL_BATCH}", lk, lc),
+                 f"composition_b{BENCH_BATCH}_finite": True})
+    for rec in recs:
+        print("folded_vs_unfolded " + json.dumps(rec), flush=True)
+    del k3_front, composition, x
     torch.cuda.empty_cache()
-    return rec
+    return recs
 
 
 def phase_k4_frontend(lf, dev, card):
@@ -1588,36 +1519,6 @@ def phase_k4_frontend(lf, dev, card):
     del model, x
     torch.cuda.empty_cache()
     return rec
-
-
-def phase_throughput_spectral(dev, card):
-    """Eval utt/s of the LFCC / log-mel models on random audio, with the front
-    end / trunk / head split of a forward (``profile_eval.stage_times``, the
-    median of 5)."""
-    from adfmsl_torch.config import make_experiment
-    from adfmsl_torch.models import build_model
-    from adfmsl_torch.profile_eval import stage_times
-
-    recs = []
-    for name, batches in SPECTRAL_THROUGHPUT:
-        model = build_model(make_experiment(name).model, device=dev, seed=0)
-        rec = {"model": name, "card": card, "cut": CUT}
-        for b in batches:
-            g = torch.Generator(device=dev).manual_seed(5)
-            x = 0.1 * torch.randn((b, CUT), generator=g, device=dev)
-            rates = windowed_rates({name: model}, x, (name,) * SPECTRAL_WINDOWS)[name]
-            with torch.inference_mode():
-                splits = [stage_times(model, x) for _ in range(5)]
-            st = {k: float(np.median([sp[k] for sp in splits])) for k in splits[0]}
-            rec[f"b{b}"] = {"utt_per_s": rates["median"], "utt_per_s_windows": rates,
-                            "forward_ms": b / rates["median"] * 1e3, "stages_ms": st,
-                            "frontend_share": st["frontend"] / st["forward"]}
-            del x
-        print("throughput " + json.dumps(rec), flush=True)
-        recs.append(rec)
-        del model
-        torch.cuda.empty_cache()
-    return recs
 
 
 def k2_bound(b, t, c, elem):
@@ -3155,6 +3056,20 @@ def phase_reference_ckpt(rf, sf, tmp, dev, card):
     return {"a": rec_a, "b": rec_b, "c": rec_c}
 
 
+def train_rate(step, st, batch_args, first, n):
+    """(utt/s, ms per step) of ``n`` train steps by the host clock around work
+    that ends in a synchronize; every step must be finite and applied."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        met = step(st, *batch_args, st.generators(0, first + i))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(math.isfinite(float(met["loss"])) and float(met["skipped"]) == 0,
+          "a timed train step was not finite or was skipped")
+    return batch_args[0].shape[0] * n / secs, secs / n * 1e3
+
+
 def phase_remat(name, batch, extra, encoder, sf, rf, dev, card):
     """One train step plain and one with activation checkpointing, from the
     same weights, batch and generators, then their timed steps and peak
@@ -3232,18 +3147,15 @@ def phase_remat(name, batch, extra, encoder, sf, rf, dev, card):
 # chip_smoke.py, counts K1 around the run (the count starts at 0 in the new
 # process and is set to 0 again just before), times the meta steps and the
 # scoring, and then, from the same trained weights, adapts and scores again
-# with the trunk unfolded and profiles two more meta steps
+# with the trunk unfolded
 FEWSHOT_DRIVER = r'''
 import json, sys, time
 root, argv = sys.argv[1], json.loads(sys.argv[2])
 sys.path.insert(0, root)
 import torch
-from torch.profiler import ProfilerActivity, profile
 from adfmsl_torch.cli import fewshot
 from adfmsl_torch.ops import resblock_fused as rf
-from adfmsl_torch.profile_eval import union_ms
 from adfmsl_torch.train import fewshot as fs
-from adfmsl_torch.utils.profiling import is_span
 
 seen, rec = {}, {}
 init, adapt, score_protocol = (fs.FewshotTrainer.__init__, fs.FewshotTrainer.adapt,
@@ -3283,18 +3195,6 @@ protos = adapt(tr, *seen["support"])
 rf.resblock_eval.launches = 0
 rec["unfolded_scores"] = score_protocol(tr, seen["dataset"], protos)
 rec["unfolded_k1_launches"] = rf.resblock_eval.launches
-n = 2
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    t0 = time.perf_counter()
-    tr.fit(n)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / n
-events = [e for e in prof.events()
-          if str(e.device_type).endswith("CUDA") and not is_span(e.name)]
-device = union_ms((e.time_range.start, e.time_range.end) for e in events) / n
-rec["profile"] = {"steps": n, "wall_ms_per_step": wall, "device_ms_per_step": device,
-                  "device_busy_share": device / wall,
-                  "kernels_per_step": len(events) / n}
 print("fewshot_driver " + json.dumps(rec), flush=True)
 '''
 
@@ -3368,7 +3268,7 @@ def phase_fewshot(rf, tmp, card):
                "losses": [h["loss"] for h in hist], "score_s": drv["score_s"],
                "scored_utterances": drv["scored"],
                "score_utt_per_s": drv["scored"] / drv["score_s"],
-               "eer": metrics[-1]["eer"], "profile": drv["profile"]}
+               "eer": metrics[-1]["eer"]}
         if label == "fused":
             ref = np.asarray([drv["unfolded_scores"][u] for u in ids])
             got = np.asarray([scores[label][u] for u in ids])
@@ -3792,141 +3692,6 @@ def phase_train_card_vs_cpu(name, dev):
     return rec
 
 
-def profile_steps(step, st, batch_args, first, steps=3, tops=False):
-    """``torch.profiler`` over ``steps`` train steps: the device's busy share
-    of the wall time, the step's device time split by its labels
-    (``STEP_LABELS``) and, with ``tops``, the operators and kernels with the
-    most device time and the operators with the most host time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from adfmsl_torch.profile_eval import union_ms
-    from adfmsl_torch.train.steps import STEP_LABELS
-    from adfmsl_torch.utils.profiling import is_span
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            step(st, *batch_args, st.generators(0, first + i))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-
-    def device_us(e, total=False):
-        if total:
-            return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    def top(events, n):
-        return [{"name": e.key[:120], "ms_per_step": device_us(e) / 1e3 / steps,
-                 "calls_per_step": e.count / steps}
-                for e in sorted(events, key=device_us, reverse=True)[:n]]
-    events = prof.key_averages()
-    on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
-    on_host = [e for e in events if not str(e.device_type).endswith("CUDA")]
-    # a host-side label carries the device time of the kernels launched inside
-    # its range on the calling thread
-    labels = {e.key: device_us(e, total=True) / 1e3 / steps for e in on_host
-              if e.key in STEP_LABELS}
-    # device events are the kernels and copies (the spans' device-side
-    # annotations are left out); host events (aten ops) carry the device time
-    # of the kernels they launched, counted a second time
-    kernels = [e for e in on_device if device_us(e) > 0 and not is_span(e.key)]
-    # kernels that run at once (cuDNN's grouped conv runs its groups so) count
-    # once in the union of their intervals
-    union = union_ms((e.time_range.start, e.time_range.end) for e in prof.events()
-                     if str(e.device_type).endswith("CUDA") and not is_span(e.key))
-    ops = [e for e in on_host if device_us(e) > 0 and not is_span(e.key)]
-    device_ms = sum(device_us(e) for e in kernels) / 1e3 / steps
-    fwd, bwd, upd = (labels.get(k, 0.0) for k in STEP_LABELS)
-    rec = {"profiled_steps": steps, "wall_ms_per_step": wall_ms,
-           "device_ms_per_step": device_ms,
-           "device_busy_share": device_ms / wall_ms if device_ms else None,
-           "device_union_ms_per_step": union / steps,
-           "device_union_busy_share": union / steps / wall_ms,
-           # autograd runs the backward's kernels on its own device thread,
-           # outside the backward label's range: the backward is the rest
-           "forward_ms": fwd, "update_ms": upd, "backward_ms": device_ms - fwd - upd,
-           "backward_label_ms": bwd}
-    check(fwd > 0 and upd > 0 and rec["backward_ms"] > 0,
-          f"train step split: {rec}")
-    if tops:
-        host = sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-        rec.update(top_ops=top(ops, 15), top_kernels=top(kernels, 10),
-                   # host time by operator, the profiler's own cost included
-                   top_host_ops=[{"name": e.key[:120],
-                                  "host_ms_per_step": e.self_cpu_time_total / 1e3 / steps,
-                                  "calls_per_step": e.count / steps} for e in host])
-    return rec
-
-
-def train_rate(step, st, batch_args, first, n):
-    """(utt/s, ms per step) of ``n`` train steps by the host clock around work
-    that ends in a synchronize; every step must be finite and applied."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n):
-        met = step(st, *batch_args, st.generators(0, first + i))
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    check(math.isfinite(float(met["loss"])) and float(met["skipped"]) == 0,
-          "a timed train step was not finite or was skipped")
-    return batch_args[0].shape[0] * n / secs, secs / n * 1e3
-
-
-def phase_train_throughput(name, configs, dev, card):
-    """Train utt/s of the real step for each (label, batch, model extras) of
-    ``configs``, with the peak memory, then a profile of it
-    (``profile_steps``). Sinc and RawNet models: 5 timed steps after 2 warm
-    ones. The host-bound steps (``HOST_BOUND_TRAIN``: the LFCC / log-mel
-    models and maze7): the median and spread of ``SPECTRAL_WINDOWS`` windows
-    of about ``SPECTRAL_WINDOW_S`` seconds."""
-    from adfmsl_torch.config import make_experiment
-    from adfmsl_torch.models import build_model
-    from adfmsl_torch.train import Optimizer, TrainState, make_train_step
-
-    rec = {"model": name, "card": card, "cut": CUT, "dtype": "bfloat16"}
-    windowed = name in HOST_BOUND_TRAIN
-    for label, batch, extra in configs:
-        t0 = time.perf_counter()
-        exp = make_experiment(name)
-        exp.model.extra.update(extra)
-        model = build_model(exp.model, device=dev, seed=0)
-        st = TrainState(model, Optimizer.for_model(exp, model, 100, 5), seed=0)
-        step = make_train_step(exp)
-        g = torch.Generator(device=dev).manual_seed(3)
-        args = (0.1 * torch.randn((batch, CUT), generator=g, device=dev),
-                (torch.arange(batch, device=dev) % 2).long(),
-                torch.ones(batch, dtype=torch.bool, device=dev))
-        torch.cuda.reset_peak_memory_stats(dev)
-        train_rate(step, st, args, 0, WARM_STEPS)
-        first = WARM_STEPS
-        if windowed:
-            reps = max(TIMED_STEPS, math.ceil(SPECTRAL_WINDOW_S * 1e3
-                                              / train_rate(step, st, args, first,
-                                                           TIMED_STEPS)[1]))
-            first += TIMED_STEPS
-            rates = []
-            for _ in range(SPECTRAL_WINDOWS):
-                rates.append(train_rate(step, st, args, first, reps)[0])
-                first += reps
-            timing = {"utt_per_s": float(np.median(rates)),
-                      "utt_per_s_windows": {"median": float(np.median(rates)),
-                                            "min": min(rates), "max": max(rates),
-                                            "windows": rates, "reps": reps}}
-            timing["step_ms"] = batch / timing["utt_per_s"] * 1e3
-        else:
-            rate, ms = train_rate(step, st, args, first, TIMED_STEPS)
-            first += TIMED_STEPS
-            timing = {"utt_per_s": rate, "step_ms": ms}
-        rec[label] = {"batch": batch, "extra": extra, **timing,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-                      **profile_steps(step, st, args, first, tops=True),
-                      "seconds": time.perf_counter() - t0}
-        del model, st, args
-        torch.cuda.empty_cache()
-    print("train_throughput " + json.dumps(rec), flush=True)
-    return rec
-
-
 def _summed(recs):
     """Kernel, plain and bound times summed over ``recs`` (one forward's calls)."""
     ops_ms = sum(r["ops_ms"] for r in recs)
@@ -4147,9 +3912,10 @@ def kernels_line(k1, k2, k2_entry, k3, k3b, k3_train, k4, k4_front, k5, k6, main
         "shapes": f"the five maze5 trunk blocks at batch {BENCH_BATCH}, cut {CUT}",
         "main_blocks": _summed([r for r in k1 if r["case"].startswith("main_block")]),
         **{f"{m}_blocks": {**_summed([r for r in k1 if r["case"].startswith(f"{m}_block")]),
-                           "launches_per_forward": W2V2_K1[m],
+                           "launches_per_forward": next(r["k1_launches"] // r["batches"]
+                                                        for r in main_path if r["model"] == m),
                            "shapes": f"batch {BENCH_BATCH}, T 201 frames into the trunk"}
-           for m in W2V2_K1},
+           for m, _ in W2V2_K1_BLOCKS},
         "stack_heads": {f"{r['cin']}->{r['cout']}": {
             **_summed([r]), "shapes": f"{r['case']}: batch {r['B']}, T {r['T']}, 1x1 skip"}
             for r in k1 if r["case"] in ("maze2_block0_b128", "maze6_block0_b128")},
@@ -4399,26 +4165,10 @@ def main() -> int:
                                         for c in REMAT_CASES])
         fewshot = phase("fewshot", phase_fewshot, rf, tmp, smi)
         md = phase("multidevice", phase_multidevice, fixture, tmp, dev, smi)
+    phase("folded_vs_unfolded", phase_folded_vs_unfolded, rf, sf, dev)
     k4_front = phase("k4_frontend", phase_k4_frontend, lf, dev, smi)
     phase("train_card_vs_cpu", lambda: [phase_train_card_vs_cpu(n, dev)
                                         for n in ("maze5", "main")])
-    phase("train_throughput", lambda: [
-        phase_train_throughput(n, [c[1:] for c in TRAIN_THROUGHPUT if c[0] == n], dev, smi)
-        for n in dict.fromkeys(c[0] for c in TRAIN_THROUGHPUT)])
-    card_rates = phase("throughput", lambda: [phase_throughput(n, dev, smi)
-                                              for n in ("maze5", "maze5_fmsl")])
-    main_rate = phase("throughput_main", phase_throughput_main, dev, smi)
-    card_rates += phase("throughput_w2v2", lambda: [phase_throughput(n, dev, smi, rf)
-                                                    for n in W2V2_K1])
-    feed = {"card": smi, "loader_utt_per_s": {
-                **{k: v["utt_per_s"] for k, v in native["loader"].items()},
-                "pack": packs["d"]["loader"]["pack"]["utt_per_s"]},
-            "card_eval_utt_per_s": {**{r["model"]: r["utt_per_s_k1"] for r in card_rates},
-                                    "main": main_rate[f"utt_per_s_b{BENCH_BATCH}"]},
-            "batch": BENCH_BATCH, "cut": CUT}
-    print("host_feed " + json.dumps(feed), flush=True)
-    phase("throughput_spectral", phase_throughput_spectral, dev, smi)
-
     print("phase_seconds " + json.dumps({**phase_s,
                                          "total": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)

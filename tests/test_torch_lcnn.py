@@ -26,9 +26,22 @@ from adfmsl_torch.config import make_experiment
 from adfmsl_torch.models import (EXTRAS, build_model, load_checkpoint, save_checkpoint,
                                  state_dict_from_flax)
 from adfmsl_torch.models.blocks import same_pads
+from test_torch_telemetry import check_model_stages
 
 CUT = 15840
 NAMES = ["lcnn_lfcc", "lcnn1d_lfcc", "resnet18_logmel"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The suite runs several workers on the machine's cores: torch's own
+    thread pool in every worker would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 PATHS = {"f32": ("float32", "highest"), "bf16": ("bfloat16", "high")}
 # the last Dense and its scale, which brings each model's logits to O(1)-O(10)
 LAST_DENSE = {"lcnn_lfcc": ("fc2", 2.0), "lcnn1d_lfcc": ("fc2", 1.0),
@@ -114,6 +127,14 @@ def test_forward_is_classify_of_features_and_training_raises(variables, name):
     model.train()
     out = model(x, rngs={"dropout": torch.Generator().manual_seed(0)})
     assert out["logits"].shape == (2, 2) and torch.isfinite(out["logits"]).all()
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_forward_enters_the_model_stage_spans_in_order(name):
+    """The LFCC / log-mel front end with CMVN, the trunk to the pooled
+    features and the head are one span each."""
+    model = build_model(_experiment(make_experiment, name, "bf16").model, device="cpu")
+    check_model_stages(model, torch.zeros((1, CUT)))
 
 
 def test_extras_are_built_on_the_card_by_default(monkeypatch):

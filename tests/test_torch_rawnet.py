@@ -28,9 +28,22 @@ from adfmsl_torch.models import SPECS, build_model, state_dict_from_flax
 from adfmsl_torch.models import rawnet as port_rawnet
 from adfmsl_torch.models import sincnet as port_sincnet
 from adfmsl_torch.models.blocks import GRU
+from test_torch_telemetry import MODEL_STAGES, check_model_stages
 
 CUT = 9000
 NAMES = ["main", "main_fmsl"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The suite runs several workers on the machine's cores: torch's own
+    thread pool in every worker would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 # (dtype, fused_eval_trunk, fused_eval_frontend)
 PATHS = {"f32": ("float32", False, False), "bf16_trunk": ("bfloat16", True, False),
          "bf16_trunk_frontend": ("bfloat16", True, True)}
@@ -224,17 +237,11 @@ def test_cli_main_fmsl_fused_frontend_on_cpu(fixture_dir, tmp_path, capsys,
     assert calls == {"k3": n_batches, "k1": 6 * n_batches}
 
 
-@pytest.mark.parametrize("name,first,last", [("main", "encoder.sinc", "fc2"),
-                                             ("main_fmsl", "encoder.sinc", "fmsl"),
-                                             ("maze5", "sinc", "fc2")])
-def test_profile_stage_names_resolve(name, first, last):
-    """profile_eval times these modules: every name must be a module."""
-    from adfmsl_torch.profile_eval import stage_names
-
-    model = build_model(make_experiment(name).model, device="cpu")
-    names = stage_names(model)
-    mods = dict(model.named_modules())
-    assert names[0] == first and names[-1] == last and all(n in mods for n in names)
-    if name.startswith("main"):
-        assert names[1:7] == [f"encoder.block{i}" for i in range(6)]
-        assert "encoder.gru" in names
+@pytest.mark.parametrize("name", ["main", "main_fmsl", "maze5"])
+def test_forward_enters_the_model_stage_spans_in_order(name):
+    """RawNet's encoder (sinc front end, blocks, GRU) is one front-end span
+    and it has no trunk span; maze5's sinc front end, trunk and head are three."""
+    exp = make_experiment(name)
+    exp.data.cut = CUT
+    names = MODEL_STAGES[::2] if name.startswith("main") else MODEL_STAGES
+    check_model_stages(build_model(exp.model, device="cpu"), torch.zeros((1, CUT)), names)

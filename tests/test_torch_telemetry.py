@@ -9,7 +9,9 @@ the program enters them: ``produce_scores`` over a small pack gives one
 model's three stages and K1's weight folding a forward; two ``Trainer`` steps
 give one ``train_step.place`` and one ``train_step.guard_sync`` a step; every
 range the port enters in those runs is named by the naming rule; and
-``host_syncs`` reads 0 on the CPU.
+``host_syncs`` reads 0 on the CPU. ``check_model_stages`` is the check the
+model families' test files run on one forward of each model: its front-end,
+trunk and head spans, once each and in order.
 """
 import json
 import sys
@@ -46,6 +48,24 @@ def _ranges(prof):
     """Every user range the profiler saw: (name, start ns, end ns)."""
     return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
             if e.is_user_annotation()]
+
+
+MODEL_STAGES = ("stage.model.frontend", "stage.model.trunk", "stage.model.head")
+
+
+def check_model_stages(model, x, names=MODEL_STAGES):
+    """One eval forward of ``model`` on ``x`` under a CPU profiler enters each
+    of ``names`` once, in that order, one after another, inside no other span;
+    and no other ``stage.model.*`` span."""
+    profiling.reset()
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU]):
+        model(x)
+    spans = sorted((s for s in profiling.recorded().spans if s.name.startswith("stage.model.")),
+                   key=lambda s: s.start_ns)
+    profiling.reset()
+    assert [s.name for s in spans] == list(names)
+    assert all(s.parent is None for s in spans)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
 
 
 def test_annotate_without_a_profiler_enters_no_range_and_records_nothing(monkeypatch):

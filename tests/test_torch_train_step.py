@@ -296,8 +296,9 @@ def test_clip_engages_like_optax():
 
 def test_step_parts_are_labelled_for_the_profiler():
     """The real step runs its forward, backward and update under the labels
-    that ``chip_smoke.py`` reads its device-time split from: each label once
-    per step, and the forward's range holds the model's convolutions."""
+    that the benchmark's ``train_fwd_ms`` / ``train_bwd_ms`` readers read its
+    device-time split from: each label once per step, and the forward's range
+    holds the model's convolutions."""
     from torch.profiler import ProfilerActivity, profile
 
     from adfmsl_torch.train.steps import STEP_LABELS

@@ -45,6 +45,7 @@ from adfmsl_torch.config import make_experiment
 from adfmsl_torch.models import MazeModel, state_dict_from_flax
 from adfmsl_torch.models.mazes import SPECS
 from adfmsl_torch.train import Optimizer, TrainState, make_train_step, param_labels
+from test_torch_telemetry import check_model_stages
 from test_torch_train_step import (F32_TOL, batch, compare_grads, compare_updates,
                                    deterministic, port_grads)
 
@@ -258,25 +259,9 @@ def test_train_step_matches_adfmsl(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["maze2", "maze3_fmsl", "maze6", "maze8"])
-def test_profile_stages_are_modules_that_run(name):
-    """``profile_eval`` times these modules by forward hooks: every stage
-    name must be a module that one forward calls exactly once, the
-    transformer's layers, the fusion ``proj``, ASP and maze8's conv FMSL
-    layer included."""
-    from adfmsl_torch.profile_eval import coarse_stage_names, stage_names
-
-    model = port_model(no_dropout(make_experiment(name)).model)
-    names = stage_names(model) + coarse_stage_names(model)
-    mods = dict(model.named_modules())
-    calls = []
-    handles = [mods[n].register_forward_hook(lambda *a, n=n: calls.append(n)) for n in names]
-    with torch.inference_mode():
-        model(torch.zeros((1, CUT)))
-    for h in handles:
-        h.remove()
-    assert sorted(calls) == sorted(names)
-    want = {"maze2": {"transformer.layer1", "transformer"},
-            "maze3_fmsl": {"transformer.layer1", "proj"},
-            "maze6": {"proj", "asp", "transformer.layer0"},
-            "maze8": {"conv_fmsl", "proj"}}[name]
-    assert want <= set(names) and "trunk" in names
+def test_forward_enters_the_model_stage_spans_in_order(name):
+    """The encoder with the fusion ``proj`` (and maze8's conv FMSL layer) is
+    the front-end span, the ResBlock stack the trunk span, the transformer,
+    ASP and the head the head span."""
+    check_model_stages(port_model(no_dropout(make_experiment(name)).model),
+                       torch.zeros((1, CUT)))

@@ -22,7 +22,8 @@ adfmsl's variables come across by ``state_dict_from_flax``.
 - The optimizer's labels ('main', 'backbone', 'frozen') against adfmsl's
   ``param_labels``.
 - ``cli.train`` + ``--restore`` + ``cli.evaluate`` for maze7 on the CPU.
-- ``profile_eval``'s stage names for both models are modules a forward runs.
+- One forward of either model enters the front-end, trunk and head spans in
+  order.
 
 The card test of their folded trunks is in test_torch_w2v2_card.py.
 """
@@ -42,6 +43,7 @@ from adfmsl_torch.config import make_experiment
 from adfmsl_torch.data import SyntheticSpec, generate_fixture
 from adfmsl_torch.models import build_model, state_dict_from_flax
 from adfmsl_torch.train import Optimizer, TrainState, make_train_step, param_labels
+from test_torch_telemetry import check_model_stages
 from test_torch_train_step import (F32_TOL, JaxRun, batch, compare_grads, compare_updates,
                                    deterministic, port_grads)
 
@@ -274,21 +276,6 @@ def test_cli_train_restore_and_evaluate_maze7(small_tiny_experiments, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["maze7", "maze3"])
-def test_profile_stages_are_modules_that_run(name):
-    """``profile_eval`` times these modules by forward hooks: every stage
-    name must be a module that one forward calls exactly once; and the
-    profiler's device time counts concurrent kernels once (``union_ms``)."""
-    from adfmsl_torch.profile_eval import coarse_stage_names, stage_names, union_ms
-
-    model = build_model(tiny(make_experiment(name)).model, device="cpu")
-    names = stage_names(model) + coarse_stage_names(model)
-    mods = dict(model.named_modules())
-    calls = []
-    handles = [mods[n].register_forward_hook(lambda *a, n=n: calls.append(n)) for n in names]
-    with torch.inference_mode():
-        model(torch.zeros((1, CUT)))
-    for h in handles:
-        h.remove()
-    assert sorted(calls) == sorted(names)
-    assert "wav2vec2.pos_conv_embed" in names and "trunk" in names
-    assert union_ms([(0, 10), (5, 20), (30, 40)]) == pytest.approx(0.03)
+def test_forward_enters_the_model_stage_spans_in_order(name):
+    check_model_stages(build_model(tiny(make_experiment(name)).model, device="cpu"),
+                       torch.zeros((1, CUT)))
