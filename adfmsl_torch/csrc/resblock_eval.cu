@@ -2,6 +2,8 @@
 //
 // Replaces the TPU kernel adfmsl/ops/pallas/resblock_fused.py:resblock_eval_fused
 // (its body is _kernel, :69-136). Function, per batch row b and time row t:
+//   x   = the block's input, or at stride 2 that input pooled over time by
+//         AvgPool(3, 2, pad 1) counting the pads (T = ceil(T_in / 2); item 8)
 //   h   = act(x*a1 + c1), or h = x at the stack head; zero outside [0, T)
 //   y1  = act(conv3(h) . w1 + b1);                        zero outside [0, T)
 //   out = conv3(y1) . w2 + bt + skip,  skip = x (identity) or x . skw (1x1 conv)
@@ -90,6 +92,25 @@
 //    m64n64k16 on its 64 columns of every weight slice (the slice's second half
 //    starts 8 KB in). The x rows arrive by one bulk copy a row straight to the
 //    skewed pitch, so no pass through registers spreads them.
+// 8. Stride 2 (the 'tpu' blocks that downsample: maze5's blocks 1-4, the
+//    Wav2Vec2 models' strided blocks) pools on load. The block's overlap avg
+//    pool, which torch ran as a pass of its own at 9x its bytes (16.6 of
+//    maze5's 39.4 device ms a batch of 128), happens as x is brought in. A
+//    tile's 130 pooled rows need 261 raw rows, 66.8 KB at Cin 128: a dense run
+//    of them would push a 128 -> 128 CTA past two an SM. So there is no bulk
+//    copy of x at stride 2: the threads that spread x read the raw rows from
+//    global memory, 16 bytes a thread, each thread a run of NJ pooled rows so
+//    that every raw row is loaded once (pool_rows), pool them in registers
+//    exactly as torch's avg_pool kernel does (the f32 sum in window order, over
+//    3, rounded to bf16: the values of ops/resblock_fused.py:overlap_avg_pool),
+//    and write h, and the 1x1 skip's x tile, as at stride 1. The identity skip of
+//    the last pass needs the pooled rows again: the load phase writes the tile's
+//    own R pooled rows into y, and the last pass reads them back from L2
+//    (ld.global.cg) before it overwrites them. The pooled load is a template
+//    parameter of the kernel, so a stride-1 call runs the code it ran before
+//    (with a branch at run time instead, the stride-1 calls took 2-6 % longer
+//    on an H100 80GB HBM3 at 700 W). The wide stack heads and MaxPool3
+//    (RawNet) take stride 1 only.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -280,6 +301,44 @@ __device__ __forceinline__ void slice_products(float (&acc)[N / 2], uint32_t a_a
     wgmma_wait_all();
 }
 
+// The mean of three bf16 pairs, as torch's avg_pool kernel with count_include_pad
+// forms it: the f32 sum in window order from 0, divided by 3 (IEEE division),
+// rounded to bf16.
+__device__ __forceinline__ uint32_t mean3_bf16x2(uint32_t a, uint32_t m, uint32_t c) {
+    const float lo = __fadd_rn(__fadd_rn(__fadd_rn(0.f, bf16_lo(a)), bf16_lo(m)), bf16_lo(c));
+    const float hi = __fadd_rn(__fadd_rn(__fadd_rn(0.f, bf16_hi(a)), bf16_hi(m)), bf16_hi(c));
+    return pack_bf16x2(__fdiv_rn(lo, 3.f), __fdiv_rn(hi, 3.f));
+}
+
+// Stride 2: pooled rows p0 .. p0+NJ-1 (at the block's length T) of one batch
+// row, 8 channels, as F.avg_pool1d(kernel 3, stride 2, pad 1, count_include_pad)
+// gives them: row p is the mean of raw rows 2p-1, 2p, 2p+1, those outside
+// [0, t_in) counted as zero. `xc` points at the 8 channels of raw row 0. Rows
+// outside [0, T), and rows from the n-th on, are zero. Each raw row is loaded
+// once, 16 bytes a thread: row 2p+1 ends window p and starts window p+1.
+template <int CIN, int NJ>
+__device__ __forceinline__ void pool_rows(uint4 (&v)[NJ], const bf16* xc, int t_in, int p0,
+                                          int T, int n) {
+    auto raw = [&](int r, bool want) {
+        return want && r >= 0 && r < t_in
+            ? __ldg(reinterpret_cast<const uint4*>(xc + size_t(r) * CIN))
+            : make_uint4(0u, 0u, 0u, 0u);
+    };
+    uint4 a = raw(2 * p0 - 1, n > 0 && p0 < T);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+        const int p = p0 + j;
+        // false only on a prefix (p < 0: raw row 2p+1 < 0, so the carry stays
+        // zero) or a suffix of the run
+        const bool want = j < n && p >= 0 && p < T;
+        const uint4 m = raw(2 * p, want), c = raw(2 * p + 1, want);
+        v[j] = want ? make_uint4(mean3_bf16x2(a.x, m.x, c.x), mean3_bf16x2(a.y, m.y, c.y),
+                                 mean3_bf16x2(a.z, m.z, c.z), mean3_bf16x2(a.w, m.w, c.w))
+                    : make_uint4(0u, 0u, 0u, 0u);
+        a = c;
+    }
+}
+
 struct Weights {
     const bf16* w1;
     const bf16* w2;
@@ -340,13 +399,13 @@ __device__ __forceinline__ void consume(float (&acc)[N], int& slice, uint32_t fu
 // Grid (n_tiles, B), THREADS threads: two warpgroups, rows 0-63 and 64-127 of
 // both convs (WIDE: rows 0-63 of both, columns 0-63 and 64-127); thread 0 also
 // issues the bulk copies.
-template <int CIN, int COUT>
+template <int CIN, int COUT, bool POOLED>
 __global__ void __launch_bounds__(THREADS, Cfg<CIN, COUT>::CTAS)
 resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
                      const bf16* __restrict__ w1, const float* __restrict__ b1,
                      const bf16* __restrict__ w2, const float* __restrict__ bt,
                      const bf16* __restrict__ skw, bf16* __restrict__ y,
-                     float* __restrict__ partial, int T, int act, int pool) {
+                     float* __restrict__ partial, int T, int t_in, int act, int pool) {
     using C = Cfg<CIN, COUT>;
     extern __shared__ __align__(128) unsigned char smem[];
     const uint32_t sbase = smem_u32(smem);
@@ -369,7 +428,7 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
 
     const Weights wts{w1, w2, skw};
     if (tid == 0) {
-        issue_x<C>(x, b, T, r0, sbase + (C::WIDE ? C::XS : C::XD), xbar);
+        if constexpr (!POOLED) issue_x<C>(x, b, T, r0, sbase + (C::WIDE ? C::XS : C::XD), xbar);
         for (int i = 0; i < C::STAGES && i < C::SLICES; ++i)
             issue_slice<C>(i, wts, ring, full0);
     }
@@ -408,23 +467,38 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
                                act_fn(__fadd_rn(__fmul_rn(bf16_hi(w), a1[e + 1]),
                                                 c1[e + 1]), act));
         };
-        mbar_wait(xbar, 0);
-        const bf16* xd = reinterpret_cast<const bf16*>(smem + C::XD);
         uint4 v[NJ];
+        // v[j] holds tile row kbase + j * KSTEP: rows RSTEP apart, or a run
+        const int kbase = POOLED ? k0 * NJ : k0;
+        constexpr int KSTEP = POOLED ? 1 : RSTEP;
+        if constexpr (!POOLED) {
+            mbar_wait(xbar, 0);
+            const bf16* xd = reinterpret_cast<const bf16*>(smem + C::XD);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-            const int k = k0 + j * RSTEP, gr = r0 - 2 + k;
-            v[j] = make_uint4(0u, 0u, 0u, 0u);
-            if (k < X_ROWS && gr >= 0 && gr < T)
-                v[j] = *reinterpret_cast<const uint4*>(xd + k * CIN + ch * 8);
+            for (int j = 0; j < NJ; ++j) {
+                const int k = k0 + j * RSTEP, gr = r0 - 2 + k;
+                v[j] = make_uint4(0u, 0u, 0u, 0u);
+                if (k < X_ROWS && gr >= 0 && gr < T)
+                    v[j] = *reinterpret_cast<const uint4*>(xd + k * CIN + ch * 8);
+            }
+            __syncthreads();            // dense x is read: the skewed tiles may overwrite it
+        } else {                        // a run of NJ rows a thread, pooled from raw x
+            pool_rows<CIN>(v, x + size_t(b) * t_in * CIN + ch * 8, t_in, r0 - 2 + kbase, T,
+                           X_ROWS - kbase);
         }
-        __syncthreads();                // dense x is read: the skewed tiles may overwrite it
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-            const int k = k0 + j * RSTEP, gr = r0 - 2 + k;
+            const int k = kbase + j * KSTEP, gr = r0 - 2 + k;
             if (k < X_ROWS) {
-                if constexpr (C::SKIP)
+                if constexpr (C::SKIP) {
                     *reinterpret_cast<uint4*>(smem + C::XS + (k * C::XP + ch * 8) * 2) = v[j];
+                } else if constexpr (POOLED) {
+                    // this tile's own rows of pooled x, for the identity skip of the
+                    // last pass: kept in y, which the last pass overwrites
+                    if (k >= 2 && k < C::R + 2 && gr < T)
+                        *reinterpret_cast<uint4*>(y + (size_t(b) * T + gr) * COUT + ch * 8) =
+                            v[j];
+                }
                 uint4 h = v[j];
                 if (pre != nullptr && gr >= 0 && gr < T)
                     h = make_uint4(h2(h.x, 0), h2(h.y, 2), h2(h.z, 4), h2(h.w, 6));
@@ -508,13 +582,16 @@ resblock_eval_kernel(const bf16* __restrict__ x, const float* __restrict__ pre,
     constexpr int NXR = C::SKIP ? 1 : (C::RPT > 3 * C::WPT ? C::RPT : 3 * C::WPT);
     uint4 xr[NXR];
     if constexpr (!C::SKIP) {
-        const bf16* xb = x + (size_t(b) * T + r0) * CIN + ch * 8;
+        // pooled: the rows the load phase kept in y, read from L2
+        const bf16* xb = (POOLED ? y : x) + (size_t(b) * T + r0) * CIN + ch * 8;
 #pragma unroll
         for (int j = 0; j < NXR; ++j) {
             const int i = pool == 1 ? rg + j * C::NRG : 3 * (rg + (j / 3) * C::NRG) + j % 3;
             xr[j] = make_uint4(0u, 0u, 0u, 0u);
-            if (i < C::R && r0 + i < T)
-                xr[j] = *reinterpret_cast<const uint4*>(xb + size_t(i) * CIN);
+            if (i < C::R && r0 + i < T) {
+                const uint4* src = reinterpret_cast<const uint4*>(xb + size_t(i) * CIN);
+                xr[j] = POOLED ? __ldcg(src) : *src;
+            }
         }
     }
     __syncthreads();
@@ -584,40 +661,56 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
     sums[idx] = s;
 }
 
-template <int CIN, int COUT>
+template <int CIN, int COUT, bool POOLED>
 cudaError_t set_smem() {
-    return cudaFuncSetAttribute(resblock_eval_kernel<CIN, COUT>,
+    return cudaFuncSetAttribute(resblock_eval_kernel<CIN, COUT, POOLED>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 Cfg<CIN, COUT>::TOTAL);
 }
 
-template <int CIN, int COUT>
+template <int CIN, int COUT, bool POOLED = false>
 cudaError_t launch(const void* x, const void* pre, const void* w1, const void* b1,
                    const void* w2, const void* bt, const void* skw, void* y, void* partial,
-                   int bsz, int T, int act, int pool, cudaStream_t s) {
-    cudaError_t err = set_smem<CIN, COUT>();
+                   int bsz, int T, int t_in, int stride, int act, int pool,
+                   cudaStream_t s) {
+    // stride 2 runs the instantiation that pools on load (no wide stack head does)
+    if constexpr (!POOLED && !Cfg<CIN, COUT>::WIDE) {
+        if (stride == 2)
+            return launch<CIN, COUT, true>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T,
+                                           t_in, stride, act, pool, s);
+    }
+    cudaError_t err = set_smem<CIN, COUT, POOLED>();
     if (err != cudaSuccess) return err;
-    resblock_eval_kernel<CIN, COUT><<<dim3((T + Cfg<CIN, COUT>::R - 1) / Cfg<CIN, COUT>::R, bsz),
-                                      THREADS,
-                                      Cfg<CIN, COUT>::TOTAL, s>>>(
+    resblock_eval_kernel<CIN, COUT, POOLED>
+        <<<dim3((T + Cfg<CIN, COUT>::R - 1) / Cfg<CIN, COUT>::R, bsz), THREADS,
+           Cfg<CIN, COUT>::TOTAL, s>>>(
         static_cast<const bf16*>(x), static_cast<const float*>(pre),
         static_cast<const bf16*>(w1), static_cast<const float*>(b1),
         static_cast<const bf16*>(w2), static_cast<const float*>(bt),
         static_cast<const bf16*>(skw), static_cast<bf16*>(y),
-        static_cast<float*>(partial), T, act, pool);
+        static_cast<float*>(partial), T, t_in, act, pool);
     return cudaGetLastError();
 }
 
 // The instantiation's figures: rows a tile, shared memory a CTA, threads, CTAs
-// an SM (the occupancy calculator), weight bytes a tile, ring stages.
+// an SM (the occupancy calculator; the fewer of the two loads where the shape
+// also pools on load), weight bytes a tile, ring stages.
 template <int CIN, int COUT>
 cudaError_t config(int* info) {
     using C = Cfg<CIN, COUT>;
-    cudaError_t err = set_smem<CIN, COUT>();
+    cudaError_t err = set_smem<CIN, COUT, false>();
     if (err != cudaSuccess) return err;
     int ctas = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, resblock_eval_kernel<CIN, COUT>, THREADS, C::TOTAL);
+        &ctas, resblock_eval_kernel<CIN, COUT, false>, THREADS, C::TOTAL);
+    if constexpr (!C::WIDE) {
+        int pooled = 0;
+        if (err == cudaSuccess) err = set_smem<CIN, COUT, true>();
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &pooled, resblock_eval_kernel<CIN, COUT, true>, THREADS, C::TOTAL);
+        ctas = pooled < ctas ? pooled : ctas;
+    }
     info[0] = C::R;
     info[1] = C::TOTAL;
     info[2] = THREADS;
@@ -670,36 +763,46 @@ extern "C" int resblock_eval_config(int cin, int cout, int skip, int device, int
 // x (B,T,Cin) bf16; pre (2,Cin) f32 or null; w1, w2 and skw bf16 in the
 // kernel's slice layout (ops/resblock_fused.py:kernel_weight_layout) of
 // (3,Cin,Cout), (3,Cout,Cout) and (Cin,Cout), skw null for the identity skip;
-// b1, bt (Cout) f32; y (B,T/pool,Cout) bf16; partial (B,ceil(T/R),Cout) f32
-// scratch; sums (B,Cout) f32. (Cin, Cout, skip) is (128, 128, identity),
-// (128, 256, 1x1), (256, 256, identity), or a stack head (768 or 1024, 128,
-// 1x1) with pre null and pool 1. act 0 = ReLU, 1 = LeakyReLU(0.3); pool 1 or 3;
-// device = the CUDA device index.
+// b1, bt (Cout) f32; y (B,T'/pool,Cout) bf16; partial (B,ceil(T'/R),Cout) f32
+// scratch; sums (B,Cout) f32, where T' = ceil(T/stride): at stride 2 the block
+// body runs on x pooled by AvgPool(3, 2, pad 1), which the kernel forms as it
+// loads x. (Cin, Cout, skip) is (128, 128, identity), (128, 256, 1x1),
+// (256, 256, identity), or a stack head (768 or 1024, 128, 1x1) with pre null,
+// pool 1 and stride 1. act 0 = ReLU, 1 = LeakyReLU(0.3); pool 1 or 3; stride 1,
+// or 2 with pool 1; device = the CUDA device index.
 extern "C" int resblock_eval_launch(const void* x, const void* pre, const void* w1,
                                     const void* b1, const void* w2, const void* bt,
                                     const void* skw, void* y, void* partial, void* sums,
                                     int bsz, int T, int cin, int cout, int act,
-                                    int pool, int device, void* stream) {
+                                    int pool, int stride, int device, void* stream) {
     const int v = variant(cin, cout, skw != nullptr);
     if (v < 0 || bsz <= 0 || T < pool || (pool != 1 && pool != 3) ||
-        (act != 0 && act != 1) || bsz > 65535 || (v >= 3 && (pre != nullptr || pool != 1)))
+        (act != 0 && act != 1) || bsz > 65535 || (stride != 1 && stride != 2) ||
+        (stride == 2 && pool != 1) ||
+        (v >= 3 && (pre != nullptr || pool != 1 || stride != 1)))
         return int(cudaErrorInvalidValue);
     // this library links its own CUDA runtime: select the caller's device
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return int(err);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int tb = (T + stride - 1) / stride;     // the block's rows
     if (v == 0)
-        err = launch<128, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
+        err = launch<128, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, tb, T, stride,
+                               act, pool, s);
     else if (v == 1)
-        err = launch<128, 256>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
+        err = launch<128, 256>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, tb, T, stride,
+                               act, pool, s);
     else if (v == 2)
-        err = launch<256, 256>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
+        err = launch<256, 256>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, tb, T, stride,
+                               act, pool, s);
     else if (v == 3)
-        err = launch<768, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
+        err = launch<768, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, tb, T, stride,
+                               act, pool, s);
     else
-        err = launch<1024, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, T, act, pool, s);
+        err = launch<1024, 128>(x, pre, w1, b1, w2, bt, skw, y, partial, bsz, tb, T, stride,
+                                act, pool, s);
     if (err != cudaSuccess) return int(err);
-    const int n_tiles = (T + ROWS[v] - 1) / ROWS[v], n = bsz * cout;
+    const int n_tiles = (tb + ROWS[v] - 1) / ROWS[v], n = bsz * cout;
     reduce_partials_kernel<<<(n + 255) / 256, 256, 0, s>>>(
         static_cast<const float*>(partial), static_cast<float*>(sums), bsz, n_tiles, cout);
     return int(cudaGetLastError());

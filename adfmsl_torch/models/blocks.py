@@ -31,7 +31,7 @@ from torch import nn
 from adfmsl_torch.models.w2v2 import SelfAttention, dense, layer_norm
 from adfmsl_torch.ops.dropout import dropout
 from adfmsl_torch.ops.norm import batch_norm, bn_forward
-from adfmsl_torch.ops.resblock_fused import fold_block_params, resblock_eval
+from adfmsl_torch.ops.resblock_fused import fold_block_params, overlap_avg_pool, resblock_eval
 from adfmsl_torch.utils.profiling import annotate
 
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
@@ -103,14 +103,6 @@ def max_pool2d_nhwc(x: torch.Tensor, k: int, stride: int, same: bool = False) ->
         (ht, hb), (wl, wr) = same_pads(x.shape[1], k, stride), same_pads(x.shape[2], k, stride)
         h = F.pad(h, (wl, wr, ht, hb), value=float("-inf"))
     return F.max_pool2d(h, k, stride).permute(0, 2, 3, 1)
-
-
-def overlap_avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """AvgPool(2s-1, s, pad s-1) over time, counting pads (flax ``avg_pool``
-    divides by the full window): (B, T, C) -> (B, ceil(T/s), C)."""
-    y = F.avg_pool1d(x.transpose(1, 2), 2 * stride - 1, stride, stride - 1,
-                     count_include_pad=True)
-    return y.transpose(1, 2).contiguous()
 
 
 def adaptive_avg_resample(x: torch.Tensor, lout: int) -> torch.Tensor:
@@ -186,7 +178,8 @@ class ResBlockSE(nn.Module):
     runs folded: BN stats become per-channel affines (``fold_block_params``,
     recomputed every forward so a later ``load_state_dict`` is never stale)
     and ``resblock_eval`` runs the whole body as one kernel (K1) returning the
-    output and its f32 channel sums, which feed the SE gate."""
+    output and its f32 channel sums, which feed the SE gate; at stride 2 K1
+    also runs the overlap avg pool, on the raw input as it loads it."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  dropout_rate: float = 0.3, first: bool = False, use_se: bool = True,
@@ -239,11 +232,11 @@ class ResBlockSE(nn.Module):
         return conv_nhc(x, self.downsample, self.dtype, stride)
 
     def _tpu(self, x, generator):
-        if self.stride > 1:
-            x = overlap_avg_pool(x, self.stride)
         train = self.training
         if self.fused_eval and self.dtype == torch.bfloat16 and not train:
             return self._fused_eval_body(x)
+        if self.stride > 1:
+            x = overlap_avg_pool(x, self.stride)
         dt = self.dtype
         h = x
         if not self.first:
@@ -304,14 +297,19 @@ class ResBlockSE(nn.Module):
         return self.se(res) if self.se is not None else res
 
     def _fused_eval_body(self, x: torch.Tensor) -> torch.Tensor:
+        """The block on its raw input: K1 pools a bf16 ``x`` at stride 2 as it
+        loads it; any other input is pooled here first, in its own dtype."""
+        stride = self.stride
+        if stride == 2 and x.dtype != torch.bfloat16:
+            x, stride = overlap_avg_pool(x, stride), 1
         tensors = dict(self.named_parameters())
         tensors.update(self.named_buffers())
         with annotate("stage.k1.weights"):
             pre, w1, b1, w2, bt, skw = fold_block_params(tensors, first=self.first)
         y, sums = resblock_eval(x.to(torch.bfloat16).contiguous(),
-                                pre, w1, b1, w2, bt, skw)
+                                pre, w1, b1, w2, bt, skw, stride=stride)
         if self.se is not None:
-            gate = self.se.gate(sums / x.shape[1])
+            gate = self.se.gate(sums / y.shape[1])          # the pooled length
             y = y * gate[:, None, :].to(y.dtype)
         return y
 

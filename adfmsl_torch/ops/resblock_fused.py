@@ -14,6 +14,10 @@ plus the exact f32 per-channel sums of the valid rows of y, which feed the SE
 *after* the activations, and the rounding points are fixed: h and y1 are
 rounded to bf16, the convs take bf16 operands and accumulate in f32, out is
 f32, the sums and the pool act on the f32 out, and y is out rounded to bf16.
+At ``stride`` 2 the body runs on x pooled first by ``overlap_avg_pool``
+(AvgPool(3, 2, pad 1) over time, counting the pads), as a downsampling 'tpu'
+block does; the kernel forms those pooled rows as it loads the raw x, so the
+pooled tensor never reaches device memory.
 
 ``resblock_eval`` runs the CUDA kernel (csrc/resblock_eval.cu) for a CUDA
 tensor and the plain PyTorch version (``resblock_eval_plain``, the same math
@@ -22,8 +26,9 @@ kernel is built with nvcc at its first call (ops/_build.py). It takes the
 (Cin, Cout, skip) of the models' blocks: (128, 128, identity), (128, 256, 1x1)
 and (256, 256, identity), and the wide stack heads of maze2 and maze6,
 (768, 128, 1x1) and (1024, 128, 1x1), which it takes without ``pre`` (a stack
-head has no bn1) and without the pool; and its weights in the slice layout
-that ``kernel_weight_layout`` makes.
+head has no bn1), without the pool and at stride 1; stride 2 only with pool 1;
+and its weights in the slice layout that ``kernel_weight_layout`` makes. Each
+launch at stride 2 counts ``k1.pooled_load`` (``utils/profiling.py:count``).
 """
 from __future__ import annotations
 
@@ -35,13 +40,13 @@ import torch
 import torch.nn.functional as F
 
 from adfmsl_torch.ops.sinc import max_pool3_nhc
-from adfmsl_torch.utils.profiling import annotate
+from adfmsl_torch.utils.profiling import annotate, count
 
 _ACTS = {"relu": 0, "leaky": 1}
 # (Cin, Cout, 1x1 skip) the kernel is instantiated for
 KERNEL_SHAPES = ((128, 128, False), (128, 256, True), (256, 256, False),
                  (768, 128, True), (1024, 128, True))
-# the wide stack heads among them: pre None and pool 1 only
+# the wide stack heads among them: pre None, pool 1 and stride 1 only
 HEAD_ONLY_SHAPES = ((768, 128, True), (1024, 128, True))
 SLICE_K = 64                        # k depth of one weight slice
 
@@ -93,6 +98,14 @@ def kernel_weight_layout(w: torch.Tensor) -> torch.Tensor:
     return out.copy_(t).reshape(-1)              # one copy: rounds to bf16 and lays out
 
 
+def overlap_avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """AvgPool(2s-1, s, pad s-1) over time, counting pads (flax ``avg_pool``
+    divides by the full window): (B, T, C) -> (B, ceil(T/s), C)."""
+    y = F.avg_pool1d(x.transpose(1, 2), 2 * stride - 1, stride, stride - 1,
+                     count_include_pad=True)
+    return y.transpose(1, 2).contiguous()
+
+
 def _act(v: torch.Tensor, act: str) -> torch.Tensor:
     if act == "relu":
         return torch.clamp_min(v, 0.0)
@@ -102,11 +115,17 @@ def _act(v: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def resblock_eval_plain(x, pre, w1, b1, w2, bt, skw, act: str = "relu",
-                        pool: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                        pool: int = 1, stride: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1's function in plain PyTorch, with the kernel's rounding points:
-    (B, T, Cin) -> (y bf16 (B, T//pool, Cout), sums f32 (B, Cout))."""
+    (B, T, Cin) -> (y bf16 (B, T'//pool, Cout), sums f32 (B, Cout)), where
+    T' = ceil(T/stride): at stride 2 the bf16 x is pooled by
+    ``overlap_avg_pool`` first."""
     bf = torch.bfloat16
     xb = x.to(bf)
+    if stride == 2:
+        xb = overlap_avg_pool(xb, 2)
+    elif stride != 1:
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
     x32 = xb.float()
     h = x32
     if pre is not None:
@@ -136,7 +155,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("resblock_eval")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.resblock_eval_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                         i, i, i, i, i, i, i, p]
+                                         i, i, i, i, i, i, i, i, p]
     lib.resblock_eval_launch.restype = i
     lib.resblock_eval_rows.argtypes = [i, i, i]
     lib.resblock_eval_rows.restype = i
@@ -171,7 +190,7 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dev: torch.device) -> None:
                          f"expected {shape}")
 
 
-def _launch(x, pre, w1, b1, w2, bt, skw, act, pool):
+def _launch(x, pre, w1, b1, w2, bt, skw, act, pool, stride=1):
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("resblock_eval: x must be a contiguous (B, T, Cin) "
                          f"bf16 tensor, got {x.dtype} {tuple(x.shape)}")
@@ -180,11 +199,13 @@ def _launch(x, pre, w1, b1, w2, bt, skw, act, pool):
     if (cin, cout, skw is not None) not in KERNEL_SHAPES:
         raise ValueError(f"resblock_eval: the kernel takes (Cin, Cout, 1x1 skip) in "
                          f"{KERNEL_SHAPES}, got ({cin}, {cout}, {skw is not None})")
-    if act not in _ACTS or pool not in (1, 3) or tin < pool or bsz > 65535:
-        raise ValueError(f"resblock_eval: act={act!r} pool={pool} T={tin}")
-    if (cin, cout, skw is not None) in HEAD_ONLY_SHAPES and (pre is not None or pool != 1):
+    if (act not in _ACTS or pool not in (1, 3) or stride not in (1, 2) or bsz > 65535
+            or (stride == 2 and pool != 1) or -(-tin // stride) < pool):
+        raise ValueError(f"resblock_eval: act={act!r} pool={pool} stride={stride} T={tin}")
+    if (cin, cout, skw is not None) in HEAD_ONLY_SHAPES and (
+            pre is not None or pool != 1 or stride != 1):
         raise ValueError(f"resblock_eval: the kernel takes ({cin}, {cout}) at the stack "
-                         "head only (pre None, pool 1)")
+                         "head only (pre None, pool 1, stride 1)")
     dev = x.device
     _check("w1", w1, (3, cin, cout), dev)
     _check("w2", w2, (3, cout, cout), dev)
@@ -207,8 +228,9 @@ def _launch(x, pre, w1, b1, w2, bt, skw, act, pool):
         raise ValueError("resblock_eval: x is not 16-byte aligned")
 
     lib = _kernel_lib()
-    n_tiles = -(-tin // lib.resblock_eval_rows(cin, cout, int(skw is not None)))
-    y = torch.empty((bsz, tin // pool, cout), dtype=torch.bfloat16, device=dev)
+    tb = -(-tin // stride)                       # the block's rows
+    n_tiles = -(-tb // lib.resblock_eval_rows(cin, cout, int(skw is not None)))
+    y = torch.empty((bsz, tb // pool, cout), dtype=torch.bfloat16, device=dev)
     partial = torch.empty((bsz, n_tiles, cout), dtype=torch.float32, device=dev)
     sums = torch.empty((bsz, cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -216,26 +238,32 @@ def _launch(x, pre, w1, b1, w2, bt, skw, act, pool):
         rc = lib.resblock_eval_launch(
             _ptr(x), _ptr(pre), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(bt), _ptr(skw),
             _ptr(y), _ptr(partial), _ptr(sums), bsz, tin, cin, cout,
-            _ACTS[act], pool, dev.index, ctypes.c_void_p(stream))
+            _ACTS[act], pool, stride, dev.index, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"resblock_eval: kernel launch failed with CUDA error {rc}")
     resblock_eval.launches += 1
+    if stride == 2:
+        count("k1.pooled_load")
     return y, sums
 
 
-def resblock_eval(x, pre, w1, b1, w2, bt, skw, act: str = "relu",
-                  pool: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One folded eval block body: (B, T, Cin) bf16 -> (y bf16 (B, T//pool,
-    Cout), sums f32 (B, Cout)). Operands as ``fold_block_params`` returns them
-    (f32 weights are rounded to bf16 here, as the Pallas wrapper does, and laid
-    out for the kernel by ``kernel_weight_layout``, every call).
+def resblock_eval(x, pre, w1, b1, w2, bt, skw, act: str = "relu", pool: int = 1,
+                  stride: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One folded eval block body: (B, T, Cin) bf16 -> (y bf16 (B, T'//pool,
+    Cout), sums f32 (B, Cout)), T' = ceil(T/stride). Operands as
+    ``fold_block_params`` returns them (f32 weights are rounded to bf16 here, as
+    the Pallas wrapper does, and laid out for the kernel by
+    ``kernel_weight_layout``, every call). At ``stride`` 2 the body runs on
+    ``overlap_avg_pool(x, 2)``: the kernel pools the raw x as it loads it, and
+    its result equals the pool followed by the stride-1 call bit for bit.
 
     A CUDA ``x`` launches the K1 kernel (and counts the launch in
-    ``resblock_eval.launches``) or raises; a CPU ``x`` runs the plain version."""
+    ``resblock_eval.launches``, a stride-2 one also in ``k1.pooled_load``) or
+    raises; a CPU ``x`` runs the plain version."""
     if x.device.type == "cuda":
-        return _launch(x, pre, w1, b1, w2, bt, skw, act, pool)
+        return _launch(x, pre, w1, b1, w2, bt, skw, act, pool, stride)
     if x.device.type == "cpu":
-        return resblock_eval_plain(x, pre, w1, b1, w2, bt, skw, act, pool)
+        return resblock_eval_plain(x, pre, w1, b1, w2, bt, skw, act, pool, stride)
     raise ValueError(f"resblock_eval: unsupported device {x.device}")
 
 

@@ -19,10 +19,13 @@ Phases, each printing its own lines:
 2. kernel K1 (the folded eval residual-block body) against its plain PyTorch
    version on the card: the CPU tests' cases, block0 with ``pre`` and block4
    at batch 8, the wide stack heads (768 -> 128 and 1024 -> 128, 1x1 skip, no
-   ``pre``) at T 67, 125 and 1, the five blocks of maze5 and the six RawNet
+   ``pre``) at T 67, 125 and 1, the five blocks of maze5 (blocks 1-4 at stride
+   2 on their raw input: the kernel pools on load, and the composition times
+   the avg pool with it) and the six RawNet
    blocks of main (LeakyReLU, MaxPool3) at batch 128 and cut 64600, and the
-   blocks of maze7, maze3, maze2 and maze6 (the heads among them) at batch
-   128 and T 201 into the trunk. Each line gives the max
+   blocks of maze7, maze3, maze2 and maze6 (the heads among them; their
+   strided blocks at stride 2 on their raw input) at batch 128 and T 201
+   into the trunk. Each line gives the max
    abs error beside its tolerance (y: 2e-2 * max|y|, sums: 1e-3 * max|sums|),
    the kernel's and the plain version's times, the time of a cuDNN
    composition of the same function (information only: no single PyTorch
@@ -368,33 +371,36 @@ CUT = 64600
 EVAL_UTTS, EVAL_BATCH = 40, 16
 BENCH_BATCH = 128
 SINC_C, SINC_K = 128, 251
-# maze5's five trunk blocks at cut 64600: (T, Cin, Cout, pre, 1x1 skip)
-MAZE5_BLOCKS = [(64350, 128, 128, False, False), (32175, 128, 128, True, False),
-                (16088, 128, 128, True, False), (8044, 128, 128, True, False),
-                (4022, 128, 256, True, True)]
+# maze5's five trunk blocks at cut 64600: (T in, Cin, Cout, pre, 1x1 skip,
+# stride); K1 pools a stride-2 block's raw input on load (T out = ceil(T / 2))
+MAZE5_BLOCKS = [(64350, 128, 128, False, False, 1), (64350, 128, 128, True, False, 2),
+                (32175, 128, 128, True, False, 2), (16088, 128, 128, True, False, 2),
+                (8044, 128, 256, True, True, 2)]
 # RawNet main's six blocks (LeakyReLU, MaxPool3) at cut 64600: T = 21450 after
 # the front end, a third after each block
 MAIN_BLOCKS = [(21450, 128, 128, False, False), (7150, 128, 128, True, False),
                (2383, 128, 256, True, True), (794, 256, 256, True, False),
                (264, 256, 256, True, False), (88, 256, 256, True, False)]
 # maze7's and maze3's trunks at cut 64600: the base encoder's 320x extractor
-# gives T = 201 frames; each stride-2 block halves it (ceil) before its body
-MAZE7_BLOCKS = [(201, 128, 128, False, False), (101, 128, 128, True, False),
-                (51, 128, 128, True, False), (26, 128, 128, True, False),
-                (13, 128, 256, True, True)]
-MAZE3_BLOCKS = [(101, 128, 128, False, False), (51, 128, 128, True, False),
-                (26, 128, 256, True, True)]
+# gives T = 201 frames; (T in, Cin, Cout, pre, 1x1 skip, stride) as in
+# MAZE5_BLOCKS, so a stride-2 block's K1 pools its raw input on load
+MAZE7_BLOCKS = [(201, 128, 128, False, False, 1), (201, 128, 128, True, False, 2),
+                (101, 128, 128, True, False, 2), (51, 128, 128, True, False, 2),
+                (26, 128, 256, True, True, 2)]
+MAZE3_BLOCKS = [(201, 128, 128, False, False, 2), (101, 128, 128, True, False, 2),
+                (51, 128, 256, True, True, 2)]
 # maze2's six blocks (the 768 -> 128 head on the base encoder's output) and
-# maze6's five (the 1024 -> 128 head on the fused taps' 1x1 proj), T 201 in
-MAZE2_BLOCKS = [(201, 768, 128, False, True), (101, 128, 128, True, False),
-                (51, 128, 128, True, False), (26, 128, 128, True, False),
-                (13, 128, 256, True, True), (7, 256, 256, True, False)]
-MAZE6_BLOCKS = [(201, 1024, 128, False, True)] + MAZE7_BLOCKS[1:]
+# maze6's five (the 1024 -> 128 head on the fused taps' 1x1 proj), T 201 in;
+# the heads keep stride 1
+MAZE2_BLOCKS = [(201, 768, 128, False, True, 1), (201, 128, 128, True, False, 2),
+                (101, 128, 128, True, False, 2), (51, 128, 128, True, False, 2),
+                (26, 128, 256, True, True, 2), (13, 256, 256, True, False, 2)]
+MAZE6_BLOCKS = [(201, 1024, 128, False, True, 1)] + MAZE7_BLOCKS[1:]
 # the Wav2Vec2 models whose trunk blocks K1 is timed at (phase 2) and whose
 # folded trunk is held against the unfolded one (phase 4e)
 W2V2_K1_BLOCKS = (("maze7", MAZE7_BLOCKS), ("maze3", MAZE3_BLOCKS),
                   ("maze2", MAZE2_BLOCKS), ("maze6", MAZE6_BLOCKS))
-K1_CASES = [  # name, B, T, Cin, Cout, pre, skip, act, pool
+K1_CASES = [  # name, B, T, Cin, Cout, pre, skip, act, pool[, stride]
     ("head", 2, 100, 128, 128, False, False, "relu", 1),
     ("ragged", 2, 300, 128, 128, True, False, "relu", 1),
     ("skip1x1", 1, 77, 128, 256, True, True, "relu", 1),
@@ -406,11 +412,12 @@ K1_CASES = [  # name, B, T, Cin, Cout, pre, skip, act, pool
     ("head1024_ragged", 3, 125, 1024, 128, False, True, "relu", 1),
     ("head1024_t1", 2, 1, 1024, 128, False, True, "relu", 1),
 ] + [(f"maze5_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip,
-     "relu", 1) for i, (t, cin, cout, pre, skip) in enumerate(MAZE5_BLOCKS)
+     "relu", 1, stride) for i, (t, cin, cout, pre, skip, stride) in enumerate(MAZE5_BLOCKS)
 ] + [(f"main_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip,
      "leaky", 3) for i, (t, cin, cout, pre, skip) in enumerate(MAIN_BLOCKS)
-] + [(f"{m}_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip, "relu", 1)
-     for m, blocks in W2V2_K1_BLOCKS for i, (t, cin, cout, pre, skip) in enumerate(blocks)]
+] + [(f"{m}_block{i}_b{BENCH_BATCH}", BENCH_BATCH, t, cin, cout, pre, skip, "relu", 1,
+      stride) for m, blocks in W2V2_K1_BLOCKS
+     for i, (t, cin, cout, pre, skip, stride) in enumerate(blocks)]
 K3_CASES = [  # name, B, T
     ("jax_case", 2, 8000), ("ragged", 3, 8001),
     (f"b{EVAL_BATCH}_cut{CUT}", EVAL_BATCH, CUT),
@@ -585,13 +592,15 @@ def cuda_ms(fn, reps: int = 5, warm: int = 2, runs: int = 3) -> float:
     return float(np.median(times))
 
 
-def k1_bound(b, t, cin, cout, pre, skip, pool):
+def k1_bound(b, t, cin, cout, pre, skip, pool, stride=1):
     """(ops_ms, bytes_ms): K1's conv products at the bf16 tensor-core peak,
-    and x read once, y and the sums written once and the operands read once
-    at the HBM rate. The bound is the larger of the two."""
+    and x read once (at stride 2 the raw x: T in), y and the sums written once
+    and the operands read once at the HBM rate. The bound is the larger of the
+    two."""
     per_row = 3 * cin * cout + 3 * cout * cout + (cin * cout if skip else 0)
-    flops = 2.0 * b * t * per_row
-    nbytes = (2 * b * t * cin + 2 * b * (t // pool) * cout + 4 * b * cout
+    tb = -(-t // stride)                        # the block's rows
+    flops = 2.0 * b * tb * per_row
+    nbytes = (2 * b * t * cin + 2 * b * (tb // pool) * cout + 4 * b * cout
               + 2 * per_row + 4 * 2 * cout + (4 * 2 * cin if pre else 0))
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
@@ -671,14 +680,16 @@ def k1_figures(rf):
     return figs
 
 
-def k1_case(rf, figs, name, b, t, cin, cout, pre, skip, act, pool, seed, dev):
+def k1_case(rf, figs, name, b, t, cin, cout, pre, skip, act, pool, stride=1, *, seed,
+            dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, t, cin), generator=g, device=dev).to(torch.bfloat16)
     ops = random_block(g, dev, cin, cout, pre, skip)
-    y, s = rf.resblock_eval(x, *ops, act=act, pool=pool)
+    y, s = rf.resblock_eval(x, *ops, act=act, pool=pool, stride=stride)
     torch.cuda.synchronize()
-    yp, sp = rf.resblock_eval_plain(x, *ops, act=act, pool=pool)
-    plain_ms = cuda_ms(lambda: rf.resblock_eval_plain(x, *ops, act=act, pool=pool))
+    yp, sp = rf.resblock_eval_plain(x, *ops, act=act, pool=pool, stride=stride)
+    plain_ms = cuda_ms(lambda: rf.resblock_eval_plain(x, *ops, act=act, pool=pool,
+                                                      stride=stride))
     check(tuple(y.shape) == tuple(yp.shape) and tuple(s.shape) == tuple(sp.shape),
           f"K1 {name}: shapes {tuple(y.shape)} {tuple(s.shape)}")
     err_y = (y.float() - yp.float()).abs().max().item()
@@ -686,12 +697,13 @@ def k1_case(rf, figs, name, b, t, cin, cout, pre, skip, act, pool, seed, dev):
     tol_y = 2e-2 * yp.float().abs().max().item()
     tol_s = 1e-3 * sp.abs().max().item()
     del yp, sp, y, s
-    ms = cuda_ms(lambda: rf.resblock_eval(x, *ops, act=act, pool=pool))
+    ms = cuda_ms(lambda: rf.resblock_eval(x, *ops, act=act, pool=pool, stride=stride))
     comp = cudnn_composition(ops, act)
-    composition_ms = cuda_ms(lambda: comp(x, pool))
-    ops_ms, bytes_ms = k1_bound(b, t, cin, cout, pre, skip, pool)
+    composition_ms = cuda_ms(lambda: comp(rf.overlap_avg_pool(x, 2) if stride == 2 else x,
+                                          pool))
+    ops_ms, bytes_ms = k1_bound(b, t, cin, cout, pre, skip, pool, stride)
     rec = {"case": name, "B": b, "T": t, "cin": cin, "cout": cout, "pre": pre,
-           "skip1x1": skip, "act": act, "pool": pool,
+           "skip1x1": skip, "act": act, "pool": pool, "stride": stride,
            "max_abs_err_y": err_y, "tol_y": tol_y,
            "max_abs_err_sums": err_s, "tol_sums": tol_s,
            "kernel_ms": ms, "plain_ms": plain_ms,

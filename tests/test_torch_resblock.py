@@ -11,7 +11,12 @@ version on the card (marker ``cuda``), on these cases and on cases that land on
 its 126-row tile's seams, for each of its three (Cin, Cout) instantiations, and
 on the 62-row tile's seams of its two wide stack-head instantiations (maze2's
 768 -> 128 and maze6's 1024 -> 128 with the 1x1 skip, no ``pre``), which the
-plain version covers against adfmsl at small T.
+plain version covers against adfmsl at small T. At stride 2 (the downsampling
+'tpu' blocks) the kernel pools x as it loads it: on the card its y and sums
+equal ``overlap_avg_pool`` followed by the stride-1 call bit for bit, for each
+of the three shapes a strided block runs, at odd and even T and across the
+tile's seams; and a maze5_fmsl eval forward on the card counts
+``k1.pooled_load`` 4 and gives the logits of that composition, bit for bit.
 
 JAX is imported inside the tests that compare with adfmsl, so that the card
 tests also run on a machine without JAX:
@@ -22,6 +27,7 @@ import pytest
 import torch
 
 from adfmsl_torch.ops import resblock_fused as rf
+from adfmsl_torch.utils import profiling
 
 CASES = [  # (B, T, Cin, Cout), first, skip, act, pool
     ((2, 100, 128, 128), True, False, "relu", 1),     # stack head, identity skip
@@ -60,6 +66,31 @@ SEAM_CASES = [
     ((3, 201, 1024, 128), True, True, "relu", 1),     # maze6's T 201, four tiles
     ((2, 1, 768, 128), True, True, "relu", 1),        # one row
 ]
+# Stride 2 (raw T in, ceil(T/2) rows out): the shapes a downsampling 'tpu'
+# block runs, at pooled lengths just below, on and just above multiples of 126
+STRIDE2_CASES = [  # (B, T, Cin, Cout), first, skip, act, pool, stride
+    ((2, 250, 128, 128), False, False, "relu", 1, 2),   # 125 rows, even T
+    ((1, 251, 128, 128), True, False, "relu", 1, 2),    # 126, odd T, no pre
+    ((2, 254, 128, 128), False, False, "relu", 1, 2),   # 127
+    ((1, 503, 128, 128), False, False, "relu", 1, 2),   # 252, odd T
+    ((3, 506, 128, 128), False, False, "relu", 1, 2),   # 253, batch 3
+    ((1, 253, 128, 128), False, False, "leaky", 1, 2),  # 127, LeakyReLU
+    ((2, 1, 128, 128), False, False, "relu", 1, 2),     # one raw row
+    ((2, 2, 128, 128), True, False, "relu", 1, 2),      # two raw rows, one window
+    ((2, 8044, 128, 128), False, False, "relu", 1, 2),  # maze5's block3 input
+    ((2, 249, 128, 256), False, True, "relu", 1, 2),    # 1x1 skip: 125, odd T
+    ((1, 252, 128, 256), True, True, "relu", 1, 2),     # 126, no pre
+    ((2, 505, 128, 256), False, True, "relu", 1, 2),    # 253
+    ((2, 8044, 128, 256), False, True, "relu", 1, 2),   # maze5's block4 input
+    ((2, 251, 256, 256), False, False, "relu", 1, 2),   # 256 -> 256: 126
+    ((1, 254, 256, 256), True, False, "relu", 1, 2),    # 127, no pre
+    ((2, 504, 256, 256), False, False, "relu", 1, 2),   # 252, even T
+    ((2, 13, 256, 256), False, False, "relu", 1, 2),    # maze2's block5 input
+]
+STRIDE2_IDS = ["s2_t250", "s2_t251_head", "s2_t254", "s2_t503", "s2_b3_t506",
+               "s2_leaky_t253", "s2_t1", "s2_t2_head", "s2_t8044", "s2_skip_t249",
+               "s2_skip_t252_head", "s2_skip_t505", "s2_skip_t8044", "s2_c256_t251",
+               "s2_c256_t254_head", "s2_c256_t504", "s2_c256_t13"]
 SEAM_IDS = ["t125", "t126", "t127_head", "t252", "t253", "t379", "pool3_t253",
             "pool3_t254", "pool3_t3", "t1", "b3_t1000", "skip_t379", "skip_pool3_t254",
             "c256_pool3_t379", "c256_t127", "c768_t61", "c768_t62", "c1024_t63",
@@ -200,6 +231,56 @@ def test_kernel_weight_layout_reads_back_bit_for_bit(cin, cout, skip):
         assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
 
 
+@pytest.mark.parametrize("t", [1, 2, 77, 250, 251])
+@pytest.mark.parametrize("cin,cout,skip", [(128, 128, False), (128, 256, True),
+                                           (256, 256, False)],
+                         ids=["c128_128", "c128_256_skip", "c256_256"])
+def test_plain_stride2_is_the_pool_then_the_block(t, cin, cout, skip):
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.standard_normal((2, t, cin)).astype(np.float32)).bfloat16()
+    args = [_torch(a) for a in _rand_block(rng, cin, cout, False, skip)]
+    y, s = rf.resblock_eval_plain(x, *args, stride=2)
+    yp, sp = rf.resblock_eval_plain(rf.overlap_avg_pool(x, 2), *args)
+    assert tuple(y.shape) == (2, (t + 1) // 2, cout)
+    assert torch.equal(y, yp) and torch.equal(s, sp)
+    with pytest.raises(ValueError, match="stride"):
+        rf.resblock_eval_plain(x, *args, stride=3)
+
+
+def _bn_stats(rng, bn):
+    c = bn.num_features
+    bn.running_mean.copy_(torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.3))
+    bn.running_var.copy_(torch.from_numpy(rng.uniform(0.2, 1.5, c).astype(np.float32)))
+    bn.weight.data.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)))
+    bn.bias.data.copy_(torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1))
+
+
+@pytest.mark.parametrize("cin,cout,t", [(128, 128, 301), (128, 256, 300)],
+                         ids=["identity_odd_t", "skip1x1_even_t"])
+def test_fused_stride2_block_gates_by_the_pooled_length(cin, cout, t):
+    """A strided 'tpu' block folded at eval (K1's plain version on the CPU, which
+    pools inside) against the same block unfolded: its SE gate takes the sums
+    over the pooled length. The SE weights are scaled up so that the gate's
+    mean matters: a gate from the raw length misses the tolerance."""
+    from adfmsl_torch.models.blocks import ResBlockSE
+
+    rng = np.random.default_rng(23)
+    torch.manual_seed(0)
+    blocks = [ResBlockSE(cin, cout, stride=2, fused_eval=fused, dtype=torch.bfloat16)
+              for fused in (True, False)]
+    _bn_stats(rng, blocks[0].bn1)
+    _bn_stats(rng, blocks[0].bn2)
+    with torch.no_grad():
+        blocks[0].se.fc1.weight.mul_(8.0)
+        blocks[0].se.fc2.weight.mul_(8.0)
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    x = torch.from_numpy(rng.standard_normal((2, t, cin)).astype(np.float32)).bfloat16()
+    with torch.inference_mode():
+        got, want = (b.eval()(x).float() for b in blocks)
+    assert tuple(got.shape) == (2, (t + 1) // 2, cout)
+    _close(got.numpy(), want.numpy(), want.numpy())
+
+
 def test_launch_refuses_shapes_the_kernel_lacks():
     rng = np.random.default_rng(17)
     for cin, cout, skip in ((64, 64, False), (128, 128, True), (256, 128, True)):
@@ -213,12 +294,26 @@ def test_launch_refuses_shapes_the_kernel_lacks():
         args = [_torch(a) for a in _rand_block(rng, cin, 128, first, True)]
         with pytest.raises(ValueError, match="stack head only"):
             rf._launch(x, *args, act="relu", pool=pool)
+    # ... and at stride 1: no pooled load there
+    for cin in (768, 1024):
+        x = torch.zeros((1, 12, cin), dtype=torch.bfloat16)
+        args = [_torch(a) for a in _rand_block(rng, cin, 128, True, True)]
+        with pytest.raises(ValueError, match="stack head only"):
+            rf._launch(x, *args, act="relu", pool=1, stride=2)
+    # stride 2 with the output MaxPool3, and strides other than 1 and 2
+    for cin, cout, skip, pool, stride in ((128, 128, False, 3, 2), (128, 256, True, 3, 2),
+                                          (128, 128, False, 1, 3), (256, 256, False, 1, 0)):
+        x = torch.zeros((1, 12, cin), dtype=torch.bfloat16)
+        args = [_torch(a) for a in _rand_block(rng, cin, cout, False, skip)]
+        with pytest.raises(ValueError, match="stride="):
+            rf._launch(x, *args, act="relu", pool=pool, stride=stride)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,first,skip,act,pool", CASES + SEAM_CASES,
-                         ids=IDS + SEAM_IDS)
-def test_kernel_matches_plain_on_card(shape, first, skip, act, pool, monkeypatch):
+@pytest.mark.parametrize("shape,first,skip,act,pool,stride",
+                         [c + (1,) for c in CASES + SEAM_CASES] + STRIDE2_CASES,
+                         ids=IDS + SEAM_IDS + STRIDE2_IDS)
+def test_kernel_matches_plain_on_card(shape, first, skip, act, pool, stride, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the K1 kernel has no CPU form")
     rng = np.random.default_rng(11)
@@ -230,14 +325,92 @@ def test_kernel_matches_plain_on_card(shape, first, skip, act, pool, monkeypatch
     # the plain version in exact f32: no TF32 in cuDNN convs or cuBLAS matmuls
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    yp, sp = rf.resblock_eval_plain(x, *args, act=act, pool=pool)
+    yp, sp = rf.resblock_eval_plain(x, *args, act=act, pool=pool, stride=stride)
     before = rf.resblock_eval.launches
-    y, s = rf.resblock_eval(x, *args, act=act, pool=pool)
+    pooled_before = profiling.totals().get("k1.pooled_load", 0)
+    y, s = rf.resblock_eval(x, *args, act=act, pool=pool, stride=stride)
     torch.cuda.synchronize()
     assert rf.resblock_eval.launches == before + 1
+    assert profiling.totals().get("k1.pooled_load", 0) == pooled_before + (stride == 2)
+    if stride == 2:         # pooled on load: the pool, then the stride-1 kernel
+        y1, s1 = rf.resblock_eval(rf.overlap_avg_pool(x, 2), *args, act=act, pool=pool)
+        assert torch.equal(y, y1) and torch.equal(s, s1)
     yp, sp = yp.float().cpu().numpy(), sp.cpu().numpy()
     np.testing.assert_allclose(y.float().cpu().numpy(), yp, rtol=0,
                                atol=2e-2 * float(np.abs(yp).max()))
     np.testing.assert_allclose(s.cpu().numpy(), sp, rtol=0,
                                atol=1e-3 * float(np.abs(sp).max()))
 
+
+def _maze5_fmsl(dev, cut):
+    from adfmsl_torch.config import make_experiment
+    from adfmsl_torch.models import build_model
+
+    exp = make_experiment("maze5_fmsl")
+    exp.data.cut = cut
+    exp.model.extra["fused_eval_trunk"] = True
+    model = build_model(exp.model, device=dev, seed=0)
+    assert model.dtype == torch.bfloat16
+    return model.eval()
+
+
+def _pool_then_block(self, x, generator):
+    """The 'tpu' block at eval as it ran before K1 pooled on load: the overlap
+    avg pool as a pass of its own, then the stride-1 K1 call and the SE gate
+    over the pooled length."""
+    if self.stride > 1:
+        x = rf.overlap_avg_pool(x, self.stride)
+    tensors = dict(self.named_parameters())
+    tensors.update(self.named_buffers())
+    ops = rf.fold_block_params(tensors, first=self.first)
+    y, sums = rf.resblock_eval(x.to(torch.bfloat16).contiguous(), *ops)
+    gate = self.se.gate(sums / x.shape[1])
+    return y * gate[:, None, :].to(y.dtype)
+
+
+def _k1_counts():
+    return rf.resblock_eval.launches, profiling.totals().get("k1.pooled_load", 0)
+
+
+def test_pooled_load_is_not_counted_on_cpu():
+    model = _maze5_fmsl("cpu", 4000)
+    x = 0.1 * torch.randn((2, 4000), generator=torch.Generator().manual_seed(3))
+    before = _k1_counts()
+    with torch.inference_mode():
+        out = model(x)
+    assert torch.isfinite(out["logits"]).all()
+    assert _k1_counts() == before                   # the plain version: no launch
+
+
+@pytest.mark.cuda
+def test_maze5_fmsl_pools_on_load_on_card(monkeypatch):
+    """One maze5_fmsl eval batch on the card: K1 five times, four of them
+    pooling on load; its logits equal, bit for bit, those of the same model with
+    each block run as the pool and then the stride-1 K1 call. A training
+    forward and backward runs no K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K1 kernel has no CPU form")
+    from adfmsl_torch.models.blocks import ResBlockSE
+
+    cut = 64600
+    model = _maze5_fmsl("cuda", cut)
+    x = 0.1 * torch.randn((8, cut), generator=torch.Generator().manual_seed(5)).cuda()
+    launches, pooled = _k1_counts()
+    with torch.inference_mode():
+        logits = model(x)["logits"]
+    torch.cuda.synchronize()
+    assert _k1_counts() == (launches + 5, pooled + 4)
+    with monkeypatch.context() as m:
+        m.setattr(ResBlockSE, "_tpu", _pool_then_block)
+        with torch.inference_mode():
+            want = model(x)["logits"]
+    assert torch.isfinite(want).all() and torch.equal(logits, want)
+
+    model.train()
+    before = _k1_counts()
+    rngs = {k: torch.Generator(device="cuda").manual_seed(i)
+            for i, k in enumerate(("dropout", "specaugment", "lsa"))}
+    out = model(x[:2, :16000], labels=torch.tensor([0, 1], device="cuda"), rngs=rngs)
+    out["logits"].float().sum().backward()
+    torch.cuda.synchronize()
+    assert _k1_counts() == before

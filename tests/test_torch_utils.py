@@ -144,6 +144,11 @@ def _small_yaml(path, **extra):
 
 def test_cli_train_config_log_dir_profile_dir(fixture, tmp_path, monkeypatch, caplog):
     import logging
+    import sys
+
+    # another test file's tensorboardX stub (no close()) may sit in sys.modules
+    # on this worker: let MetricsLogger import the package afresh
+    monkeypatch.delitem(sys.modules, "tensorboardX", raising=False)
 
     import adfmsl_torch.config as config
     from adfmsl.config import load_yaml as jax_load_yaml
